@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each failure exits non-zero, and the final line is printed only when
+every phase passed):
+
+1. env      - the card's name and power limit (nvidia-smi), torch/CUDA
+              versions, TF32 off for f32 products, and the nvcc build of every
+              kernel in ``src/repro_torch/kernels/csrc`` (build seconds).
+2. kernels  - each hand-written kernel against its plain PyTorch version on
+              the card, at the main path's shapes and the edge cases of the
+              JAX package's kernel tests; one JSON line per case with the
+              error, tolerance, kernel / plain / SDPA times and the bound.
+              bf16 outputs are also held row by row against the RMS of the
+              f32 plain output (``row_rel_err``), since bf16's absolute
+              tolerance is as large as a long window's outputs.
+3. model    - starcoder2-3b at full config (30 layers, d_model 3072, random
+              weights from a seeded generator): (a) prefill of 8192 tokens,
+              (b) a ServeEngine answering 8 requests, (c) teacher-forced
+              decode logits against forward logits in f32.  Launch counters
+              are reset just before and read just after each of (a)-(c).
+4. a ``{"kernels": [...]}`` line with each kernel's launches on the main
+   path ((a) and (b); the check (c) is reported on its own line) and its
+   times, then the card line, then ``{"ok": true, ...}``.
+
+It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
+# the tensor cores, HBM bandwidth.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py
+# bf16 only: largest error in a row over that row's RMS in the f32 plain
+# output.  A bf16 step is 2^-8 of a value, so a right kernel stays near
+# 2^-8 * (row max / row RMS), about 0.015; one key too many or too few in a
+# window of W keys moves a row by about 1/sqrt(W) of its RMS.
+REL_TOL = 3e-2
+PREFILL_S = 8192  # > starcoder2-3b's 4096 window, so the window is live
+
+
+def log(obj) -> None:
+    print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` in ms (CUDA events around ``iters``
+    calls, after ``warmup`` calls)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_device(label: str, fn) -> None:
+    """Runs ``fn`` once under ``torch.profiler`` and prints the device time
+    of the kernels it ran against the wall time (the profiler's own cost
+    makes the idle share an upper bound), plus the costliest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(dict(profile=label, wall_s=wall, device_busy_s=busy,
+             device_idle_share=(1 - busy / wall) if busy else "not measured",
+             top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
+                               calls=e.count) for e in top]))
+
+
+def row_rel_err(out, want32) -> float:
+    """Largest |out - want32| of a row (all dims but the last) over the RMS
+    of that row of ``want32``."""
+    err = (out.float() - want32).abs().amax(-1)
+    rms = want32.pow(2).mean(-1).sqrt()
+    return float((err / rms.clamp_min(1e-12)).max())
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+def phase_env():
+    import torch
+
+    from repro_torch.kernels import _build
+
+    log(f"card: {card_line()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    paths = _build.build(*_build.SOURCES)
+    log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(paths)} "
+        f"(per source: { {k: round(v, 1) for k, v in _build.build_seconds.items()} })")
+    for name in _build.SOURCES:
+        lines = _build.build_log(name).splitlines()
+        regs = [ln.strip() for ln in lines if "registers" in ln]
+        spills = [ln.strip() for ln in lines if "spill" in ln and not ln.strip().startswith(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+        log(f"ptxas {name}: {len(regs)} kernels; max "
+            f"{max((int(r.split('Used ')[1].split()[0]) for r in regs), default=0)} registers; "
+            f"spilling: {spills if spills else 'none'}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+def _visible_pairs(Sq, Sk, causal, window, q_offset=0) -> int:
+    import numpy as np
+
+    qp = q_offset + np.arange(Sq)
+    hi = np.minimum(qp + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(Sq, dtype=np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softcap=0.0,
+               q_offset=0, blocks=((64, 64),), iters=10, library=True, gen=None):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    # the plain version computes in f32 and rounds only its output
+    want32 = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    want = want32.to(dt).float()
+    outs = [flash_attention(q, k, v, block_q=bq, block_k=bk, **kw) for bq, bk in blocks]
+    torch.cuda.synchronize()
+    err = max(float((o.float() - want).abs().max()) for o in outs)
+    rel = max(row_rel_err(o, want32) for o in outs)
+    spread = max(float((o.float() - outs[0].float()).abs().max()) for o in outs)
+    tol = TOL[dtype]
+    rel_tol = REL_TOL if dtype == "bfloat16" else None
+    ok = (err <= tol and spread <= tol and (rel_tol is None or rel <= rel_tol)
+          and all(bool(torch.isfinite(o).all()) for o in outs))
+    bq, bk = blocks[0]
+    kernel_ms = time_ms(lambda: flash_attention(q, k, v, block_q=bq, block_k=bk, **kw), iters)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), max(2, iters // 5), 1)
+    library_ms = None
+    if library and softcap == 0.0:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window > 0 or q_offset or (causal and Sq != Sk):
+            qp = q_offset + torch.arange(Sq, device="cuda")[:, None]
+            kp = torch.arange(Sk, device="cuda")[None, :]
+            mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+            if causal:
+                mask &= kp <= qp
+            if window > 0:
+                mask &= kp > qp - window
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+
+        library_ms = time_ms(sdpa, iters)
+    pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
+    flops = 4.0 * B * Hq * D * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    rec = dict(kernel="flash_attention", case=name,
+               shape=dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D, causal=causal,
+                          window=window, softcap=softcap, q_offset=q_offset,
+                          blocks=[list(b) for b in blocks]),
+               dtype=dtype, max_abs_err=err, block_spread=spread, tol=tol,
+               row_rel_err=rel, rel_tol=rel_tol,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    log(rec)
+    del want32, want, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def decode_case(name, B, S, Hq, Hkv, D, dtype, lengths, window=0, splits=(8,), block_s=256,
+                iters=20, gen=None):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dt)
+    kc = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
+    vc = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    want32 = decode_attention_ref(q.float(), kc.float(), vc.float(), lens, window=window)
+    want = want32.to(dt).float()
+    outs = [decode_attention(q, kc, vc, lens, window=window, num_splits=ns, block_s=block_s)
+            for ns in splits]
+    torch.cuda.synchronize()
+    err = max(float((o.float() - want).abs().max()) for o in outs)
+    rel = max(row_rel_err(o, want32) for o in outs)
+    spread = max(float((o.float() - outs[0].float()).abs().max()) for o in outs)
+    tol = TOL[dtype]
+    rel_tol = REL_TOL if dtype == "bfloat16" else None
+    ok = (err <= tol and spread <= tol and (rel_tol is None or rel <= rel_tol)
+          and all(bool(torch.isfinite(o).all()) for o in outs))
+    ns0 = splits[0]
+    kernel_ms = time_ms(
+        lambda: decode_attention(q, kc, vc, lens, window=window, num_splits=ns0,
+                                 block_s=block_s), iters)
+    plain_ms = time_ms(lambda: decode_attention_ref(q, kc, vc, lens, window=window),
+                       max(2, iters // 5), 1)
+    pos = torch.arange(S, device="cuda")[None, :]
+    mask = pos < lens[:, None].long()
+    if window > 0:
+        mask &= pos > lens[:, None].long() - 1 - window
+    qt = q[:, :, None, :]
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    m4 = mask[:, None, None, :]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=m4, enable_gqa=True), iters)
+    visible = int(mask.sum())
+    flops = 4.0 * Hq * D * visible
+    nbytes = (2 * visible * Hkv * D + 2 * q.numel()) * q.element_size() + lens.numel() * 4
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    rec = dict(kernel="decode_attention", case=name,
+               shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window, splits=list(splits),
+                          block_s=block_s, lengths=list(lengths)),
+               dtype=dtype, max_abs_err=err, split_spread=spread, tol=tol,
+               row_rel_err=rel, rel_tol=rel_tol,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    log(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels(main_S: int):
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    recs = [
+        # starcoder2-3b's attention: Hq=24, Hkv=2, D=128, bf16, window 4096
+        flash_case("main_S512", 1, 512, 512, 24, 2, 128, "bfloat16", window=4096, gen=g),
+        flash_case(f"main_S{main_S}", 1, main_S, main_S, 24, 2, 128, "bfloat16",
+                   window=4096, iters=5, gen=g),
+        flash_case("f32", 2, 256, 256, 8, 2, 64, "float32", gen=g),
+        # f32 at the main heads with a live window: one key too many or too
+        # few moves outputs by about 1/window, far above 2e-5
+        flash_case("f32_main_heads_window300", 1, 1024, 1024, 24, 2, 128, "float32",
+                   window=300, blocks=((64, 64), (64, 32), (128, 32)), gen=g),
+        flash_case("f32_main_heads_window300_q_offset", 1, 128, 1024, 24, 2, 128, "float32",
+                   window=300, q_offset=896, blocks=((64, 64), (64, 32), (128, 32)), gen=g),
+        flash_case("f32_main_heads_window4096", 1, 5000, 5000, 24, 2, 128, "float32",
+                   window=4096, iters=3, gen=g),
+        flash_case("ragged_D64", 1, 300, 300, 4, 2, 64, "float32", gen=g),
+        flash_case("ragged_D64_bf16", 2, 300, 300, 4, 2, 64, "bfloat16", window=64, gen=g),
+        flash_case("noncausal_SqneSk", 1, 64, 320, 4, 4, 64, "float32", causal=False, gen=g),
+        flash_case("q_offset", 1, 64, 320, 4, 2, 64, "float32", q_offset=256, gen=g),
+        flash_case("mha", 2, 256, 256, 8, 8, 64, "bfloat16", gen=g),
+        flash_case("mqa_D32", 1, 192, 192, 6, 1, 32, "float32", gen=g),
+        flash_case("softcap", 1, 128, 128, 4, 2, 64, "float32", softcap=30.0, gen=g),
+        flash_case("blocks", 1, 256, 256, 4, 2, 64, "float32",
+                   blocks=((64, 64), (64, 32), (128, 32), (128, 64)), gen=g),
+        flash_case("blocks_bf16_D128", 1, 1000, 1000, 24, 2, 128, "bfloat16", window=300,
+                   blocks=((64, 64), (64, 32), (128, 32), (128, 64)), gen=g),
+        decode_case("main_serve_B8_S256", 8, 256, 24, 2, 128, "bfloat16", [96] * 8,
+                    window=4096, gen=g),
+        decode_case(f"long_B8_S{main_S}", 8, main_S, 24, 2, 128, "bfloat16",
+                    [1, 100, 4096, 4097, 5000, 8000, main_S, 3000], window=4096, gen=g),
+        decode_case("f32_D32", 4, 300, 6, 2, 32, "float32", [1, 77, 299, 300], splits=(4,),
+                    block_s=128, gen=g),
+        decode_case("f32_D64_mha", 1, 1024, 8, 8, 64, "float32", [700], splits=(8,),
+                    block_s=128, gen=g),
+        decode_case("split_invariance", 2, 2048, 8, 2, 64, "float32", [1500, 2048],
+                    window=1000, splits=(1, 2, 8), block_s=128, gen=g),
+        decode_case("mqa_D128", 2, 256, 4, 1, 128, "float32", [17, 256], splits=(2,),
+                    block_s=128, gen=g),
+    ]
+    bad = [r["case"] for r in recs if not r["ok"]]
+    if bad:
+        raise SystemExit(f"kernel parity failed: {bad}")
+    log(f"kernel parity: {len(recs)} cases passed; launches while comparing "
+        f"(not counted as main path): {launch_counts()}")
+    reset_launch_counts()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+def phase_model(prefill_S: int):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("starcoder2-3b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    cparams = model.cast_for_compute(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"starcoder2-3b: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, window {cfg.attn_window}, {n_params / 1e9:.3f} B params, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    totals = {}  # launches of the main path: (a) and (b)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t
+        counts = launch_counts()
+        log(f"{label}: launches {counts}")
+        return out, dt_s, counts
+
+    # (a) prefill, sliding window live (S > 4096); a short warm-up first
+    model.forward(cparams, {"tokens": torch.randint(0, cfg.vocab_size, (1, 256), device="cuda")},
+                  last_token_only=True)
+    toks = torch.randint(0, cfg.vocab_size, (1, prefill_S), generator=gen, device="cuda")
+    logits, secs, counts = counted(
+        "prefill", lambda: model.forward(cparams, {"tokens": toks}, last_token_only=True))
+    if logits.shape != (1, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"prefill logits bad: shape {tuple(logits.shape)}")
+    if counts["flash_attention"] < cfg.num_layers:
+        raise SystemExit(f"prefill launched flash_attention {counts['flash_attention']} times")
+    totals.update(counts)
+    log(dict(phase="prefill", B=1, S=prefill_S, seconds=secs, tokens_per_s=prefill_S / secs))
+    profile_device("prefill", lambda: model.forward(cparams, {"tokens": toks},
+                                                    last_token_only=True))
+
+    # (b) ServeEngine: 8 requests, prompts of 8-64 tokens, 32 new tokens each
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, int(n))],
+                    max_new_tokens=32) for n in rng.integers(8, 65, 8)]
+    eng = ServeEngine(model, cparams, batch_size=8, max_seq=256, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    done, secs, counts = counted("serve", lambda: eng.run(reqs))
+    totals = {k_: totals[k_] + v_ for k_, v_ in counts.items()}
+    steps = eng.cache["pos"]
+    for r in done:
+        if not r.done or len(r.generated) != 32 or not all(
+                0 <= t < cfg.vocab_size for t in r.generated):
+            raise SystemExit(f"request not answered: {r}")
+    if counts["decode_attention"] < cfg.num_layers * steps:
+        raise SystemExit(f"serve: {counts['decode_attention']} decode launches for {steps} steps")
+    log(dict(phase="serve", requests=len(done), decode_steps=steps, seconds=secs,
+             steps_per_s=steps / secs, batch_tokens_per_s=steps * 8 / secs,
+             generated_tokens_per_s=sum(len(r.generated) for r in done) / secs,
+             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9))
+    feed = torch.ones((8,), dtype=torch.int32, device="cuda")
+
+    def eight_steps():
+        for _ in range(8):
+            eng._step(eng.params, eng.cache, feed)
+
+    profile_device("serve_8_decode_steps", eight_steps)
+    del eng
+
+    # (c) teacher-forced decode == forward, in f32 (flash kernel vs decode kernel)
+    del cparams
+    model32 = build_model(cfg.replace(dtype="float32"))
+    B, S = 2, 32
+    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+
+    def both():
+        full = model32.forward(params, {"tokens": toks})
+        cache = model32.init_cache(B, S, device="cuda")
+        outs = []
+        for t in range(S):
+            lg, cache = model32.decode_step(params, cache, toks[:, t])
+            outs.append(lg)
+        return full, torch.stack(outs, dim=1)
+
+    (full, dec), _, counts = counted("decode_vs_forward_f32", both)
+    err = float((dec - full).abs().max())
+    close = bool(torch.allclose(dec, full, atol=2e-3, rtol=2e-3))
+    log(dict(phase="decode_vs_forward_f32", B=B, S=S, max_abs_err=err, atol=2e-3, rtol=2e-3,
+             ok=close))
+    if not close:
+        raise SystemExit("decode_step logits disagree with forward logits")
+    if counts["flash_attention"] < cfg.num_layers or counts["decode_attention"] < cfg.num_layers * S:
+        raise SystemExit(f"decode_vs_forward launches too few: {counts}")
+    return totals
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+KERNEL_META = {
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:35"),
+    "decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:33"),
+}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
+        return 1
+
+    phase_env()
+    recs = phase_kernels(PREFILL_S)
+    totals = phase_model(PREFILL_S)
+
+    main_case = {"flash_attention": f"main_S{PREFILL_S}",
+                 "decode_attention": "main_serve_B8_S256"}
+    kernels = []
+    for name, meta in KERNEL_META.items():
+        r = next(r for r in recs if r["case"] == main_case[name])
+        kernels.append(dict(
+            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            launches=totals[name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
+    if not all(k["launches"] > 0 for k in kernels):
+        raise SystemExit(f"a kernel of the main path never launched: {totals}")
+    log({"kernels": kernels})
+    log(card_line())
+    log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""Hand-written Hopper (sm_90a) kernels of the port, each with its plain
+PyTorch version and a launch counter.
+
+Layout per kernel: ``<name>/kernel.py`` (ctypes binding of ``csrc/<name>.cu``),
+``<name>/ops.py`` (public wrapper: CUDA tensor -> kernel, CPU tensor -> plain
+version), ``<name>/ref.py`` (the plain version).  ``_build.py`` compiles the
+CUDA sources with nvcc on first use.
+
+Kernels:
+  flash_attention  - blocked causal/windowed GQA attention, online softmax
+  decode_attention - split-K flash decoding over a deep KV cache
+"""
+from typing import Dict
+
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention
+
+KERNELS = {"flash_attention": flash_attention, "decode_attention": decode_attention}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

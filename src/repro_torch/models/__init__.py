@@ -1,0 +1,14 @@
+"""repro_torch.models - decoder-only LMs in PyTorch (dense family in this
+slice; the other families raise until their slice lands)."""
+from .config import SHAPES, ModelConfig, ShapeConfig
+from .lm import LanguageModel, require_ported
+
+Model = LanguageModel
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    require_ported(cfg)
+    return LanguageModel(cfg)
+
+
+__all__ = ["LanguageModel", "Model", "ModelConfig", "SHAPES", "ShapeConfig", "build_model"]

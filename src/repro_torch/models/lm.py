@@ -1,0 +1,252 @@
+"""Decoder-only language model, dense family (twin of the JAX package's
+``repro/models/lm.py``).
+
+Layers are organised into *groups* (sub-pattern, repeats) exactly as in the
+JAX model, and the parameters keep that layout: ``params["group<i>"]`` is a
+list over the sub-pattern of per-layer dicts, and a group with repeats > 1
+stores every leaf with a leading repeats dim.  A Python loop over the repeats
+takes the place of ``lax.scan``.  ``cfg.remat`` has no effect when serving.
+
+Forward signature is batch-dict based: ``{"tokens": (B, S) integer}``, with
+optional ``"positions"`` (B, S).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+
+import torch
+
+from .. import resolve_device
+from . import layers as L
+from .config import ModelConfig
+
+LayerSpec = Tuple[str, str]  # (mixer: attn|ssm, ffn: dense|moe|none)
+
+# Leaves that the JAX model casts to the compute dtype at every use
+# (``w.astype(x.dtype)``); norm scales are read in f32 and stay as they are.
+MATMUL_LEAVES = ("embed", "lm_head", "wq", "wk", "wv", "wo", "w1", "w2", "w3")
+
+UNPORTED_FAMILIES = {
+    "moe": "ROADMAP queue 1, item 3 (MoE)",
+    "ssm": "ROADMAP queue 1, item 4 (SSM and hybrid)",
+    "hybrid": "ROADMAP queue 1, item 4 (SSM and hybrid)",
+    "encdec": "ROADMAP queue 1, item 6 (enc-dec and VLM)",
+    "vlm": "ROADMAP queue 1, item 6 (enc-dec and VLM)",
+}
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; "
+            f"see {UNPORTED_FAMILIES[cfg.family]}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Layer grouping
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class LayerGroup:
+    subpattern: Tuple[LayerSpec, ...]
+    repeats: int
+
+
+def layer_pattern(cfg: ModelConfig) -> List[LayerSpec]:
+    def ffn_kind(i: int) -> str:
+        if cfg.is_moe_layer(i):
+            return "moe"
+        return "dense" if cfg.d_ff > 0 else "none"  # mamba2 blocks: mixer only
+
+    return [
+        ("attn" if cfg.is_attn_layer(i) else "ssm", ffn_kind(i))
+        for i in range(cfg.num_layers)
+    ]
+
+
+def compute_groups(cfg: ModelConfig) -> List[LayerGroup]:
+    pattern = layer_pattern(cfg)
+    groups: List[LayerGroup] = []
+    i = 0
+    if cfg.first_dense_layers:
+        groups.append(LayerGroup(tuple(pattern[: cfg.first_dense_layers]), repeats=1))
+        i = cfg.first_dense_layers
+    body = pattern[i:]
+    if not body:
+        return groups
+    period = 1
+    if cfg.family == "hybrid" and cfg.attn_period:
+        period = cfg.attn_period
+    elif cfg.num_experts and cfg.moe_every > 1:
+        period = cfg.moe_every
+    assert len(body) % period == 0, (len(body), period)
+    sub = tuple(body[:period])
+    for r in range(len(body) // period):
+        assert tuple(body[r * period : (r + 1) * period]) == sub
+    groups.append(LayerGroup(sub, repeats=len(body) // period))
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# Block apply (one layer)
+# ---------------------------------------------------------------------------
+def block_apply(
+    cfg: ModelConfig, spec: LayerSpec, p: Dict[str, Any], x: torch.Tensor,
+    positions: torch.Tensor,
+) -> torch.Tensor:
+    mixer, ffn = spec
+    if mixer != "attn" or ffn != "dense":
+        raise NotImplementedError(f"layer kind {spec} is not ported yet")
+    h = L.attention(p["attn"], L.rms_norm(x, p["ln1"]), cfg, positions, causal=True)
+    x = x + h
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
+
+
+def block_decode(
+    cfg: ModelConfig, spec: LayerSpec, p: Dict[str, Any], c: Dict[str, torch.Tensor],
+    x_t: torch.Tensor, pos: int,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    mixer, ffn = spec
+    if mixer != "attn" or ffn != "dense":
+        raise NotImplementedError(f"layer kind {spec} is not ported yet")
+    h, c = L.attention_decode(p["attn"], L.rms_norm(x_t, p["ln1"]), c, pos, cfg)
+    x_t = x_t + h
+    return x_t + L.mlp(p["mlp"], L.rms_norm(x_t, p["ln2"]), cfg.mlp_act), c
+
+
+def _index(tree: Any, r: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _map_leaves(tree: Any, fn, key: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(v, fn, key) for v in tree]
+    return fn(key, tree)
+
+
+class LanguageModel:
+    def __init__(self, cfg: ModelConfig):
+        require_ported(cfg)
+        self.cfg = cfg
+        self.groups = compute_groups(cfg)
+
+    # -- params ---------------------------------------------------------
+    def init(
+        self, generator: Union[torch.Generator, int] = 0, device=None
+    ) -> Dict[str, Any]:
+        """Random parameters in ``cfg.param_dtype``, drawn from ``generator``
+        (or a generator seeded with that int) on ``device`` (CUDA unless the
+        caller asks for ``"cpu"``).  The JAX model draws other numbers from
+        its keys; tests carry JAX's weights across with ``bridge``."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        if isinstance(generator, int):
+            generator = torch.Generator(device=dev).manual_seed(generator)
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device}, parameters on {dev}")
+        pd = L.pdt(cfg)
+        params: Dict[str, Any] = {
+            "embed": L._init(generator, (cfg.vocab_size, cfg.d_model), 0.02, pd),
+            "final_norm": torch.ones((cfg.d_model,), dtype=pd, device=dev),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L._init(generator, (cfg.d_model, cfg.vocab_size), 0.02, pd)
+        for gi, g in enumerate(self.groups):
+            # a repeated group is drawn with its leading repeats dim at once
+            lead = () if g.repeats == 1 else (g.repeats,)
+            params[f"group{gi}"] = [
+                self._init_block(generator, spec, lead) for spec in g.subpattern
+            ]
+        return params
+
+    def _init_block(self, gen: torch.Generator, spec: LayerSpec, lead: Tuple[int, ...]):
+        cfg = self.cfg
+        ones = torch.ones(lead + (cfg.d_model,), dtype=L.pdt(cfg), device=gen.device)
+        return {
+            "ln1": ones,
+            "ln2": ones.clone(),
+            "attn": L.init_attention(gen, cfg, lead),
+            "mlp": L.init_mlp(gen, cfg, lead),
+        }
+
+    def cast_for_compute(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The same tree with every matmul weight cast once to the compute
+        dtype.  Gives the numbers of the JAX model's per-use ``.astype``;
+        norm scales keep their dtype (the JAX norms read them in f32)."""
+        dt = L.cdt(self.cfg)
+        return _map_leaves(params, lambda k, t: t.to(dt) if k in MATMUL_LEAVES else t)
+
+    def _layers(self, params: Dict[str, Any]) -> Iterator[Tuple[int, int, int, LayerSpec, Any]]:
+        for gi, g in enumerate(self.groups):
+            gp = params[f"group{gi}"]
+            for r in range(g.repeats):
+                for j, spec in enumerate(g.subpattern):
+                    yield gi, r, j, spec, (gp[j] if g.repeats == 1 else _index(gp[j], r))
+
+    # -- forward (train / prefill) -----------------------------------------
+    def forward(
+        self, params: Dict[str, Any], batch: Dict[str, Any], last_token_only: bool = False,
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = params["embed"].to(L.cdt(cfg))[tokens.long()]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        for _, _, _, spec, p in self._layers(params):
+            x = block_apply(cfg, spec, p, x, positions)
+        x = L.rms_norm(x, params["final_norm"])
+        if last_token_only:  # prefill: only the last position feeds sampling
+            x = x[:, -1:, :]
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = x @ head.to(x.dtype)
+        if cfg.logits_fp32:
+            logits = logits.float()
+        return logits
+
+    # -- decode -------------------------------------------------------------
+    def init_cache(
+        self, batch_size: int, max_seq: int, dtype: Optional[torch.dtype] = None, device=None,
+    ) -> Dict[str, Any]:
+        """Zeroed KV cache on ``device`` (CUDA unless the caller asks for
+        ``"cpu"``), laid out like the parameters: per group a list over the
+        sub-pattern of {"k", "v"}, with a leading repeats dim when the group
+        repeats.  ``"pos"`` is a host int."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        dt = dtype or L.cdt(cfg)
+        cache: Dict[str, Any] = {"pos": 0}
+        shape = (batch_size, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        for gi, g in enumerate(self.groups):
+            lead = () if g.repeats == 1 else (g.repeats,)
+            cache[f"group{gi}"] = [
+                {name: torch.zeros(lead + shape, dtype=dt, device=dev) for name in ("k", "v")}
+                for _ in g.subpattern
+            ]
+        return cache
+
+    def decode_step(
+        self, params: Dict[str, Any], cache: Dict[str, Any], tokens: torch.Tensor,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One token per sequence (``tokens`` (B,)) against the cache.  The
+        cache is updated IN PLACE (k, v at ``pos``, then ``pos + 1``) and
+        returned; the JAX model returns a new cache instead."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        x = params["embed"].to(L.cdt(cfg))[tokens.long()][:, None, :]  # (B,1,d)
+        for gi, r, j, spec, p in self._layers(params):
+            c = cache[f"group{gi}"][j]
+            if self.groups[gi].repeats > 1:
+                c = {name: t[r] for name, t in c.items()}
+            x, _ = block_decode(cfg, spec, p, c, x, pos)
+        cache["pos"] = pos + 1
+        x = L.rms_norm(x, params["final_norm"])
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = (x @ head.to(x.dtype))[:, 0]
+        return logits.float(), cache

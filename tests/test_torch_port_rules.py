@@ -1,0 +1,93 @@
+"""Rules of the PyTorch port, checked statically and against the JAX package.
+
+* ``src/repro_torch/**`` and ``chip_smoke.py`` import no ``jax`` and no
+  module of ``repro`` (absolute, or relative imports that climb out of
+  ``repro_torch``): the port keeps its own copies.
+* The port's config registry equals the JAX one field by field.
+"""
+import ast
+import dataclasses
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro import configs as jax_configs
+from repro.models import config as jax_model_config
+from repro_torch import configs as torch_configs
+from repro_torch.models import config as torch_model_config
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    """Absolute names of every module a file imports."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    if path.name == "chip_smoke.py":
+        package = []
+    else:
+        package = list(path.relative_to(ROOT / "src").parent.parts)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = package[: len(package) - (node.level - 1)] if node.level - 1 else package
+                if node.level - 1 > len(package):
+                    yield "<relative import above src>"
+                    continue
+                yield ".".join(base + ([node.module] if node.module else []))
+            else:
+                yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro") or name.startswith("<")
+
+
+def test_scan_covers_the_port():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for want in ("chip_smoke.py", "src/repro_torch/models/lm.py",
+                 "src/repro_torch/kernels/flash_attention/ops.py",
+                 "src/repro_torch/serve/engine.py", "src/repro_torch/bridge.py"):
+        assert want in names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_repro_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_relative_import_resolution():
+    """The scan resolves relative imports: ``from .. import x`` inside
+    repro_torch/models stays in repro_torch."""
+    mods = set(_imported_modules(PORT / "models" / "lm.py"))
+    assert "repro_torch" in mods and "repro_torch.models.config" in mods
+
+
+@pytest.mark.parametrize("arch", jax_configs.ARCH_IDS)
+def test_configs_equal_field_by_field(arch):
+    want = jax_configs.get_config(arch)
+    got = torch_configs.get_config(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(got.scaled_down()) == dataclasses.asdict(want.scaled_down())
+    assert got.param_counts() == want.param_counts()
+
+
+def test_registry_equal():
+    assert torch_configs.ARCH_IDS == jax_configs.ARCH_IDS
+    assert torch_configs._ALIASES == jax_configs._ALIASES
+    for alias in jax_configs._ALIASES:
+        assert dataclasses.asdict(torch_configs.get_config(alias)) == dataclasses.asdict(
+            jax_configs.get_config(alias))
+    assert {k: dataclasses.asdict(v) for k, v in torch_model_config.SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in jax_model_config.SHAPES.items()}
+    with pytest.raises(KeyError):
+        torch_configs.get_config("no-such-arch")
