@@ -12,18 +12,27 @@ every phase passed):
 2. kernels  - each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes and the edge cases of the
               JAX package's kernel tests; one JSON line per case with the
-              error, tolerance, kernel / plain / SDPA times and the bound.
-              bf16 outputs are also held row by row against the RMS of the
-              f32 plain output (``row_rel_err``), since bf16's absolute
-              tolerance is as large as a long window's outputs.
-3. model    - starcoder2-3b at full config (30 layers, d_model 3072, random
-              weights from a seeded generator): (a) prefill of 8192 tokens,
-              (b) a ServeEngine answering 8 requests, (c) teacher-forced
-              decode logits against forward logits in f32.  Launch counters
-              are reset just before and read just after each of (a)-(c).
+              error, tolerance, kernel / plain / library times and the bound.
+              bf16 attention outputs are also held row by row against the RMS
+              of the f32 plain output (``row_rel_err``), since bf16's absolute
+              tolerance is as large as a long window's outputs.  ssd_scan is
+              held at the JAX suite's 5e-4 (atol and rtol; a bf16 output also
+              gets its own rounding, 2^-8 of the value) for y and the final
+              state, 1e-3 across chunk sizes, on the JAX suite's inputs and
+              on those of the mamba2 mixer (fast decay); moe_router's ids
+              and slots must be equal and its gates within 1e-6.
+3. models   - at full width, random weights from a seeded generator, for
+              starcoder2-3b (dense), mamba2-2.7b (SSM) and moonshot-v1-16b-a3b
+              (MoE, bf16 parameters): (a) a prefill, (b) a ServeEngine
+              answering 8 requests, (c) teacher-forced decode logits against
+              forward logits in f32 (moonshot at 4 of its 48 layers).  Launch
+              counters are reset just before and read just after each of
+              (a)-(c), and a run with fewer launches than the model's layers
+              need fails; each phase logs its peak device memory and (a), (b)
+              a profile of device time and idle share.
 4. a ``{"kernels": [...]}`` line with each kernel's launches on the main
-   path ((a) and (b); the check (c) is reported on its own line) and its
-   times, then the card line, then ``{"ok": true, ...}``.
+   path ((a) and (b) of every model; the checks (c) are reported on their
+   own lines) and its times, then the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -49,6 +58,10 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py
 # window of W keys moves a row by about 1/sqrt(W) of its RMS.
 REL_TOL = 3e-2
 PREFILL_S = 8192  # > starcoder2-3b's 4096 window, so the window is live
+SSD_TOL = 5e-4  # tests/test_kernels.py::TestSSDScan (atol and rtol)
+SSD_CHUNK_TOL = 1e-3  # ... its chunk-invariance test
+BF16_STEP = 2.0 ** -8  # largest relative rounding error of a bf16 value
+GATE_TOL = 1e-6  # tests/test_kernels.py::TestMoERouter
 
 
 def log(obj) -> None:
@@ -276,6 +289,137 @@ def decode_case(name, B, S, Hq, Hkv, D, dtype, lengths, window=0, splits=(8,), b
     return rec
 
 
+def ssd_allowed(want32, dtype):
+    """Allowed |out - want32| of an ssd_scan output, elementwise: the JAX
+    suite's 5e-4 (atol and rtol), widened for a bf16 output by its own
+    rounding (at most 2^-8 of the value)."""
+    rtol = SSD_TOL + (BF16_STEP if dtype == "bfloat16" else 0.0)
+    return SSD_TOL + rtol * want32.abs()
+
+
+def ssd_ratio(out, want32, dtype) -> float:
+    """Largest |out - want32| over its allowance; 1 or less passes."""
+    return float(((out.float() - want32).abs() / ssd_allowed(want32, dtype)).max())
+
+
+def router_agreement(got, want) -> dict:
+    """ids and slots must be equal, gates within GATE_TOL."""
+    (gi, gg, gs), (wi, wg, ws) = got, want
+    gate_err = float((gg - wg).abs().max())
+    ids_equal, slots_equal = bool((gi == wi).all()), bool((gs == ws).all())
+    return dict(ids_equal=ids_equal, slots_equal=slots_equal, gate_err=gate_err,
+                ok=ids_equal and slots_equal and gate_err <= GATE_TOL)
+
+
+def ssd_flops(B, L, H, P, N, chunk) -> float:
+    """Per chunk of q tokens and head: the q(q+1)/2 causal entries of C.B^T
+    (2N each) and of W x (2P each, W[i, j] = 0 for j > i), plus 4qNP (C h
+    and the state update); the ragged last chunk counts its own q."""
+    Q = min(chunk, L)
+    qs = [min(Q, L - c) for c in range(0, L, Q)]
+    return float(B * H * sum(q * (q + 1) * (N + P) + 4 * q * N * P for q in qs))
+
+
+def ssd_inputs(B, L, H, P, N, G, dtype, regime, gen):
+    """x, dt, a, B, C, D on the card.  ``regime="jax"``: the JAX suite's
+    scales (slow decay: dt = |0.1 n|, a = -|n|).  ``regime="mamba2"``: what
+    mamba2-2.7b's mixer hands the scan - x, B, C after silu, dt = softplus
+    of a unit normal (about 1), a = -(1..16) as ``init_mamba2`` sets it - so
+    the log-decay inside a 128-token chunk reaches the hundreds."""
+    import torch
+    import torch.nn.functional as F
+
+    dt_ = getattr(torch, dtype)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    if regime == "mamba2":
+        x = F.silu(randn((B, L, H, P))).to(dt_)
+        dt = F.softplus(randn((B, L, H)))
+        a = -torch.linspace(1.0, 16.0, H, device="cuda")
+        Bm, Cm = F.silu(randn((B, L, G, N))).to(dt_), F.silu(randn((B, L, G, N))).to(dt_)
+    else:
+        x = randn((B, L, H, P), 0.5).to(dt_)
+        dt = randn((B, L, H), 0.1).abs()
+        a = -randn((H,)).abs()
+        Bm, Cm = randn((B, L, G, N), 0.3).to(dt_), randn((B, L, G, N), 0.3).to(dt_)
+    return x, dt, a, Bm, Cm, randn((H,))
+
+
+def ssd_case(name, B, L, H, P, N, dtype, chunks=(128,), groups=None, regime="jax", iters=5,
+             gen=None):
+    """ssd_scan against its plain version (the token recurrence) on the same
+    inputs (``ssd_inputs``) for y and the final state."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+
+    G = groups or H
+    x, dt, a, Bm, Cm, D = ssd_inputs(B, L, H, P, N, G, dtype, regime, gen)
+    # the plain version computes in f32 from the same (rounded) inputs
+    want32, h32 = ssd_scan_ref(x.float(), dt, a, Bm.float(), Cm.float(), D)
+    outs = [ssd_scan(x, dt, a, Bm, Cm, D, chunk=c) for c in chunks]
+    torch.cuda.synchronize()
+    err = max(float((y.float() - want32).abs().max()) for y, _ in outs)
+    ratio = max(ssd_ratio(y, want32, dtype) for y, _ in outs)
+    state_ratio = max(ssd_ratio(h, h32, "float32") for _, h in outs)
+    spread = max(float((y.float() - outs[0][0].float()).abs().max()) for y, _ in outs)
+    rel = row_rel_err(outs[0][0], want32) if dtype == "bfloat16" else None
+    ok = (ratio <= 1.0 and state_ratio <= 1.0 and spread <= SSD_CHUNK_TOL
+          and (rel is None or rel <= REL_TOL)
+          and all(bool(torch.isfinite(y).all()) for y, _ in outs))
+    c0 = chunks[0]
+    kernel_ms = time_ms(lambda: ssd_scan(x, dt, a, Bm, Cm, D, chunk=c0), iters)
+    plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, a, Bm, Cm, D), 1, 1)
+    flops = ssd_flops(B, L, H, P, N, c0)
+    nbytes = ((2 * x.numel() + Bm.numel() + Cm.numel()) * x.element_size()
+              + 4 * (dt.numel() + a.numel() + D.numel() + B * H * N * P))
+    bound_ms, bound_by = bound(flops, nbytes, "float32")  # f32 arithmetic for either type
+    rec = dict(kernel="ssd_scan", case=name,
+               shape=dict(B=B, L=L, H=H, P=P, N=N, G=G, chunks=list(chunks)), regime=regime,
+               dtype=dtype,
+               max_abs_err=err, err_over_allowed=ratio, state_err_over_allowed=state_ratio,
+               chunk_spread=spread, tol=SSD_TOL, chunk_tol=SSD_CHUNK_TOL, row_rel_err=rel,
+               rel_tol=REL_TOL if rel is not None else None, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    log(rec)
+    del want32, h32, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def router_case(name, T, E, k, ties=False, iters=20, gen=None):
+    """moe_router against its plain version: ids and slots bit-exact, gates
+    within 1e-6.  ``ties``: integer logits, so many experts tie exactly."""
+    import torch
+
+    from repro_torch.kernels.moe_router import moe_router, moe_router_ref
+
+    if ties:
+        logits = torch.randint(0, 3, (T, E), generator=gen, device="cuda").float()
+        logits[: T // 8] = 1.0  # rows where every expert ties
+    else:
+        logits = torch.randn((T, E), generator=gen, device="cuda")
+    got = moe_router(logits, k)
+    want = moe_router_ref(logits, k)
+    torch.cuda.synchronize()
+    agree = router_agreement(got, want)
+    kernel_ms = time_ms(lambda: moe_router(logits, k), iters)
+    plain_ms = time_ms(lambda: moe_router_ref(logits, k), max(2, iters // 5), 1)
+    # softmax (max, exp, sum, divide) and k rounds of compare-select, per logit
+    flops = float(T * E * (4 + 2 * k))
+    nbytes = 4.0 * (T * E + 3 * T * k)
+    bound_ms, bound_by = bound(flops, nbytes, "float32")
+    rec = dict(kernel="moe_router", case=name, shape=dict(T=T, E=E, k=k, ties=ties),
+               dtype="float32", max_abs_err=agree["gate_err"], tol=GATE_TOL,
+               ids_equal=agree["ids_equal"], slots_equal=agree["slots_equal"],
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+               bound_by=bound_by, ok=agree["ok"])
+    log(rec)
+    return rec
+
+
 def phase_kernels(main_S: int):
     import torch
 
@@ -320,6 +464,42 @@ def phase_kernels(main_S: int):
         decode_case("mqa_D128", 2, 256, 4, 1, 128, "float32", [17, 256], splits=(2,),
                     block_s=128, gen=g),
     ]
+    for dtype in ("float32", "bfloat16"):
+        short = "f32" if dtype == "float32" else "bf16"
+        # the shapes of tests/test_kernels.py::TestSSDScan (heads pre-expanded)
+        for B, L, H, P, N, chunk in ((1, 64, 2, 32, 16, 16), (2, 128, 4, 64, 32, 32),
+                                     (1, 100, 2, 32, 16, 32), (1, 256, 8, 64, 128, 64)):
+            recs.append(ssd_case(f"jax_{B}x{L}x{H}x{P}x{N}_c{chunk}_{short}", B, L, H, P, N,
+                                 dtype, chunks=(chunk,), gen=g))
+        # mamba2-2.7b's prefill: 80 heads, P 64, N 128, one group read in place
+        recs.append(ssd_case(f"mamba2_prefill_{short}", 1, 8192, 80, 64, 128, dtype, groups=1,
+                             gen=g))
+    recs += [
+        ssd_case("ragged_L8000", 1, 8000, 80, 64, 128, "float32", groups=1, gen=g),
+        ssd_case("chunk_invariance", 1, 128, 2, 32, 16, "float32", chunks=(16, 32, 64, 128),
+                 gen=g),
+        ssd_case("grouped_B2_G2", 2, 300, 8, 64, 64, "float32", groups=2, chunks=(64, 128),
+                 gen=g),
+        # chunks that are not multiples of 16: zero rows pad each chunk in
+        # shared memory, and the ragged last chunk (300 = 7 x 40 + 20)
+        ssd_case("chunks_40_100", 1, 300, 8, 64, 64, "float32", chunks=(40, 100), gen=g),
+        ssd_case("chunk_40_bf16", 2, 300, 8, 64, 64, "bfloat16", groups=2, chunks=(40,),
+                 gen=g),
+        ssd_case("chunks_40_100_mamba2_regime", 2, 300, 80, 64, 128, "float32", groups=1,
+                 chunks=(40, 100), regime="mamba2", gen=g),
+        # the main path's inputs: fast decay, in-chunk log-decay in the hundreds
+        ssd_case("mamba2_prefill_mamba2_regime", 1, 8192, 80, 64, 128, "float32", groups=1,
+                 regime="mamba2", gen=g),
+    ]
+    # the shapes of tests/test_kernels.py::TestMoERouter, then the main path's
+    for T, E, k in ((64, 8, 2), (256, 64, 6), (128, 384, 8), (100, 16, 4), (32, 16, 2)):
+        recs.append(router_case(f"jax_T{T}_E{E}_k{k}", T, E, k, gen=g))
+    recs += [
+        router_case("moonshot_prefill", 4096, 64, 6, gen=g),
+        router_case("moonshot_serve", 8, 64, 6, gen=g),
+        router_case("kimi_T4096", 4096, 384, 8, gen=g),
+        router_case("ties", 1000, 64, 6, ties=True, gen=g),
+    ]
     bad = [r["case"] for r in recs if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel parity failed: {bad}")
@@ -332,107 +512,169 @@ def phase_kernels(main_S: int):
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
-def phase_model(prefill_S: int):
+# The models of the main path: (arch, config changes, prefill length, changes
+# for the f32 decode-vs-forward check, its sequence lengths).  moonshot is
+# served with bf16 parameters (f32 would be 110 GB), and its f32 check runs
+# at 4 of its 48 layers (1 dense + 3 MoE), dropless as decode is.
+MODELS = (
+    ("starcoder2-3b", {}, PREFILL_S, {}, (32,)),
+    ("mamba2-2.7b", {}, 8192, {}, (32, 40)),
+    ("moonshot-v1-16b-a3b", {"param_dtype": "bfloat16"}, 4096,
+     {"param_dtype": "float32", "num_layers": 4, "capacity_factor": 64.0}, (32,)),
+)
+
+
+def expected_launches(cfg):
+    """Kernel launches of one forward and of one decode step: one per
+    attention layer (flash / decode), per mamba2 layer (ssd_scan, forward
+    only: decode runs the recurrence) and per MoE layer (moe_router)."""
+    from repro_torch.models.lm import layer_pattern
+
+    pattern = layer_pattern(cfg)
+    attn = sum(m == "attn" for m, _ in pattern)
+    ssm = sum(m == "ssm" for m, _ in pattern)
+    moe = sum(f == "moe" for _, f in pattern)
+    forward = {"flash_attention": attn, "ssd_scan": ssm, "moe_router": moe}
+    step = {"decode_attention": attn, "moe_router": moe}
+    return ({k: v for k, v in forward.items() if v}, {k: v for k, v in step.items() if v})
+
+
+def require_launches(label, counts, per_call, calls) -> None:
+    """Exits when a kernel launched fewer than ``per_call[k] * calls`` times."""
+    short = {k: (counts.get(k, 0), n * calls) for k, n in per_call.items()
+             if counts.get(k, 0) < n * calls}
+    if short:
+        raise SystemExit(f"{label}: kernels launched fewer times than the path needs "
+                         f"(got, want): {short}")
+
+
+def counted(label, fn):
+    """Runs ``fn`` with every launch count set to 0 just before; returns its
+    result, the seconds it took (host clock after a synchronize), the launch
+    counts just after and the peak device memory."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t
+    counts = launch_counts()
+    log(f"{label}: launches {counts}")
+    return out, dt_s, counts, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_model(arch, replace, prefill_S, check_replace, check_lengths):
+    """One model at full width (random weights from a seeded generator):
+    (a) prefill of ``prefill_S`` tokens, (b) a ServeEngine answering 8
+    requests, (c) teacher-forced decode logits against forward logits in
+    f32.  Returns the launches of (a) and (b), the main path."""
+    import gc
+
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("starcoder2-3b")
+    cfg = get_config(arch).replace(**replace)
     model = build_model(cfg)
+    per_forward, per_step = expected_launches(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     cparams = model.cast_for_compute(params)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"starcoder2-3b: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
-        f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size}, window {cfg.attn_window}, {n_params / 1e9:.3f} B params, "
-        f"init {time.perf_counter() - t0:.1f} s")
-    totals = {}  # launches of the main path: (a) and (b)
+    log(f"{arch}: {cfg.num_layers} layers {[g.subpattern for g in model.groups]}, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, params {cfg.param_dtype}, compute {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; launches per forward "
+        f"{per_forward}, per decode step {per_step}")
     gen = torch.Generator(device="cuda").manual_seed(1)
 
-    def counted(label, fn):
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt_s = time.perf_counter() - t
-        counts = launch_counts()
-        log(f"{label}: launches {counts}")
-        return out, dt_s, counts
-
-    # (a) prefill, sliding window live (S > 4096); a short warm-up first
+    # (a) prefill; a short warm-up first
     model.forward(cparams, {"tokens": torch.randint(0, cfg.vocab_size, (1, 256), device="cuda")},
                   last_token_only=True)
     toks = torch.randint(0, cfg.vocab_size, (1, prefill_S), generator=gen, device="cuda")
-    logits, secs, counts = counted(
-        "prefill", lambda: model.forward(cparams, {"tokens": toks}, last_token_only=True))
+    logits, secs, counts, peak = counted(
+        f"{arch} prefill", lambda: model.forward(cparams, {"tokens": toks}, last_token_only=True))
     if logits.shape != (1, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
-        raise SystemExit(f"prefill logits bad: shape {tuple(logits.shape)}")
-    if counts["flash_attention"] < cfg.num_layers:
-        raise SystemExit(f"prefill launched flash_attention {counts['flash_attention']} times")
-    totals.update(counts)
-    log(dict(phase="prefill", B=1, S=prefill_S, seconds=secs, tokens_per_s=prefill_S / secs))
-    profile_device("prefill", lambda: model.forward(cparams, {"tokens": toks},
-                                                    last_token_only=True))
+        raise SystemExit(f"{arch} prefill logits bad: shape {tuple(logits.shape)}")
+    require_launches(f"{arch} prefill", counts, per_forward, 1)
+    totals = dict(counts)
+    log(dict(phase=f"{arch}/prefill", B=1, S=prefill_S, seconds=secs,
+             tokens_per_s=prefill_S / secs, max_memory_allocated_gb=peak))
+    profile_device(f"{arch}/prefill", lambda: model.forward(cparams, {"tokens": toks},
+                                                            last_token_only=True))
 
     # (b) ServeEngine: 8 requests, prompts of 8-64 tokens, 32 new tokens each
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, int(n))],
                     max_new_tokens=32) for n in rng.integers(8, 65, 8)]
     eng = ServeEngine(model, cparams, batch_size=8, max_seq=256, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    done, secs, counts = counted("serve", lambda: eng.run(reqs))
-    totals = {k_: totals[k_] + v_ for k_, v_ in counts.items()}
+    done, secs, counts, peak = counted(f"{arch} serve", lambda: eng.run(reqs))
+    totals = {k: totals.get(k, 0) + counts[k] for k in counts}
     steps = eng.cache["pos"]
     for r in done:
         if not r.done or len(r.generated) != 32 or not all(
                 0 <= t < cfg.vocab_size for t in r.generated):
-            raise SystemExit(f"request not answered: {r}")
-    if counts["decode_attention"] < cfg.num_layers * steps:
-        raise SystemExit(f"serve: {counts['decode_attention']} decode launches for {steps} steps")
-    log(dict(phase="serve", requests=len(done), decode_steps=steps, seconds=secs,
+            raise SystemExit(f"{arch}: request not answered: {r}")
+    require_launches(f"{arch} serve", counts, per_step, steps)
+    log(dict(phase=f"{arch}/serve", requests=len(done), decode_steps=steps, seconds=secs,
              steps_per_s=steps / secs, batch_tokens_per_s=steps * 8 / secs,
              generated_tokens_per_s=sum(len(r.generated) for r in done) / secs,
-             max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9))
+             max_memory_allocated_gb=peak))
     feed = torch.ones((8,), dtype=torch.int32, device="cuda")
 
     def eight_steps():
         for _ in range(8):
             eng._step(eng.params, eng.cache, feed)
 
-    profile_device("serve_8_decode_steps", eight_steps)
-    del eng
+    profile_device(f"{arch}/serve_8_decode_steps", eight_steps)
+    del eng, cparams, logits
 
-    # (c) teacher-forced decode == forward, in f32 (flash kernel vs decode kernel)
-    del cparams
-    model32 = build_model(cfg.replace(dtype="float32"))
-    B, S = 2, 32
-    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    # (c) teacher-forced decode == forward, in f32
+    cfg32 = cfg.replace(dtype="float32", **check_replace)
+    model32 = build_model(cfg32)
+    if cfg32.param_dtype != cfg.param_dtype or cfg32.num_layers != cfg.num_layers:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model32.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    per_forward32, per_step32 = expected_launches(cfg32)
+    B = 2
 
     def both():
-        full = model32.forward(params, {"tokens": toks})
-        cache = model32.init_cache(B, S, device="cuda")
-        outs = []
-        for t in range(S):
-            lg, cache = model32.decode_step(params, cache, toks[:, t])
-            outs.append(lg)
-        return full, torch.stack(outs, dim=1)
+        errs = []
+        for S in check_lengths:
+            toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+            full = model32.forward(params, {"tokens": toks})
+            cache = model32.init_cache(B, S, device="cuda")
+            outs = []
+            for t in range(S):
+                lg, cache = model32.decode_step(params, cache, toks[:, t])
+                outs.append(lg)
+            dec = torch.stack(outs, dim=1)
+            errs.append((S, float((dec - full).abs().max()),
+                         bool(torch.allclose(dec, full, atol=2e-3, rtol=2e-3))))
+        return errs
 
-    (full, dec), _, counts = counted("decode_vs_forward_f32", both)
-    err = float((dec - full).abs().max())
-    close = bool(torch.allclose(dec, full, atol=2e-3, rtol=2e-3))
-    log(dict(phase="decode_vs_forward_f32", B=B, S=S, max_abs_err=err, atol=2e-3, rtol=2e-3,
-             ok=close))
-    if not close:
-        raise SystemExit("decode_step logits disagree with forward logits")
-    if counts["flash_attention"] < cfg.num_layers or counts["decode_attention"] < cfg.num_layers * S:
-        raise SystemExit(f"decode_vs_forward launches too few: {counts}")
+    errs, _, counts, peak = counted(f"{arch} decode_vs_forward_f32", both)
+    log(dict(phase=f"{arch}/decode_vs_forward_f32", layers=cfg32.num_layers, B=B,
+             S=list(check_lengths), max_abs_err=[e for _, e, _ in errs], atol=2e-3, rtol=2e-3,
+             ok=all(ok for _, _, ok in errs), max_memory_allocated_gb=peak))
+    if not all(ok for _, _, ok in errs):
+        raise SystemExit(f"{arch}: decode_step logits disagree with forward logits: {errs}")
+    require_launches(f"{arch} decode_vs_forward", counts, per_forward32, len(check_lengths))
+    require_launches(f"{arch} decode_vs_forward", counts, per_step32, sum(check_lengths))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -454,7 +696,16 @@ KERNEL_META = {
     "decode_attention": dict(
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:33"),
+    "ssd_scan": dict(
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:32"),
+    "moe_router": dict(
+        source="src/repro_torch/kernels/csrc/moe_router.cu",
+        replaces="src/repro/kernels/moe_router/kernel.py:29"),
 }
+# the parity case at the main path's shape that each kernel's line reports
+MAIN_CASE = {"flash_attention": f"main_S{PREFILL_S}", "decode_attention": "main_serve_B8_S256",
+             "ssd_scan": "mamba2_prefill_mamba2_regime", "moe_router": "moonshot_prefill"}
 
 
 def main() -> int:
@@ -471,16 +722,17 @@ def main() -> int:
 
     phase_env()
     recs = phase_kernels(PREFILL_S)
-    totals = phase_model(PREFILL_S)
+    totals = {}
+    for spec in MODELS:
+        for k, v in phase_model(*spec).items():
+            totals[k] = totals.get(k, 0) + v
 
-    main_case = {"flash_attention": f"main_S{PREFILL_S}",
-                 "decode_attention": "main_serve_B8_S256"}
     kernels = []
     for name, meta in KERNEL_META.items():
-        r = next(r for r in recs if r["case"] == main_case[name])
+        r = next(r for r in recs if r["case"] == MAIN_CASE[name])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=totals[name], max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+            launches=totals.get(name, 0), max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
     if not all(k["launches"] > 0 for k in kernels):

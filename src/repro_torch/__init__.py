@@ -2,10 +2,10 @@
 repo, beside the JAX package ``repro`` (the reference).  It imports neither
 ``jax`` nor anything of ``repro``.
 
-This slice serves dense decoder-only LMs on one NVIDIA H100: configs
-(``repro_torch.configs``), the model (``repro_torch.models``), the serving
-engine (``repro_torch.serve``) and two hand-written Hopper kernels
-(``repro_torch.kernels``).  ``repro_torch.bridge`` carries parameters from
+It serves decoder-only LMs of the dense, MoE, SSM (mamba2) and hybrid
+(jamba) families on one NVIDIA H100: configs (``repro_torch.configs``), the
+model (``repro_torch.models``), the serving engine (``repro_torch.serve``)
+and four hand-written Hopper kernels (``repro_torch.kernels``).  ``repro_torch.bridge`` carries parameters from
 the JAX model across, through numpy.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

@@ -6,7 +6,10 @@
 (nested dicts and lists, stacked groups with their leading repeats dim), so
 every leaf maps to exactly one tensor under the same key.  Keys are those of
 the JAX checkpoint format: path components joined by "/", dict keys sorted,
-list items by index (``group0/0/attn/wq``).  Nothing here imports JAX.
+list items by index (``group0/0/attn/wq``, ``group1/0/moe/router``,
+``group0/0/ssm/conv_w``): every family's leaves carry across the same way,
+and ``like`` checks them against the port's own layout (a mamba2 block
+without an FFN has no ``ln2`` on either side).  Nothing here imports JAX.
 """
 from __future__ import annotations
 

@@ -9,13 +9,18 @@ CUDA sources with nvcc on first use.
 Kernels:
   flash_attention  - blocked causal/windowed GQA attention, online softmax
   decode_attention - split-K flash decoding over a deep KV cache
+  ssd_scan         - mamba2 SSD chunked scan, state carried in shared memory
+  moe_router       - MoE softmax, top-k and token-major capacity slots
 """
 from typing import Dict
 
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
+from .moe_router import moe_router
+from .ssd_scan import ssd_scan
 
-KERNELS = {"flash_attention": flash_attention, "decode_attention": decode_attention}
+KERNELS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+           "ssd_scan": ssd_scan, "moe_router": moe_router}
 
 
 def launch_counts() -> Dict[str, int]:

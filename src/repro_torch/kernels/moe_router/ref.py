@@ -1,0 +1,45 @@
+"""Plain PyTorch version of the fused MoE router.  Twin of
+``repro/kernels/moe_router/ref.py``.
+
+Softmax over experts, top-k by iterated argmax (``torch.argmax`` returns the
+first maximal index, so ties go to the lower expert id, as ``lax.top_k`` and
+the TPU kernel break them; ``torch.topk`` promises no order), gates
+renormalised over the k winners.  Capacity slots are assigned token-major
+over the flattened (T·k) choice list - the gshard exclusive cumsum of
+``moe_ffn`` - so ``slot >= capacity`` means the (token, choice) is dropped.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def moe_router_ref(
+    logits: torch.Tensor,  # (T, E)
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    T, E = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    rows = torch.arange(T, device=logits.device)
+    ids, gates = [], []
+    p = probs.clone()
+    for _ in range(k):
+        idx = torch.argmax(p, dim=-1)
+        ids.append(idx)
+        gates.append(p[rows, idx])
+        p[rows, idx] = -1.0
+    ids_t = torch.stack(ids, dim=1)  # (T, k)
+    gates_t = torch.stack(gates, dim=1)
+    gates_t = gates_t / torch.clamp(gates_t.sum(dim=1, keepdim=True), min=1e-9)
+    return ids_t.to(torch.int32), gates_t, exclusive_slots(ids_t, E)
+
+
+def exclusive_slots(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """Slot of each (token, choice) in its expert's queue: the exclusive
+    cumsum of the one-hot choices over the token-major (T·k) list."""
+    T, k = ids.shape
+    flat = F.one_hot(ids.long(), E).reshape(T * k, E)
+    pos = torch.cumsum(flat, dim=0) - flat
+    return (pos * flat).sum(-1).reshape(T, k).to(torch.int32)

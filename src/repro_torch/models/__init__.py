@@ -1,5 +1,5 @@
-"""repro_torch.models - decoder-only LMs in PyTorch (dense family in this
-slice; the other families raise until their slice lands)."""
+"""repro_torch.models - decoder-only LMs in PyTorch (dense, MoE, SSM and
+hybrid families; enc-dec and VLM raise until their slice lands)."""
 from .config import SHAPES, ModelConfig, ShapeConfig
 from .lm import LanguageModel, require_ported
 

@@ -1,15 +1,21 @@
-"""PyTorch model layers of the dense decoder family (twins of the JAX
-package's ``repro/models/layers.py``).
+"""PyTorch model layers of the dense, MoE and mamba2 (SSD) families (twins
+of the JAX package's ``repro/models/layers.py``).
 
 Conventions:
   * params are (nested) dicts of tensors; apply fns are plain functions.
   * compute dtype = cfg.dtype (bf16 on the card); accumulations in f32.
-  * attention on a CUDA tensor always runs the hand-written Hopper kernels
-    (``kernels/flash_attention`` for prefill/forward, ``kernels/decode_attention``
-    for each decode step): the port has no XLA, so ``attn_impl`` "xla" and
-    "pallas" name the same attention on the card.  On a CPU tensor, "xla"
-    runs the ``_attn_chunked`` twin and "pallas*" the kernel's plain version,
-    so each CPU path follows the JAX branch of the same name.
+  * Route rule, the same for every layer that has a kernel: on a CUDA tensor
+    the layer always runs the hand-written Hopper kernel (``flash_attention``
+    for prefill/forward attention, ``decode_attention`` for each decode step,
+    ``ssd_scan`` in ``mamba2_mixer``, ``moe_router`` in ``moe_ffn``): the
+    port has no XLA, so ``attn_impl`` "xla" and "pallas" name the same thing
+    on the card.  On a CPU tensor, "xla" runs the twin of the JAX
+    formulation (``_attn_chunked``, the chunked SSD einsums, ``top_k`` plus
+    cumsum) and "pallas*" the kernel wrapper, whose CPU path is the kernel's
+    plain version - so the CPU tests reach the kernel route's glue too.
+  * The JAX ``moe_ffn`` and ``mamba2_mixer`` call no Pallas kernel; the
+    kernels compute the same functions (``tests/test_torch_models.py``
+    holds both routes against JAX).
 """
 from __future__ import annotations
 
@@ -21,6 +27,9 @@ import torch.nn.functional as F
 
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
+from ..kernels.moe_router import moe_router
+from ..kernels.moe_router.ref import exclusive_slots
+from ..kernels.ssd_scan import ssd_scan
 from .config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -61,7 +70,7 @@ def apply_rope(
 ) -> torch.Tensor:
     if mrope and positions.dim() == 3:
         raise NotImplementedError("M-RoPE (3-stream positions) comes with the VLM slice "
-                                  "(ROADMAP queue 1, item 6)")
+                                  "(ROADMAP queue 1, item 3)")
     D = x.shape[-1]
     freqs = rope_freqs(D, theta, x.device)  # (D/2,)
     angles = positions.float()[:, :, None] * freqs[None, None, :]
@@ -218,12 +227,208 @@ def mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     return h @ params["w2"].to(x.dtype)
 
 
+def _route_top_k(logits: torch.Tensor, k: int):
+    """Twin of the JAX formulation: softmax, ``lax.top_k`` (a stable
+    descending sort: ties go to the lower expert id, as in ``lax.top_k``),
+    gates renormalised, slots by the gshard exclusive cumsum."""
+    probs = torch.softmax(logits, dim=-1)
+    gate, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, ids = gate[..., :k], ids[..., :k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    slots = torch.stack([exclusive_slots(i, logits.shape[-1]) for i in ids])
+    return ids, gate, slots
+
+
+def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            dropless: bool = False) -> torch.Tensor:
+    """Token-choice top-k MoE with GShard-style grouped capacity dispatch.
+
+    x: (T, d) flattened tokens.  Tokens split into ``cfg.moe_groups`` groups,
+    each with its own capacity C (``dropless``: C = tokens per group, as the
+    serving path uses).  Routing (softmax, top-k, slots) is the
+    ``moe_router`` kernel on the kernel route, once per group; a choice with
+    slot >= C is dropped and scatters 0 into slot C - 1, so every kept
+    (expert, slot) receives exactly one token and the scatter is exact.
+    """
+    T, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    G = max(1, cfg.moe_groups if T % max(1, cfg.moe_groups) == 0 else 1)
+    t = T // G
+    if dropless:
+        C = t
+    else:
+        C = max(1, int(math.ceil(t * k / E * cfg.capacity_factor)))
+        C = min(C, t)
+
+    xg = x.reshape(G, t, d)
+    logits = (xg @ params["router"].to(x.dtype)).float()  # (G, t, E)
+    if x.device.type == "cpu" and cfg.attn_impl == "xla":
+        expert_ids, gate, pos = _route_top_k(logits, k)
+    else:
+        routed = [moe_router(logits[g].contiguous(), k) for g in range(G)]
+        expert_ids, gate, pos = (torch.stack(r) for r in zip(*routed))
+    expert_ids = expert_ids.long()
+    gate = gate.to(x.dtype)
+    keep = pos < C  # capacity-dropped choices fall back to the residual only
+
+    safe_pos = torch.where(keep, pos, C - 1).long()
+    gid = torch.arange(G, device=x.device)[:, None, None].expand(G, t, k)
+    buf = torch.zeros((G, E, C, d), dtype=x.dtype, device=x.device)
+    tok = xg[:, :, None, :].expand(G, t, k, d)
+    buf.index_put_((gid, expert_ids, safe_pos), torch.where(keep[..., None], tok, 0),
+                   accumulate=True)
+
+    w1 = params["w1"].to(x.dtype)
+    if cfg.mlp_act == "swiglu":
+        h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1)) * torch.einsum(
+            "gecd,edf->gecf", buf, params["w3"].to(x.dtype))
+    else:
+        h = F.gelu(torch.einsum("gecd,edf->gecf", buf, w1), approximate="tanh")
+    out_buf = torch.einsum("gecf,efd->gecd", h, params["w2"].to(x.dtype))
+
+    gathered = out_buf[gid, expert_ids, safe_pos]  # (G, t, k, d)
+    out = (gathered * (gate * keep)[..., None]).sum(dim=2)
+    return out.reshape(T, d)
+
+
+# ---------------------------------------------------------------------------
+# mamba2 (SSD)
+# ---------------------------------------------------------------------------
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular pairwise segment sums: out[..., i, j] = sum_{j<t<=i} x[t]."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    return torch.where(mask, seg, -torch.inf)
+
+
+def _depthwise_causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x: (B, L, Ch), w: (K, Ch) depthwise causal conv.  w and b are used
+    uncast, so f32 params promote a bf16 x to f32, as in the JAX function."""
+    K, L = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(K):
+        out = out + xp[:, i:i + L, :] * w[i][None, None, :]
+    return out + b[None, None, :]
+
+
+def _ssd_chunked(xs, Bc, Cc, dt, a, D, cfg: ModelConfig, Q: int) -> torch.Tensor:
+    """Twin of the JAX chunked SSD (einsums per chunk, a loop over chunks for
+    ``lax.scan``); (B, L, H, P) f32 with the D term."""
+    B, L = xs.shape[:2]
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    nc = -(-L // Q)
+    pad = nc * Q - L
+    if pad:
+        xs, Bc, Cc, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xs, Bc, Cc, dt))
+    Lp = nc * Q
+    xh = xs.reshape(B, nc, Q, H, P).float()
+    Bh = Bc.reshape(B, nc, Q, G, N).float().repeat_interleave(H // G, dim=3)
+    Ch = Cc.reshape(B, nc, Q, G, N).float().repeat_interleave(H // G, dim=3)
+    dth = dt.reshape(B, nc, Q, H)
+
+    da = dth * a[None, None, None, :]
+    da_cum = torch.cumsum(da, dim=2)
+    Lmat = torch.exp(_segsum(da.permute(0, 1, 3, 2)))  # (B, nc, H, Q, Q)
+    CB = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh)
+    Y_diag = torch.einsum("bchqk,bckh,bckhp->bcqhp", CB * Lmat, dth, xh)
+    decay_states = torch.exp(da_cum[:, :, -1:, :] - da_cum)
+    S = torch.einsum("bcqhn,bcqh,bcqh,bcqhp->bchnp", Bh, decay_states, dth, xh)
+    chunk_decay = torch.exp(da_cum[:, :, -1, :])  # (B, nc, H)
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=xs.device)
+    h_prev = []
+    for c in range(nc):  # state entering each chunk
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + S[:, c]
+    state_decay = torch.exp(da_cum)
+    Y_off = torch.einsum("bcqhn,bchnp,bcqh->bcqhp", Ch, torch.stack(h_prev, dim=1), state_decay)
+    Y = (Y_diag + Y_off).reshape(B, Lp, H, P)[:, :L]
+    return Y + xs.reshape(B, Lp, H, P)[:, :L] * D.float()[None, None, :, None]
+
+
+def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """SSD forward over a full sequence (prefill).  x: (B, L, d).
+
+    The kernel route hands the scan, with D, to ``ssd_scan``: the kernel
+    adds ``D * x`` itself, so it is not added again here, and it reads the
+    G groups of B and C in place (no ``repeat_interleave``)."""
+    B, L, d = x.shape
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    di = cfg.ssm_d_inner
+    Q = min(cfg.ssm_chunk, L)
+
+    zxbcdt = x @ params["in_proj"].to(x.dtype)  # (B, L, 2di + 2GN + H)
+    z, xs, Bc, Cc, dt = torch.split(zxbcdt, [di, di, G * N, G * N, H], dim=-1)
+    xbc = torch.cat([xs, Bc, Cc], dim=-1)
+    xbc = F.silu(_depthwise_causal_conv(xbc, params["conv_w"], params["conv_b"]))
+    xs, Bc, Cc = torch.split(xbc, [di, G * N, G * N], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"].float())
+    a = -torch.exp(params["A_log"].float())  # (H,)
+
+    if x.device.type == "cpu" and cfg.attn_impl == "xla":
+        Y = _ssd_chunked(xs, Bc, Cc, dt, a, params["D"], cfg, Q)
+    else:
+        Y = ssd_scan(xs.reshape(B, L, H, P).contiguous(), dt.contiguous(), a,
+                     Bc.reshape(B, L, G, N).contiguous(), Cc.reshape(B, L, G, N).contiguous(),
+                     params["D"].float().contiguous(), chunk=Q)[0]
+    Y = Y.reshape(B, L, di).to(x.dtype)
+    Y = rms_norm(Y * F.silu(z), params["norm_w"])  # gated RMSNorm
+    return Y @ params["out_proj"].to(x.dtype)
+
+
+def mamba2_decode(
+    params: Params,
+    x_t: torch.Tensor,  # (B, 1, d)
+    state: Dict[str, torch.Tensor],  # {"h": (B,H,N,P) f32, "conv": (B,K-1,Ch)}
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token SSD recurrence: h <- exp(dt a) h + dt B x ; y = C h + D x.
+
+    ``state`` is updated IN PLACE (``copy_``, so views of a stacked cache see
+    it; the JAX function returns a new state) and returned."""
+    B = x_t.shape[0]
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    di = cfg.ssm_d_inner
+    zxbcdt = (x_t @ params["in_proj"].to(x_t.dtype))[:, 0]
+    z, xs, Bc, Cc, dt = torch.split(zxbcdt, [di, di, G * N, G * N, H], dim=-1)
+    xbc = torch.cat([xs, Bc, Cc], dim=-1)  # (B, Ch)
+    full = torch.cat([state["conv"], xbc[:, None, :]], dim=1)  # (B, K, Ch)
+    conv_out = (full * params["conv_w"][None]).sum(1) + params["conv_b"]
+    xbc = F.silu(conv_out)
+    xs, Bc, Cc = torch.split(xbc, [di, G * N, G * N], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"].float())  # (B, H)
+    a = -torch.exp(params["A_log"].float())
+    xh = xs.reshape(B, H, P).float()
+    Bh = Bc.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
+    Ch = Cc.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
+    decay = torch.exp(dt * a[None, :])
+    h = state["h"] * decay[..., None, None] + torch.einsum("bhn,bh,bhp->bhnp", Bh, dt, xh)
+    y = torch.einsum("bhn,bhnp->bhp", Ch, h) + xh * params["D"].float()[None, :, None]
+    y = y.reshape(B, 1, di).to(x_t.dtype)
+    y = rms_norm(y * F.silu(z[:, None, :]), params["norm_w"])
+    out = y @ params["out_proj"].to(x_t.dtype)
+    state["h"].copy_(h)
+    state["conv"].copy_(full[:, 1:])
+    return out, state
+
+
 # ---------------------------------------------------------------------------
 # Parameter initialization
 # ---------------------------------------------------------------------------
 def _init(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (x * scale).to(dtype)
+    """Normal(0, scale) in ``dtype``, drawn in f32.  A leaf of three or more
+    dims (stacked repeats, experts) is drawn one matrix at a time into a
+    tensor of ``dtype``, so the f32 temporary is one matrix, not the leaf
+    (moonshot's (47, 64, 2048, 1408) expert leaf would need 34.7 GB)."""
+    if len(shape) <= 2:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = _init(gen, shape[1:], scale, dtype)
+    return out
 
 
 # ``lead`` prepends dims to every leaf: a stacked group's repeats dim.
@@ -251,3 +456,32 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ())
     if cfg.mlp_act == "swiglu":
         p["w3"] = _init(gen, lead + (d, ff), 1.0 / math.sqrt(d), pdt(cfg))
     return p
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Params:
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {
+        "router": _init(gen, lead + (d, E), 1.0 / math.sqrt(d), pdt(cfg)),
+        "w1": _init(gen, lead + (E, d, ff), 1.0 / math.sqrt(d), pdt(cfg)),
+        "w2": _init(gen, lead + (E, ff, d), 1.0 / math.sqrt(ff), pdt(cfg)),
+    }
+    if cfg.mlp_act == "swiglu":
+        p["w3"] = _init(gen, lead + (E, d, ff), 1.0 / math.sqrt(d), pdt(cfg))
+    return p
+
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Params:
+    d, di, N, G, H = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
+    conv_ch = di + 2 * G * N
+    dev, pd = gen.device, pdt(cfg)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev)).to(pd)
+    return {
+        "in_proj": _init(gen, lead + (d, 2 * di + 2 * G * N + H), 1.0 / math.sqrt(d), pd),
+        "conv_w": _init(gen, lead + (4, conv_ch), 0.5, pd),
+        "conv_b": torch.zeros(lead + (conv_ch,), dtype=pd, device=dev),
+        "A_log": a_log.expand(lead + (H,)).clone(),
+        "D": torch.ones(lead + (H,), dtype=pd, device=dev),
+        "dt_bias": torch.zeros(lead + (H,), dtype=pd, device=dev),
+        "norm_w": torch.ones(lead + (di,), dtype=pd, device=dev),
+        "out_proj": _init(gen, lead + (di, d), 1.0 / math.sqrt(di), pd),
+    }

@@ -1,5 +1,5 @@
-"""Decoder-only language model, dense family (twin of the JAX package's
-``repro/models/lm.py``).
+"""Decoder-only language model: dense, MoE, SSM (mamba2) and hybrid (jamba)
+families (twin of the JAX package's ``repro/models/lm.py``).
 
 Layers are organised into *groups* (sub-pattern, repeats) exactly as in the
 JAX model, and the parameters keep that layout: ``params["group<i>"]`` is a
@@ -24,15 +24,16 @@ from .config import ModelConfig
 LayerSpec = Tuple[str, str]  # (mixer: attn|ssm, ffn: dense|moe|none)
 
 # Leaves that the JAX model casts to the compute dtype at every use
-# (``w.astype(x.dtype)``); norm scales are read in f32 and stay as they are.
-MATMUL_LEAVES = ("embed", "lm_head", "wq", "wk", "wv", "wo", "w1", "w2", "w3")
+# (``w.astype(x.dtype)``).  Everything else stays as it is: norm scales are
+# read in f32, and the mamba2 leaves conv_w, conv_b, A_log, D, dt_bias and
+# norm_w are used uncast, so with f32 params the conv promotes the SSM's x,
+# B and C to f32 in both frameworks.
+MATMUL_LEAVES = ("embed", "lm_head", "wq", "wk", "wv", "wo", "w1", "w2", "w3",
+                 "router", "in_proj", "out_proj")
 
 UNPORTED_FAMILIES = {
-    "moe": "ROADMAP queue 1, item 3 (MoE)",
-    "ssm": "ROADMAP queue 1, item 4 (SSM and hybrid)",
-    "hybrid": "ROADMAP queue 1, item 4 (SSM and hybrid)",
-    "encdec": "ROADMAP queue 1, item 6 (enc-dec and VLM)",
-    "vlm": "ROADMAP queue 1, item 6 (enc-dec and VLM)",
+    "encdec": "ROADMAP queue 1, item 3 (enc-dec and VLM)",
+    "vlm": "ROADMAP queue 1, item 3 (enc-dec and VLM)",
 }
 
 
@@ -96,11 +97,21 @@ def block_apply(
     positions: torch.Tensor,
 ) -> torch.Tensor:
     mixer, ffn = spec
-    if mixer != "attn" or ffn != "dense":
-        raise NotImplementedError(f"layer kind {spec} is not ported yet")
-    h = L.attention(p["attn"], L.rms_norm(x, p["ln1"]), cfg, positions, causal=True)
+    B, S, d = x.shape
+    h = L.rms_norm(x, p["ln1"])
+    if mixer == "attn":
+        h = L.attention(p["attn"], h, cfg, positions, causal=True)
+    else:
+        h = L.mamba2_mixer(p["ssm"], h, cfg)
     x = x + h
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.mlp_act)
+    if ffn == "none":
+        return x
+    h2 = L.rms_norm(x, p["ln2"])
+    if ffn == "moe":
+        h2 = L.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg).reshape(B, S, d)
+    else:
+        h2 = L.mlp(p["mlp"], h2, cfg.mlp_act)
+    return x + h2
 
 
 def block_decode(
@@ -108,11 +119,23 @@ def block_decode(
     x_t: torch.Tensor, pos: int,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     mixer, ffn = spec
-    if mixer != "attn" or ffn != "dense":
-        raise NotImplementedError(f"layer kind {spec} is not ported yet")
-    h, c = L.attention_decode(p["attn"], L.rms_norm(x_t, p["ln1"]), c, pos, cfg)
+    B = x_t.shape[0]
+    h = L.rms_norm(x_t, p["ln1"])
+    if mixer == "attn":
+        h, c = L.attention_decode(p["attn"], h, c, pos, cfg)
+    else:
+        h, c = L.mamba2_decode(p["ssm"], h, c, cfg)
     x_t = x_t + h
-    return x_t + L.mlp(p["mlp"], L.rms_norm(x_t, p["ln2"]), cfg.mlp_act), c
+    if ffn == "none":
+        return x_t, c
+    h2 = L.rms_norm(x_t, p["ln2"])
+    if ffn == "moe":
+        # serving is dropless: capacity-dropping a decode token corrupts its
+        # output (as in the JAX block_decode)
+        h2 = L.moe_ffn(p["moe"], h2.reshape(B, -1), cfg, dropless=True).reshape(B, 1, -1)
+    else:
+        h2 = L.mlp(p["mlp"], h2, cfg.mlp_act)
+    return x_t + h2, c
 
 
 def _index(tree: Any, r: int) -> Any:
@@ -157,7 +180,7 @@ class LanguageModel:
         if not cfg.tie_embeddings:
             params["lm_head"] = L._init(generator, (cfg.d_model, cfg.vocab_size), 0.02, pd)
         for gi, g in enumerate(self.groups):
-            # a repeated group is drawn with its leading repeats dim at once
+            # a repeated group is stacked with a leading repeats dim
             lead = () if g.repeats == 1 else (g.repeats,)
             params[f"group{gi}"] = [
                 self._init_block(generator, spec, lead) for spec in g.subpattern
@@ -166,13 +189,20 @@ class LanguageModel:
 
     def _init_block(self, gen: torch.Generator, spec: LayerSpec, lead: Tuple[int, ...]):
         cfg = self.cfg
-        ones = torch.ones(lead + (cfg.d_model,), dtype=L.pdt(cfg), device=gen.device)
-        return {
-            "ln1": ones,
-            "ln2": ones.clone(),
-            "attn": L.init_attention(gen, cfg, lead),
-            "mlp": L.init_mlp(gen, cfg, lead),
-        }
+        mixer, ffn = spec
+        p: Dict[str, Any] = {
+            "ln1": torch.ones(lead + (cfg.d_model,), dtype=L.pdt(cfg), device=gen.device)}
+        if ffn != "none":  # a mamba2 block has no separate FFN and no ln2
+            p["ln2"] = p["ln1"].clone()
+        if mixer == "attn":
+            p["attn"] = L.init_attention(gen, cfg, lead)
+        else:
+            p["ssm"] = L.init_mamba2(gen, cfg, lead)
+        if ffn == "moe":
+            p["moe"] = L.init_moe(gen, cfg, lead)
+        elif ffn == "dense":
+            p["mlp"] = L.init_mlp(gen, cfg, lead)
+        return p
 
     def cast_for_compute(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """The same tree with every matmul weight cast once to the compute
@@ -214,29 +244,40 @@ class LanguageModel:
     def init_cache(
         self, batch_size: int, max_seq: int, dtype: Optional[torch.dtype] = None, device=None,
     ) -> Dict[str, Any]:
-        """Zeroed KV cache on ``device`` (CUDA unless the caller asks for
+        """Zeroed cache on ``device`` (CUDA unless the caller asks for
         ``"cpu"``), laid out like the parameters: per group a list over the
-        sub-pattern of {"k", "v"}, with a leading repeats dim when the group
-        repeats.  ``"pos"`` is a host int."""
+        sub-pattern, with a leading repeats dim when the group repeats.  An
+        attention layer holds {"k", "v"} (B, max_seq, Hkv, D); a mamba2 layer
+        {"h": (B, H, N, P) f32, "conv": (B, 3, conv channels)}, the SSM state
+        and the last three conv inputs.  ``"pos"`` is a host int."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = dtype or L.cdt(cfg)
+
+        def one(spec: LayerSpec, lead: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
+            if spec[0] == "attn":
+                shape = (batch_size, max_seq, cfg.num_kv_heads, cfg.head_dim)
+                return {name: torch.zeros(lead + shape, dtype=dt, device=dev)
+                        for name in ("k", "v")}
+            conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            h = (batch_size, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+            return {"h": torch.zeros(lead + h, dtype=torch.float32, device=dev),
+                    "conv": torch.zeros(lead + (batch_size, 3, conv_ch), dtype=dt, device=dev)}
+
         cache: Dict[str, Any] = {"pos": 0}
-        shape = (batch_size, max_seq, cfg.num_kv_heads, cfg.head_dim)
         for gi, g in enumerate(self.groups):
             lead = () if g.repeats == 1 else (g.repeats,)
-            cache[f"group{gi}"] = [
-                {name: torch.zeros(lead + shape, dtype=dt, device=dev) for name in ("k", "v")}
-                for _ in g.subpattern
-            ]
+            cache[f"group{gi}"] = [one(spec, lead) for spec in g.subpattern]
         return cache
 
     def decode_step(
         self, params: Dict[str, Any], cache: Dict[str, Any], tokens: torch.Tensor,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One token per sequence (``tokens`` (B,)) against the cache.  The
-        cache is updated IN PLACE (k, v at ``pos``, then ``pos + 1``) and
-        returned; the JAX model returns a new cache instead."""
+        cache is updated IN PLACE (k, v at ``pos``, the SSM state and conv
+        window, then ``pos + 1``) and returned; the JAX model returns a new
+        cache instead.  A repeated group's layer gets views ``t[r]`` of its
+        stacked cache, which the layers write with ``copy_``."""
         cfg = self.cfg
         pos = cache["pos"]
         x = params["embed"].to(L.cdt(cfg))[tokens.long()][:, None, :]  # (B,1,d)

@@ -74,3 +74,105 @@ def test_bound_picks_the_larger_time():
     assert by == "operations" and ms == pytest.approx(1e3)
     ms, by = chip_smoke.bound(1.0, 3.35e12, "float32")  # 1 s of HBM traffic
     assert by == "bytes" and ms == pytest.approx(1e3)
+
+
+def _ssd_inputs(seed, B=1, L=100, H=4, P=16, N=8):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, L, H, P), generator=g) * 0.5
+    dt = (torch.randn((B, L, H), generator=g) * 0.1).abs()
+    a = -torch.randn((H,), generator=g).abs()
+    Bm, Cm = (torch.randn((B, L, H, N), generator=g) * 0.3 for _ in range(2))
+    D = torch.randn((H,), generator=g)
+    return x, dt, a, Bm, Cm, D
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_criterion_fails_the_D_term_added_twice(dtype):
+    """A scan that adds D * x twice (the mixer's trap) fails the 5e-4 rule
+    in f32 and in bf16, while the bf16 rounding of a right output passes."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+
+    x, dt, a, Bm, Cm, D = _ssd_inputs(0)
+    want32, _ = ssd_scan_ref(x, dt, a, Bm, Cm, D)
+    twice = want32 + x * D[None, None, :, None]
+    dt_ = getattr(torch, dtype)
+    assert chip_smoke.ssd_ratio(twice.to(dt_), want32, dtype) > 1.0
+    assert chip_smoke.ssd_ratio(want32.to(dt_), want32, dtype) <= 1.0
+    if dtype == "float32":  # an error just past 5e-4 of a value fails too
+        assert chip_smoke.ssd_ratio(want32 + 2e-3 * want32.abs() + 6e-4, want32, dtype) > 1.0
+
+
+def test_ssd_criterion_fails_a_stale_state():
+    """The final-state check fails a state that missed the last chunk's update."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+
+    x, dt, a, Bm, Cm, D = _ssd_inputs(1)
+    _, h = ssd_scan_ref(x, dt, a, Bm, Cm, D)
+    _, h_short = ssd_scan_ref(x[:, :96], dt[:, :96], a, Bm[:, :96], Cm[:, :96], D)
+    assert chip_smoke.ssd_ratio(h_short, h, "float32") > 1.0
+    assert chip_smoke.ssd_ratio(h, h, "float32") == 0.0
+
+
+@pytest.mark.parametrize("fault", ["none", "slot", "id", "gate"])
+def test_router_criterion_fails_one_entry_off(fault):
+    """One slot or id off, or a gate 2e-6 off, fails the router rule."""
+    import torch
+
+    from repro_torch.kernels.moe_router import moe_router_ref
+
+    logits = torch.randn((64, 16), generator=torch.Generator().manual_seed(2))
+    want = moe_router_ref(logits, 4)
+    ids, gates, slots = (t.clone() for t in want)
+    if fault == "slot":
+        slots[17, 2] += 1
+    elif fault == "id":
+        ids[5, 0] = (ids[5, 0] + 1) % 16
+    elif fault == "gate":
+        gates[40, 1] += 2e-6
+    agree = chip_smoke.router_agreement((ids, gates, slots), want)
+    assert agree["ok"] is (fault == "none")
+
+
+@pytest.mark.parametrize(
+    "B,L,H,P,N,chunk,want",
+    [
+        # mamba2-2.7b's prefill: 64 chunks x 80 heads x 7.36 MFLOP, the
+        # 8256 causal entries of C.B^T and W x only
+        (1, 8192, 80, 64, 128, 128, 64 * 80 * (8256 * 2 * 128 + 8256 * 2 * 64
+                                                + 4 * 128 * 128 * 64)),
+        # a ragged tail counts its own 4 tokens (10 causal entries)
+        (1, 100, 2, 32, 16, 32, 2 * (3 * (528 * 2 * 16 + 528 * 2 * 32 + 4 * 32 * 16 * 32)
+                                     + (10 * 2 * 16 + 10 * 2 * 32 + 4 * 4 * 16 * 32))),
+        (2, 40, 1, 4, 4, 128, 2 * (820 * 2 * 4 * 2 + 4 * 40 * 4 * 4)),  # chunk capped at L
+    ],
+)
+def test_ssd_flops(B, L, H, P, N, chunk, want):
+    assert chip_smoke.ssd_flops(B, L, H, P, N, chunk) == want
+
+
+@pytest.mark.parametrize(
+    "arch,replace,forward,step",
+    [
+        ("starcoder2-3b", {}, {"flash_attention": 30}, {"decode_attention": 30}),
+        ("mamba2-2.7b", {}, {"ssd_scan": 64}, {}),
+        ("moonshot-v1-16b-a3b", {}, {"flash_attention": 48, "moe_router": 47},
+         {"decode_attention": 48, "moe_router": 47}),
+        ("moonshot-v1-16b-a3b", {"num_layers": 4}, {"flash_attention": 4, "moe_router": 3},
+         {"decode_attention": 4, "moe_router": 3}),
+    ],
+)
+def test_expected_launches_follow_the_layers(arch, replace, forward, step):
+    from repro_torch.configs import get_config
+
+    assert chip_smoke.expected_launches(get_config(arch).replace(**replace)) == (forward, step)
+
+
+def test_require_launches_fails_a_bypassed_kernel():
+    chip_smoke.require_launches("ok", {"moe_router": 94, "flash_attention": 48},
+                                {"moe_router": 47}, 2)
+    with pytest.raises(SystemExit, match="moe_router"):
+        chip_smoke.require_launches("bypass", {"moe_router": 93}, {"moe_router": 47}, 2)

@@ -1,4 +1,5 @@
-"""The port's model layers and dense LanguageModel against the JAX package.
+"""The port's model layers and LanguageModel (dense, MoE, SSM and hybrid
+families) against the JAX package.
 
 Inputs are made with numpy from fixed seeds; JAX weights come from
 ``LanguageModel.init(jax.random.PRNGKey(0))`` (or the layer inits) and are
@@ -13,6 +14,14 @@ carried across with ``repro_torch.bridge.params_from_jax``.  Sizes are
   differences compound through the residual stream;
 * decode vs forward inside one framework: 2e-3, the JAX suite's own
   tolerance for that invariant (``tests/test_serve.py``).
+
+The MoE and mamba2 layers run on both routes of the port (the ``xla`` twin
+of the JAX formulation, and the kernel route, whose CPU path is the plain
+versions of ``moe_router`` and ``ssd_scan``); the JAX layers call no Pallas
+kernel on either setting, so both routes are held to the same JAX output.
+The mixer is one projection-bearing layer (2e-5) whose scan sums a sequence
+in another order on the kernel route (the token recurrence against the
+chunked einsums), so it is held at 1e-4 there.
 """
 import pytest
 
@@ -34,8 +43,10 @@ from repro_torch.models import layers as TL
 
 ELEMENTWISE_TOL = 1e-5
 LAYER_TOL = 2e-5
+SCAN_LAYER_TOL = 1e-4
 LOGITS_TOL = 1e-4
 DENSE_ARCHS = ["qwen3-14b", "starcoder2-3b", "deepseek-7b"]
+NEW_ARCHS = ["mamba2-2.7b", "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "jamba-v0.1-52b"]
 
 
 def _cfgs(arch, **kw):
@@ -129,6 +140,93 @@ def test_attention_decode(arch, impl, window):
         _close(got_cache[name], want_cache[name], LAYER_TOL)
 
 
+MIXER_CASES = [  # (impl, L, ssm_groups): L = 40 is not a multiple of the chunk (16)
+    ("xla", 64, 1),
+    ("xla", 40, 1),
+    ("pallas", 64, 1),
+    ("pallas", 40, 1),
+    ("pallas", 40, 2),  # groups read in place by the kernel route
+]
+
+
+@pytest.mark.parametrize("impl,L,groups", MIXER_CASES)
+def test_mamba2_mixer(impl, L, groups):
+    jcfg, tcfg = _cfgs("mamba2-2.7b", attn_impl=impl, ssm_groups=groups)
+    p = JL.init_mamba2(jax.random.PRNGKey(12), jcfg)
+    p["D"] = p["D"] * 1.5  # a D other than 1, so a D term added twice shows
+    x = np.random.default_rng(13).standard_normal((2, L, jcfg.d_model)).astype(np.float32)
+    got = TL.mamba2_mixer(_carry(p), _t(x), tcfg)
+    want = JL.mamba2_mixer(p, jnp.asarray(x), jcfg)
+    _close(got, want, LAYER_TOL if impl == "xla" else SCAN_LAYER_TOL)
+
+
+def test_mamba2_mixer_bf16_compute_promotes_like_jax():
+    """bf16 activations with f32 params: the conv promotes x, B and C to f32
+    in both frameworks, and only the mixer's Y returns to bf16."""
+    jcfg, tcfg = _cfgs("mamba2-2.7b", dtype="bfloat16", attn_impl="pallas")
+    p = JL.init_mamba2(jax.random.PRNGKey(14), jcfg)
+    x = np.random.default_rng(15).standard_normal((1, 48, jcfg.d_model)).astype(np.float32)
+    got = TL.mamba2_mixer(_carry(p), _t(x).bfloat16(), tcfg)
+    want = JL.mamba2_mixer(p, jnp.asarray(x, jnp.bfloat16), jcfg)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_mamba2_decode(groups):
+    jcfg, tcfg = _cfgs("mamba2-2.7b", ssm_groups=groups)
+    p = JL.init_mamba2(jax.random.PRNGKey(16), jcfg)
+    rng = np.random.default_rng(17)
+    B, H, N, P = 2, jcfg.ssm_heads, jcfg.ssm_state, jcfg.ssm_head_dim
+    conv_ch = jcfg.ssm_d_inner + 2 * groups * N
+    x = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)
+    h = rng.standard_normal((B, H, N, P)).astype(np.float32)
+    conv = rng.standard_normal((B, 3, conv_ch)).astype(np.float32)
+    state = {"h": _t(h.copy()), "conv": _t(conv.copy())}
+    got, got_state = TL.mamba2_decode(_carry(p), _t(x), state, tcfg)
+    want, want_state = JL.mamba2_decode(p, jnp.asarray(x), {"h": jnp.asarray(h),
+                                                           "conv": jnp.asarray(conv)}, jcfg)
+    _close(got, want, LAYER_TOL)
+    assert got_state is state  # updated in place
+    for name in ("h", "conv"):
+        _close(got_state[name], want_state[name], LAYER_TOL)
+
+
+MOE_CASES = [  # (arch, impl, dropless, capacity_factor, moe_groups)
+    ("moonshot-v1-16b-a3b", "xla", False, 0.5, 0),  # capacity drops
+    ("moonshot-v1-16b-a3b", "pallas", False, 0.5, 0),
+    ("moonshot-v1-16b-a3b", "xla", True, 0.5, 0),
+    ("moonshot-v1-16b-a3b", "pallas", True, 0.5, 0),
+    ("kimi-k2-1t-a32b", "pallas", False, 1.25, 0),
+    ("jamba-v0.1-52b", "pallas", False, 1.25, 2),  # two groups, capacity per group
+]
+
+
+@pytest.mark.parametrize("arch,impl,dropless,cf,groups", MOE_CASES)
+def test_moe_ffn(arch, impl, dropless, cf, groups):
+    jcfg, tcfg = _cfgs(arch, attn_impl=impl, capacity_factor=cf, moe_groups=groups)
+    p = JL.init_moe(jax.random.PRNGKey(18), jcfg)
+    T, E, k = 64, jcfg.num_experts, jcfg.experts_per_token
+    x = np.random.default_rng(19).standard_normal((T, jcfg.d_model)).astype(np.float32)
+    tp = _carry(p)
+    # the routing first: a route that picks other experts fails here, loudly
+    G = max(1, groups)
+    logits = (_t(x).reshape(G, T // G, -1) @ tp["router"]).float()
+    if impl == "xla":
+        ids, _, slots = TL._route_top_k(logits, k)
+    else:
+        ids, _, slots = (torch.stack(r) for r in zip(*(TL.moe_router(lg, k) for lg in logits)))
+    jlogits = (jnp.asarray(x).reshape(G, T // G, -1) @ p["router"]).astype(jnp.float32)
+    _, jids = jax.lax.top_k(jax.nn.softmax(jlogits, axis=-1), k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    C = T // G if dropless else min(T // G, int(np.ceil(T // G * k / E * cf)))
+    if not dropless and arch == "moonshot-v1-16b-a3b":
+        assert int((slots >= C).sum()) > 0  # the case really drops choices
+    got = TL.moe_ffn(tp, _t(x), tcfg, dropless=dropless)
+    want = JL.moe_ffn(p, jnp.asarray(x), jcfg, dropless=dropless)
+    _close(got, want, LAYER_TOL)
+
+
 # ---------------------------------------------------------------------------
 # LanguageModel
 # ---------------------------------------------------------------------------
@@ -140,12 +238,16 @@ def _models(arch, **kw):
     return jm, jp, tm, tp
 
 
-@pytest.mark.parametrize(
-    "arch,impl",
-    [(a, "xla") for a in DENSE_ARCHS] + [("starcoder2-3b", "pallas_interpret")],
+FORWARD_CASES = (
+    [(a, "xla", {}) for a in DENSE_ARCHS] + [("starcoder2-3b", "pallas_interpret", {})]
+    + [(a, impl, {}) for a in NEW_ARCHS for impl in ("xla", "pallas_interpret")]
+    + [("mamba2-2.7b", "pallas_interpret", {"d_ff": 0})]  # the mixer-only block, as published
 )
-def test_forward_logits_match_jax(arch, impl):
-    jm, jp, tm, tp = _models(arch, attn_impl=impl)
+
+
+@pytest.mark.parametrize("arch,impl,kw", FORWARD_CASES)
+def test_forward_logits_match_jax(arch, impl, kw):
+    jm, jp, tm, tp = _models(arch, attn_impl=impl, **kw)
     toks = np.random.default_rng(8).integers(1, jm.cfg.vocab_size, (2, 64)).astype(np.int32)
     want = jm.forward(jp, {"tokens": jnp.asarray(toks)})
     got = tm.forward(tp, {"tokens": _t(toks)})
@@ -155,10 +257,12 @@ def test_forward_logits_match_jax(arch, impl):
     _close(last, np.asarray(want)[:, -1:], LOGITS_TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + NEW_ARCHS)
 def test_decode_steps_match_jax(arch):
-    """16 decode steps: the port's logits and cache follow JAX's."""
-    jm, jp, tm, tp = _models(arch, attn_window=8 if arch == "starcoder2-3b" else 0)
+    """16 decode steps: the port's logits and cache (KV and SSM state)
+    follow JAX's, leaf by leaf; MoE decode is dropless on both sides."""
+    jm, jp, tm, tp = _models(arch, attn_window=8 if arch == "starcoder2-3b" else 0,
+                             attn_impl="pallas" if arch in NEW_ARCHS[::2] else "xla")
     toks = np.random.default_rng(9).integers(1, jm.cfg.vocab_size, (2, 16)).astype(np.int32)
     step = jax.jit(jm.decode_step)
     jc, tc = jm.init_cache(2, 16), tm.init_cache(2, 16, device="cpu")
@@ -193,6 +297,40 @@ def test_decode_matches_forward_teacher_forcing(arch, impl):
     np.testing.assert_allclose(_np(torch.stack(outs, 1)), _np(full), atol=2e-3, rtol=2e-3)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_new_families_decode_matches_forward(arch, impl):
+    """Twin of ``tests/test_serve.py::test_decode_matches_forward_teacher_forcing``
+    for the SSM, hybrid and MoE families, on both routes: the forward's
+    capacity is made dropless, as decode always is."""
+    cfg = get_config(arch).scaled_down().replace(attn_impl=impl)
+    if cfg.num_experts:
+        cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(20).integers(1, cfg.vocab_size, (2, 16)))
+    full = model.forward(params, {"tokens": toks})
+    cache = model.init_cache(2, 16, device="cpu")
+    outs = []
+    for t in range(16):
+        logits, cache = model.decode_step(params, cache, toks[:, t])
+        outs.append(logits)
+    np.testing.assert_allclose(_np(torch.stack(outs, 1)), _np(full), atol=2e-3, rtol=2e-3)
+
+
+def test_cast_for_compute_keeps_ssm_leaves():
+    """The cast covers in_proj, out_proj and router but leaves the mamba2
+    vectors and conv in the parameter dtype (the conv_w promotion rule)."""
+    model = build_model(get_config("jamba-v0.1-52b").scaled_down().replace(dtype="bfloat16"))
+    cast = model.cast_for_compute(model.init(0, device="cpu"))
+    layers = cast["group0"]
+    ssm, moe = layers[0]["ssm"], layers[1]["moe"]
+    assert ssm["in_proj"].dtype == ssm["out_proj"].dtype == torch.bfloat16
+    assert moe["router"].dtype == moe["w1"].dtype == torch.bfloat16
+    for name in ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w"):
+        assert ssm[name].dtype == torch.float32, name
+
+
 def test_cast_for_compute_matches_per_use_cast():
     """Casting the matmul weights once (bf16 compute) gives the numbers of
     casting them at every use, and leaves the norm scales in f32."""
@@ -210,16 +348,20 @@ def test_cast_for_compute_matches_per_use_cast():
 # ---------------------------------------------------------------------------
 # bridge and families
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bridge_round_trip_is_bit_exact(dtype):
-    jm = jax_build_model(jax_get_config("starcoder2-3b").scaled_down())
+@pytest.mark.parametrize("arch,dtype", [
+    ("starcoder2-3b", "float32"), ("starcoder2-3b", "bfloat16"),
+    ("mamba2-2.7b", "float32"), ("moonshot-v1-16b-a3b", "bfloat16"),
+    ("jamba-v0.1-52b", "float32"), ("jamba-v0.1-52b", "bfloat16"),
+])
+def test_bridge_round_trip_is_bit_exact(arch, dtype):
+    jm = jax_build_model(jax_get_config(arch).scaled_down())
     tree = jax.device_get(jm.init(jax.random.PRNGKey(0)))
     if dtype == "bfloat16":
         tree = jax.tree.map(lambda a: a.astype(ml_dtypes.bfloat16), tree)
     back = params_to_numpy(params_from_jax(tree))
     want = dict(flatten_with_paths(tree))
     got = dict(flatten_with_paths(back))
-    assert got.keys() == want.keys() and "group0/0/attn/wq" in got
+    assert got.keys() == want.keys() and "embed" in got
     for key, arr in want.items():
         assert got[key].dtype == arr.dtype and got[key].shape == arr.shape, key
         assert np.array_equal(got[key].view(np.uint8), np.ascontiguousarray(arr).view(np.uint8))
@@ -236,7 +378,31 @@ def test_bridge_checks_against_the_port_layout():
         params_from_jax(tree, like=like)
 
 
-UNPORTED = [a for a in ARCH_IDS if get_config(a).family not in ("dense",)]
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "moonshot-v1-16b-a3b", "jamba-v0.1-52b"])
+def test_bridge_checks_new_families_against_the_port_layout(arch):
+    """The ssm/moe leaves, the leading dense group (first_dense_layers) and
+    the hybrid period group carry across with the port's keys, shapes and
+    dtypes; a block whose ffn is "none" has no ln2 on either side."""
+    jm = jax_build_model(jax_get_config(arch).scaled_down().replace(d_ff=0)
+                         if arch == "mamba2-2.7b" else jax_get_config(arch).scaled_down())
+    tm = build_model(get_config(arch).scaled_down().replace(d_ff=0)
+                     if arch == "mamba2-2.7b" else get_config(arch).scaled_down())
+    tree = jax.device_get(jm.init(jax.random.PRNGKey(0)))
+    like = tm.init(0, device="cpu")
+    keys = [k for k, _ in flatten_with_paths(params_from_jax(tree, like=like))]
+    if arch == "mamba2-2.7b":
+        assert "group0/0/ssm/conv_w" in keys and not any("ln2" in k for k in keys)
+    elif arch == "moonshot-v1-16b-a3b":
+        assert "group0/0/mlp/w1" in keys and "group1/0/moe/router" in keys
+    else:
+        assert "group0/1/moe/w3" in keys and "group0/3/attn/wq" in keys
+    blocks = tree["group1"] if arch == "moonshot-v1-16b-a3b" else tree["group0"]
+    del blocks[-1][next(k for k in ("moe", "ssm") if k in blocks[-1])]
+    with pytest.raises(AssertionError, match="only in the port"):
+        params_from_jax(tree, like=like)
+
+
+UNPORTED = [a for a in ARCH_IDS if get_config(a).family not in ("dense", "moe", "ssm", "hybrid")]
 
 
 @pytest.mark.parametrize("arch", UNPORTED)

@@ -24,9 +24,11 @@ from repro_torch.serve import Request, ServeEngine, make_serve_step
 PROMPTS = [([5, 6, 7], 6), ([9, 10], 5), ([11, 3, 8, 200, 17], 4), ([42], 7)]
 
 
-def test_serve_engine_tokens_match_jax():
-    jm = jax_build_model(jax_get_config("starcoder2-3b").scaled_down())
-    tm = build_model(get_config("starcoder2-3b").scaled_down())
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "mamba2-2.7b", "moonshot-v1-16b-a3b"])
+def test_serve_engine_tokens_match_jax(arch):
+    """Dense, SSM (state in the cache) and MoE (dropless decode) families."""
+    jm = jax_build_model(jax_get_config(arch).scaled_down())
+    tm = build_model(get_config(arch).scaled_down())
     jp = jm.init(jax.random.PRNGKey(1))
     tp = params_from_jax(jax.device_get(jp), like=tm.init(0, device="cpu"))
     want = JaxServeEngine(jm, jp, batch_size=4, max_seq=64).run(
