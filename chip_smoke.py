@@ -20,7 +20,15 @@ every phase passed):
               gets its own rounding, 2^-8 of the value) for y and the final
               state, 1e-3 across chunk sizes, on the JAX suite's inputs and
               on those of the mamba2 mixer (fast decay); moe_router's ids
-              and slots must be equal and its gates within 1e-6.
+              and slots must be equal and its gates within 1e-6;
+              fused_augment at 1e-5 (atol and rtol) on the JAX suite's
+              shapes, corners out of range and the ImageNet recipe, and its
+              flip as an involution; the flash backward's dq, dk, dv against
+              torch.autograd.grad of the plain version in f32 (the
+              forward's tolerance as atol and rtol: f32 2e-5, bf16 3e-2),
+              bf16 also row by row (floored at the tensor's RMS) against the
+              backward's plain version on the kernel's own output and
+              log-sum-exp.
 3. models   - at full width, random weights from a seeded generator, for
               starcoder2-3b (dense), mamba2-2.7b (SSM) and moonshot-v1-16b-a3b
               (MoE, bf16 parameters): (a) a prefill, (b) a ServeEngine
@@ -30,9 +38,25 @@ every phase passed):
               (a)-(c), and a run with fewer launches than the model's layers
               need fails; each phase logs its peak device memory and (a), (b)
               a profile of device time and idle share.
-4. a ``{"kernels": [...]}`` line with each kernel's launches on the main
-   path ((a) and (b) of every model; the checks (c) are reported on their
-   own lines) and its times, then the card line, then ``{"ok": true, ...}``.
+4. augment  - ``fused_augment`` as its users call it: ResNet-50's ImageNet
+              recipe (256 images 256x256x3 cropped to 224x224, random
+              corners and flips) on 8 batches; no model path calls it in
+              either package, so this op phase is its main path.
+5. train    - starcoder2-3b at full width (f32 parameters and AdamW state,
+              bf16 compute, ``remat="block"``), fed by a
+              ``repro_torch.feed.DeviceFeeder`` over packed zipf token
+              batches (B=1, S=8192): 6 steps with the loss, seconds and
+              tokens per step, peak memory, the feed's idle and stall
+              numbers, flash forward/backward launches per step (30 + 30
+              recomputed + 30 backward; fewer fails) and a profiled step;
+              then the same model at 2 layers in f32 (B=1, S=256): one
+              train step through the kernels on the card against the same
+              step on CPU copies through the plain route (loss, gradient
+              norm, updated parameters, each against a stated tolerance).
+6. a ``{"kernels": [...]}`` line with each kernel's launches on the main
+   paths ((a) and (b) of every model, the augment phase, the 6 train steps;
+   the checks are reported on their own lines) and its times, then the card
+   line, then ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -62,6 +86,23 @@ SSD_TOL = 5e-4  # tests/test_kernels.py::TestSSDScan (atol and rtol)
 SSD_CHUNK_TOL = 1e-3  # ... its chunk-invariance test
 BF16_STEP = 2.0 ** -8  # largest relative rounding error of a bf16 value
 GATE_TOL = 1e-6  # tests/test_kernels.py::TestMoERouter
+AUG_TOL = 1e-5  # tests/test_kernels.py::TestFusedAugment (atol and rtol)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_S = 8192
+TRAIN_STEPS = 6
+# The f32 train-step check (2 layers, card kernels against the CPU plain
+# route): the loss and the gradient norm within a relative 1e-5 and 1e-4
+# (f32 sums in another order through two layers and a 49152-wide head), the
+# updated parameters within 1e-5, a tenth of the check's learning rate: a
+# gradient entry of the wrong sign moves its parameter by 2 x lr = 2e-4.
+# AdamW's first step moves an entry by lr * g / (|g| + eps), which turns on
+# the rounding where |g| is at the f32 noise of two summation orders; the
+# check's eps of 1e-6 bounds that at lr * noise / 1e-6.
+CHECK_LR = 1e-4
+CHECK_EPS = 1e-6
+CHECK_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-5}
 
 
 def log(obj) -> None:
@@ -109,7 +150,7 @@ def profile_device(label: str, fn) -> None:
         wall = time.perf_counter() - t
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     log(dict(profile=label, wall_s=wall, device_busy_s=busy,
              device_idle_share=(1 - busy / wall) if busy else "not measured",
              top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
@@ -122,6 +163,26 @@ def row_rel_err(out, want32) -> float:
     err = (out.float() - want32).abs().amax(-1)
     rms = want32.pow(2).mean(-1).sqrt()
     return float((err / rms.clamp_min(1e-12)).max())
+
+
+def grad_allclose(got, want32, dtype: str) -> float:
+    """The largest |got - want| of a gradient over ``tol + tol * |want|``:
+    the JAX suite's ``assert_allclose`` with atol = rtol = the forward's
+    tolerance (gradients are sums that the inputs do not bound, so the
+    allowance grows with the value); bf16 against the f32 reference rounded
+    to bf16, as in the forward cases.  1 or less passes."""
+    tol = TOL[dtype]
+    want = want32.to(got.dtype).float()
+    return float(((got.float() - want).abs() / (tol + tol * want.abs())).max())
+
+
+def grad_row_rel_err(got, want32) -> float:
+    """The largest error of a row over that row's RMS in ``want32``, floored
+    at the whole tensor's RMS: a query that sees one key has an exact dq of
+    0, so its own RMS is only rounding."""
+    err = (got.float() - want32).abs().amax(-1)
+    rms = want32.pow(2).mean(-1).sqrt().clamp_min(float(want32.pow(2).mean().sqrt()))
+    return float((err / rms.clamp_min(1e-30)).max())
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -420,6 +481,201 @@ def router_case(name, T, E, k, ties=False, iters=20, gen=None):
     return rec
 
 
+def augment_inputs(B, H, W, C, oh, ow, corners, gen):
+    """images, crops, flips, mean, std on the card.  ``corners="random"``:
+    each corner within the image, as the JAX suite draws them;
+    ``"out_of_range"``: corners anywhere in [-H, 2H) x [-W, 2W), which the
+    kernel and the plain version clamp as ``lax.dynamic_slice`` does."""
+    import torch
+
+    def randint(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=dtype)
+
+    img = randint(0, 256, (B, H, W, C), torch.uint8)
+    if corners == "random":
+        y0, x0 = randint(0, H - oh + 1, (B,)), randint(0, W - ow + 1, (B,))
+    else:
+        y0, x0 = randint(-H, 2 * H, (B,)), randint(-W, 2 * W, (B,))
+    crops = torch.stack([y0, x0], dim=-1).to(torch.int32).contiguous()
+    flips = randint(0, 2, (B,), torch.int32)
+    mean = torch.tensor(IMAGENET_MEAN[:C], device="cuda")
+    std = torch.tensor(IMAGENET_STD[:C], device="cuda")
+    return img, crops, flips, mean, std
+
+
+def augment_bound(B, oh, ow, C):
+    """Bytes: the crop windows read once (uint8) and the output written once
+    (f32), plus corners, flags, mean and std; one FMA per output value."""
+    n = B * oh * ow * C
+    return bound(2.0 * n, 5.0 * n + 12.0 * B + 8.0 * C, "float32")
+
+
+def augment_case(name, B, H, W, C, oh, ow, corners="random", iters=20, gen=None):
+    """fused_augment against its plain version, atol = rtol = 1e-5."""
+    import torch
+
+    from repro_torch.kernels.fused_augment import fused_augment, fused_augment_ref
+
+    args = augment_inputs(B, H, W, C, oh, ow, corners, gen)
+    want = fused_augment_ref(*args, oh, ow)
+    got = fused_augment(*args, oh, ow)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
+          and bool((diff <= AUG_TOL + AUG_TOL * want.abs()).all()))
+    kernel_ms = time_ms(lambda: fused_augment(*args, oh, ow), iters)
+    plain_ms = time_ms(lambda: fused_augment_ref(*args, oh, ow), max(2, iters // 5), 1)
+    bound_ms, bound_by = augment_bound(B, oh, ow, C)
+    rec = dict(kernel="fused_augment", case=name,
+               shape=dict(B=B, H=H, W=W, C=C, out_h=oh, out_w=ow, corners=corners),
+               dtype="uint8->float32", max_abs_err=err, tol=AUG_TOL, kernel_ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    log(rec)
+    return rec
+
+
+def augment_flip_case(gen=None):
+    """Flipping is an involution: the flipped crop, reversed along W again,
+    is the unflipped one (tests/test_kernels.py::test_flip_is_involution)."""
+    import torch
+
+    from repro_torch.kernels.fused_augment import fused_augment
+
+    img, _, _, _, _ = augment_inputs(3, 16, 16, 3, 16, 16, "random", gen)
+    crops = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
+    mean, std = torch.zeros(3, device="cuda"), torch.ones(3, device="cuda")
+    ones = torch.ones(3, dtype=torch.int32, device="cuda")
+    a = fused_augment(img, crops, ones, mean, std, 16, 16)
+    b = fused_augment(img, crops, ones * 0, mean, std, 16, 16)
+    err = float((a.flip(2) - b).abs().max())
+    rec = dict(kernel="fused_augment", case="flip_involution", max_abs_err=err, tol=1e-6,
+               ok=err <= 1e-6)
+    log(rec)
+    return rec
+
+
+def flash_ref_grads(q, k, v, do, kw):
+    """(dq, dk, dv) of the plain version by ``torch.autograd.grad`` in f32,
+    one kv head and its q heads at a time (the function is separable by kv
+    head; this bounds the scores' memory), and the device ms of the
+    backward calls."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    Hq, Hkv = q.shape[2], k.shape[2]
+    G = Hq // Hkv
+    dq, dk, dv = (torch.empty(t.shape, device="cuda") for t in (q, k, v))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = 0.0
+    for h in range(Hkv):
+        qs = q[:, :, h * G:(h + 1) * G].float().contiguous().requires_grad_()
+        ks, vs = (t[:, :, h:h + 1].float().contiguous().requires_grad_() for t in (k, v))
+        out = flash_attention_ref(qs, ks, vs, **kw)
+        start.record()
+        grads = torch.autograd.grad(out, (qs, ks, vs), do[:, :, h * G:(h + 1) * G].float())
+        end.record()
+        torch.cuda.synchronize()
+        ms += start.elapsed_time(end)
+        dq[:, :, h * G:(h + 1) * G], dk[:, :, h:h + 1], dv[:, :, h:h + 1] = grads
+        del out, grads
+    return (dq, dk, dv), ms
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, kw):
+    """The backward kernel's plain version (``flash_attention_bwd_ref``: the
+    same math from the same o and lse) in f32, one kv head at a time."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+
+    G = q.shape[2] // k.shape[2]
+    outs = [torch.empty(t.shape, device=q.device) for t in (q, k, v)]
+    for h in range(k.shape[2]):
+        qs, os_, dos = (t[:, :, h * G:(h + 1) * G].float() for t in (q, o, do))
+        got = flash_attention_bwd_ref(qs, k[:, :, h:h + 1].float(), v[:, :, h:h + 1].float(),
+                                      os_, lse[:, h * G:(h + 1) * G].contiguous(), dos, **kw)
+        outs[0][:, :, h * G:(h + 1) * G], outs[1][:, :, h:h + 1], outs[2][:, :, h:h + 1] = got
+    return outs
+
+
+def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softcap=0.0,
+                   q_offset=0, iters=3, library=True, gen=None):
+    """The flash backward kernel (through ``flash_attention``'s autograd
+    Function) against ``torch.autograd.grad`` of the plain version in f32 on
+    the same (rounded) inputs: dq, dk and dv each within the forward's
+    tolerance as atol and rtol (``grad_allclose``).  bf16 is also held row
+    by row (``grad_row_rel_err``) against the backward's plain version on
+    the kernel's own inputs, the forward's bf16 output and log-sum-exp:
+    FlashAttention-2 takes Δ = rowsum(dO ∘ O) from the rounded output, which
+    moves a row whose exact dq nearly cancels (a query that sees two keys)
+    by more than bf16 rounding, and that difference is the algorithm's, not
+    the kernel's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_with_lse)
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dt)
+    do = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    want32, plain_ms = flash_ref_grads(q, k, v, do, kw)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(flash_attention(qg, kg, vg, **kw), (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    errs = [float((g.float() - w.to(dt).float()).abs().max()) for g, w in zip(got, want32)]
+    ratios = [grad_allclose(g, w, dtype) for g, w in zip(got, want32)]
+    del qg, kg, vg, want32
+    o, lse = flash_attention_with_lse(q, k, v, **kw)
+    rels, rel_tol = None, None
+    if dtype == "bfloat16":
+        rel_tol = REL_TOL
+        rels = [grad_row_rel_err(g, w)
+                for g, w in zip(got, flash_bwd_plain(q, k, v, o, lse, do, kw))]
+    ok = (max(ratios) <= 1.0 and (rel_tol is None or max(rels) <= rel_tol)
+          and all(bool(torch.isfinite(g).all()) for g in got))
+    del got
+    kernel_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), iters, 1)
+    library_ms = None
+    if library and softcap == 0.0:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = None
+        if window > 0 or q_offset or (causal and Sq != Sk):
+            qp = q_offset + torch.arange(Sq, device="cuda")[:, None]
+            kp = torch.arange(Sk, device="cuda")[None, :]
+            mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+            if causal:
+                mask &= kp <= qp
+            if window > 0:
+                mask &= kp > qp - window
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             is_causal=causal and mask is None, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                         retain_graph=True), iters, 1)
+        del out, qt, kt, vt
+    pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
+    flops = 2.5 * 4.0 * B * Hq * D * pairs  # Q K^T, dO V^T, P^T dO, dS^T Q, dS K
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4.0 * B * Hq * Sq
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    rec = dict(kernel="flash_attention_bwd", case=name,
+               shape=dict(B=B, Sq=Sq, Sk=Sk, Hq=Hq, Hkv=Hkv, D=D, causal=causal, window=window,
+                          softcap=softcap, q_offset=q_offset),
+               dtype=dtype, max_abs_err=max(errs), errs_dq_dk_dv=errs, tol=TOL[dtype],
+               err_over_allowed=ratios, grad_row_rel_err=rels, rel_tol=rel_tol,
+               kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+    log(rec)
+    del o, lse
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels(main_S: int):
     import torch
 
@@ -500,6 +756,17 @@ def phase_kernels(main_S: int):
         router_case("kimi_T4096", 4096, 384, 8, gen=g),
         router_case("ties", 1000, 64, 6, ties=True, gen=g),
     ]
+    # the shapes of tests/test_kernels.py::TestFusedAugment, corners out of
+    # range, then ResNet-50's ImageNet recipe at a batch of 256
+    for B, H, W, C, oh, ow in ((2, 64, 64, 3, 32, 32), (4, 48, 56, 3, 32, 40),
+                               (1, 224, 224, 3, 192, 192), (3, 40, 40, 1, 40, 40)):
+        recs.append(augment_case(f"jax_B{B}_{H}x{W}x{C}_{oh}x{ow}", B, H, W, C, oh, ow, gen=g))
+    recs += [
+        augment_flip_case(gen=g),
+        augment_case("out_of_range_corners", 64, 48, 56, 3, 32, 40, corners="out_of_range", gen=g),
+        augment_case("imagenet_B256", 256, 256, 256, 3, 224, 224, gen=g),
+    ]
+    recs += flash_bwd_cases(main_S, g)
     bad = [r["case"] for r in recs if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel parity failed: {bad}")
@@ -507,6 +774,37 @@ def phase_kernels(main_S: int):
         f"(not counted as main path): {launch_counts()}")
     reset_launch_counts()
     return recs
+
+
+def flash_bwd_cases(main_S: int, g):
+    """The backward at the serving heads (starcoder2-3b's 24/2 and
+    moonshot's 16/16, D=128) with the window live at S=8192, then the
+    edges: ragged tiles, q_offset, non-causal, MQA, softcap.  A small
+    warm-up first, so that no case's plain time holds autograd's and the
+    libraries' one-time set-up."""
+    import torch
+
+    warm = [torch.randn((1, 64, 2, 32), device="cuda") for _ in range(4)]
+    flash_ref_grads(*warm, dict(causal=True))
+    return [
+        flash_bwd_case(f"main_S{main_S}", 1, main_S, main_S, 24, 2, 128, "bfloat16",
+                       window=4096, gen=g),
+        flash_bwd_case(f"f32_S{main_S}", 1, main_S, main_S, 24, 2, 128, "float32", window=4096,
+                       library=False, gen=g),
+        flash_bwd_case(f"mha_16x16_S{main_S}", 1, main_S, main_S, 16, 16, 128, "bfloat16",
+                       window=4096, gen=g),
+        flash_bwd_case(f"mha_16x16_f32_S{main_S}", 1, main_S, main_S, 16, 16, 128, "float32",
+                       window=4096, library=False, gen=g),
+        flash_bwd_case("f32_main_heads_window300", 1, 1024, 1024, 24, 2, 128, "float32",
+                       window=300, gen=g),
+        flash_bwd_case("ragged_D64", 2, 300, 300, 4, 2, 64, "float32", gen=g),
+        flash_bwd_case("ragged_D64_bf16", 2, 300, 300, 4, 2, 64, "bfloat16", window=64, gen=g),
+        flash_bwd_case("q_offset", 1, 64, 320, 4, 2, 64, "float32", q_offset=256, gen=g),
+        flash_bwd_case("noncausal_SqneSk", 1, 64, 320, 4, 4, 64, "float32", causal=False, gen=g),
+        flash_bwd_case("mqa_D32", 1, 192, 192, 6, 1, 32, "float32", gen=g),
+        flash_bwd_case("mqa_D32_bf16", 1, 192, 192, 6, 1, 32, "bfloat16", gen=g),
+        flash_bwd_case("softcap", 1, 128, 128, 4, 2, 64, "float32", softcap=30.0, gen=g),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -678,6 +976,208 @@ def phase_model(arch, replace, prefill_S, check_replace, check_lengths):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+def phase_augment(gen, batches: int = 8):
+    """fused_augment as its users call it: ResNet-50's ImageNet recipe, 256
+    images of 256x256x3 cropped to 224x224 at random corners with random
+    flips, on ``batches`` batches; the launch counts are this phase's."""
+    import torch
+
+    from repro_torch.kernels.fused_augment import fused_augment
+
+    data = [augment_inputs(256, 256, 256, 3, 224, 224, "random", gen) for _ in range(batches)]
+
+    def run():
+        return [fused_augment(*args, 224, 224) for args in data]
+
+    outs, secs, counts, peak = counted("augment", run)
+    if counts.get("fused_augment", 0) < batches:
+        raise SystemExit(f"augment: fused_augment launched {counts} times for {batches} batches")
+    for out in outs:
+        if out.shape != (256, 224, 224, 3) or not bool(torch.isfinite(out).all()):
+            raise SystemExit(f"augment: bad output {tuple(out.shape)}")
+    log(dict(phase="augment", batches=batches, images=256 * batches, seconds=secs,
+             images_per_s=256 * batches / secs, max_memory_allocated_gb=peak))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+class ZipfTokens:
+    """An in-script distributed dataset: ``session()`` yields ``steps``
+    batches {"tokens", "labels"} (B, S) int64, made with numpy from ``seed``
+    as examples/train_e2e.py makes its documents (64-511 tokens of zipf(1.3)
+    ids clipped to the vocabulary, so no padding id 0), packed end to end
+    into rows of S + 1 tokens."""
+
+    def __init__(self, vocab: int, batch: int, seq: int, steps: int, seed: int):
+        self.vocab, self.batch, self.seq, self.steps, self.seed = vocab, batch, seq, steps, seed
+
+    def session(self, **overrides):
+        return _ZipfSession(self)
+
+
+class _ZipfSession:
+    def __init__(self, src: ZipfTokens):
+        self.src = src
+        self.closed = False
+
+    def __iter__(self):
+        import numpy as np
+
+        src = self.src
+        rng = np.random.default_rng(src.seed)
+        for _ in range(src.steps):
+            if self.closed:
+                return
+            rows = []
+            for _ in range(src.batch):
+                docs, n = [], 0
+                while n < src.seq + 1:
+                    doc = np.minimum(rng.zipf(1.3, int(rng.integers(64, 512))), src.vocab - 1)
+                    docs.append(doc)
+                    n += len(doc)
+                rows.append(np.concatenate(docs)[: src.seq + 1])
+            arr = np.stack(rows).astype(np.int64)
+            yield {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
+
+    def close(self):
+        self.closed = True
+
+
+def train_launches_per_step(cfg):
+    """Flash launches of one train step under ``remat="block"``: a forward
+    per attention layer, one more for each layer of a repeated group (the
+    recomputation), and a backward per attention layer."""
+    from repro_torch.models.lm import compute_groups
+
+    fwd = recompute = 0
+    for g in compute_groups(cfg):
+        n = g.repeats * sum(m == "attn" for m, _ in g.subpattern)
+        fwd += n
+        if cfg.remat == "block" and g.repeats > 1:
+            recompute += n
+    return {"flash_attention": fwd + recompute, "flash_attention_bwd": fwd}
+
+
+def phase_train():
+    """starcoder2-3b at full width, fed by a DeviceFeeder: TRAIN_STEPS
+    steps, then a profiled one.  Returns the launches of the TRAIN_STEPS
+    steps (the main path)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.feed import DeviceFeeder
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    # A warmup as in real runs.  AdamW's first steps move every entry by
+    # about lr, along a gradient spread over 3.2 B random parameters, so the
+    # loss is steep along them: a first step of lr 2.5e-4 throws it from
+    # 11.3 to 20, and steps of 3.3e-6 already overshoot.  lr rises to 2e-6
+    # over the 6 steps.
+    opt = AdamWConfig(lr=2e-6, warmup_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt,
+                             device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    log(f"train {TRAIN_ARCH}: {cfg.num_layers} layers, params {cfg.param_dtype}, compute "
+        f"{cfg.dtype}, remat {cfg.remat}, {n_params / 1e9:.3f} B params, AdamW state "
+        f"{opt.state_dtype}; init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    step = make_train_step(model, opt)
+    per_step = train_launches_per_step(cfg)
+    src = ZipfTokens(cfg.vocab_size, 1, TRAIN_S, TRAIN_STEPS + 1, seed=0)
+    losses, secs = [], []
+    with DeviceFeeder(src, device="cuda", depth=2) as feeder:
+        def steps():
+            for _ in range(TRAIN_STEPS):
+                t = time.perf_counter()
+                batch = feeder.next()
+                _, m = step(state, batch)
+                losses.append(float(m["loss"]))  # host sync: the step is done
+                secs.append(time.perf_counter() - t)
+                log(dict(phase="train/step", step=len(losses), loss=losses[-1],
+                         total_loss=float(m["total_loss"]), grad_norm=float(m["grad_norm"]),
+                         lr=float(m["lr"]), seconds=secs[-1]))
+
+        _, _, counts, peak = counted(f"train {TRAIN_ARCH} {TRAIN_STEPS} steps", steps)
+        feed = feeder.metrics.summary()
+        profile_device(f"{TRAIN_ARCH}/train_step", lambda: step(state, feeder.next()))
+    steady = secs[1:] if len(secs) > 1 else secs
+    sps = sum(steady) / len(steady)
+    log(dict(phase="train", arch=TRAIN_ARCH, B=1, S=TRAIN_S, steps=TRAIN_STEPS, losses=losses,
+             seconds_per_step=secs, steady_seconds_per_step=sps, tokens_per_s=TRAIN_S / sps,
+             max_memory_allocated_gb=peak, feed_idle_s_per_step=feed["idle_s_per_step"],
+             feed_stall_fraction=feed["stall_frac"], feed_breakdown=feed["breakdown"],
+             feed_transfer_s=feed["transfer_s"], feed_bytes=feed["bytes_to_device"],
+             launches=counts, launches_per_step_want=per_step))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"train: loss not finite and falling: {losses}")
+    if peak > 80.0:
+        raise SystemExit(f"train: peak memory {peak:.1f} GB over 80 GB")
+    require_launches("train", counts, per_step, TRAIN_STEPS)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _max_leaf_err(a, b) -> float:
+    return max(float((x.detach().cpu().float() - y.detach().float()).abs().max())
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def phase_train_check():
+    """One f32 train step of starcoder2-3b at 2 layers (B=1, S=256) through
+    the kernels on the card against the same step through the plain route
+    (``_attn_chunked``, autograd) on CPU copies of the same parameters and
+    batch."""
+    import torch
+
+    from repro_torch.bridge import map_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=2, dtype="float32")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=CHECK_LR, eps=CHECK_EPS, warmup_steps=1)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    cpu_params = map_with_paths(params, lambda _, t: t.cpu().clone())
+    gpu = {"params": params, "opt": init_state(params, opt)}
+    cpu = {"params": cpu_params, "opt": init_state(cpu_params, opt)}
+    batch = next(iter(ZipfTokens(cfg.vocab_size, 1, 256, 1, seed=1).session()))
+    batch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
+    (_, mg), _, counts, peak = counted(
+        "train_check_f32", lambda: make_train_step(model, opt)(
+            gpu, {k: v.cuda() for k, v in batch.items()}))
+    _, mc = make_train_step(model, opt)(cpu, batch)
+    per_step = train_launches_per_step(cfg)
+    loss_err = abs(float(mg["total_loss"]) - float(mc["total_loss"])) / abs(float(mc["total_loss"]))
+    gn_err = abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) / float(mc["grad_norm"])
+    p_err = _max_leaf_err(gpu["params"], cpu["params"])
+    ok = (loss_err <= CHECK_TOL["loss"] and gn_err <= CHECK_TOL["grad_norm"]
+          and p_err <= CHECK_TOL["params"])
+    log(dict(phase="train_check_f32", layers=2, B=1, S=256, lr=CHECK_LR, eps=CHECK_EPS,
+             loss_card=float(mg["total_loss"]), loss_cpu=float(mc["total_loss"]),
+             loss_rel_err=loss_err, grad_norm_rel_err=gn_err, params_max_abs_err=p_err,
+             tol=CHECK_TOL, ok=ok, launches=counts, max_memory_allocated_gb=peak))
+    if not ok:
+        raise SystemExit("train_check_f32: the card's train step disagrees with the plain route")
+    require_launches("train_check_f32", counts, per_step, 1)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -702,10 +1202,21 @@ KERNEL_META = {
     "moe_router": dict(
         source="src/repro_torch/kernels/csrc/moe_router.cu",
         replaces="src/repro/kernels/moe_router/kernel.py:29"),
+    "fused_augment": dict(
+        source="src/repro_torch/kernels/csrc/fused_augment.cu",
+        replaces="src/repro/kernels/fused_augment/kernel.py:29",
+        note="no model path calls it in either package: launches are those of its own op "
+             "phase (augment)"),
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:89",
+        note="the port's own kernel: no TPU kernel computes it; JAX trains through autograd "
+             "of _attn_chunked (XLA)"),
 }
 # the parity case at the main path's shape that each kernel's line reports
 MAIN_CASE = {"flash_attention": f"main_S{PREFILL_S}", "decode_attention": "main_serve_B8_S256",
-             "ssd_scan": "mamba2_prefill_mamba2_regime", "moe_router": "moonshot_prefill"}
+             "ssd_scan": "mamba2_prefill_mamba2_regime", "moe_router": "moonshot_prefill",
+             "fused_augment": "imagenet_B256", "flash_attention_bwd": f"main_S{PREFILL_S}"}
 
 
 def main() -> int:
@@ -723,18 +1234,25 @@ def main() -> int:
     phase_env()
     recs = phase_kernels(PREFILL_S)
     totals = {}
-    for spec in MODELS:
-        for k, v in phase_model(*spec).items():
+
+    def add(counts):
+        for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
+
+    for spec in MODELS:
+        add(phase_model(*spec))
+    add(phase_augment(torch.Generator(device="cuda").manual_seed(2)))
+    add(phase_train())
+    phase_train_check()
 
     kernels = []
     for name, meta in KERNEL_META.items():
-        r = next(r for r in recs if r["case"] == MAIN_CASE[name])
+        r = next(r for r in recs if r["kernel"] == name and r["case"] == MAIN_CASE[name])
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=totals.get(name, 0), max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], **({"note": meta["note"]} if "note" in meta else {})))
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit(f"a kernel of the main path never launched: {totals}")
     log({"kernels": kernels})

@@ -43,11 +43,13 @@ def flatten_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix[:-1], tree)]
 
 
-def _map(tree: Any, fn, prefix: str = "") -> Any:
+def map_with_paths(tree: Any, fn, prefix: str = "") -> Any:
+    """The same tree (tuples become lists) with each leaf replaced by
+    ``fn(key, leaf)``, keys as in ``flatten_with_paths``."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn, f"{prefix}{k}/") for k, v in tree.items()}
+        return {k: map_with_paths(v, fn, f"{prefix}{k}/") for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(v, fn, f"{prefix}{i}/") for i, v in enumerate(tree)]
+        return [map_with_paths(v, fn, f"{prefix}{i}/") for i, v in enumerate(tree)]
     return fn(prefix[:-1], tree)
 
 
@@ -78,7 +80,7 @@ def params_from_jax(
     have exactly its keys, shapes and dtypes, or this raises.
     """
     dev = None if device is None else torch.device(device)
-    out = _map(tree, lambda k, leaf: _to_torch(k, leaf, dev))
+    out = map_with_paths(tree, lambda k, leaf: _to_torch(k, leaf, dev))
     if like is not None:
         got = {k: (tuple(t.shape), t.dtype) for k, t in flatten_with_paths(out)}
         want = {k: (tuple(t.shape), t.dtype) for k, t in flatten_with_paths(like)}
@@ -104,4 +106,4 @@ def params_to_numpy(params: Any) -> Any:
             return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16).copy()
         return t.numpy().copy()
 
-    return _map(params, conv)
+    return map_with_paths(params, conv)

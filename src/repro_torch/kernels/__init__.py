@@ -7,20 +7,28 @@ version), ``<name>/ref.py`` (the plain version).  ``_build.py`` compiles the
 CUDA sources with nvcc on first use.
 
 Kernels:
-  flash_attention  - blocked causal/windowed GQA attention, online softmax
-  decode_attention - split-K flash decoding over a deep KV cache
-  ssd_scan         - mamba2 SSD chunked scan, state carried in shared memory
-  moe_router       - MoE softmax, top-k and token-major capacity slots
+  flash_attention     - blocked causal/windowed GQA attention, online softmax
+  flash_attention_bwd - its backward (dq, dk, dv; FlashAttention-2's math),
+                        the port's own: the JAX package trains on XLA
+  decode_attention    - split-K flash decoding over a deep KV cache
+  ssd_scan            - mamba2 SSD chunked scan, state carried in shared memory
+  moe_router          - MoE softmax, top-k and token-major capacity slots
+  fused_augment       - crop + horizontal flip + normalise of uint8 images
+
+``decode_attention``, ``ssd_scan`` and ``moe_router`` have no backward: on a
+CUDA tensor that needs a gradient they raise (``_grad.refuse_grad``).
 """
 from typing import Dict
 
 from .decode_attention import decode_attention
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
+from .fused_augment import fused_augment
 from .moe_router import moe_router
 from .ssd_scan import ssd_scan
 
-KERNELS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
-           "ssd_scan": ssd_scan, "moe_router": moe_router}
+KERNELS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+           "decode_attention": decode_attention, "ssd_scan": ssd_scan,
+           "moe_router": moe_router, "fused_augment": fused_augment}
 
 
 def launch_counts() -> Dict[str, int]:

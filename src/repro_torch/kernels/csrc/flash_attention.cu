@@ -17,6 +17,10 @@
 // products through WMMA (mma.sync) from shared memory, with no TMA, no wgmma
 // and no load/compute overlap, so it sits well below that bound.
 //
+// With a non-null `lse` the kernel also writes each row's log-sum-exp,
+// m + log(l) of the online softmax in f32, (B, Hq, Sq): the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from it.
+//
 // Supported: T in {f32, bf16}, D in {32, 64, 128}, block_q in {64, 128},
 // block_k in {32, 64} (but not f32 with D=128 at 128x64: over the shared
 // memory of a block, and prepare() refuses it), any Hq % Hkv == 0 (GQA, MQA,
@@ -31,8 +35,8 @@ namespace {
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
     fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-                  float softcap, int q_offset, float scale) {
+                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                  int causal, int window, float softcap, int q_offset, float scale) {
   using L = Layout<T, D, BK>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<T, D, BK> sm(smem_raw, BQ);
@@ -83,10 +87,15 @@ __global__ void __launch_bounds__(kThreads)
       o[(((long)b * Sq + q0 + row) * Hq + h) * D + d] = from_f<T>(out);
     }
   }
+  if (lse != nullptr) {
+    for (int row = threadIdx.x; row < BQ && q0 + row < Sq; row += kThreads)
+      lse[((long)b * Hq + h) * Sq + q0 + row] = sm.m[row] + logf(fmaxf(sm.l[row], 1e-30f));
+  }
 }
 
 template <typename T, int D, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Sq, int Sk,
                    int Hq, int Hkv, int causal, int window, float softcap, int q_offset,
                    float scale, cudaStream_t stream) {
   auto kernel = fa_fwd_kernel<T, D, BQ, BK>;
@@ -96,17 +105,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, Hq, Hkv, causal, window, softcap, q_offset, scale);
+      static_cast<T*>(o), lse, Sq, Sk, Hq, Hkv, causal, window, softcap, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t by_blocks(int block_q, int block_k, const void* q, const void* k, const void* v,
-                      void* o, int B, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-                      float softcap, int q_offset, float scale, cudaStream_t s) {
+                      void* o, float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                      int window, float softcap, int q_offset, float scale, cudaStream_t s) {
 #define FA_CASE(BQ_, BK_)                                                                   \
   if (block_q == BQ_ && block_k == BK_)                                                     \
-    return launch<T, D, BQ_, BK_>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window, softcap, \
+    return launch<T, D, BQ_, BK_>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal, window, softcap, \
                                   q_offset, scale, s);
   FA_CASE(64, 32)
   FA_CASE(64, 64)
@@ -118,18 +127,18 @@ cudaError_t by_blocks(int block_q, int block_k, const void* q, const void* k, co
 
 template <typename T>
 cudaError_t by_dim(int D, int block_q, int block_k, const void* q, const void* k, const void* v,
-                   void* o, int B, int Sq, int Sk, int Hq, int Hkv, int causal, int window,
-                   float softcap, int q_offset, float scale, cudaStream_t s) {
+                   void* o, float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                   int window, float softcap, int q_offset, float scale, cudaStream_t s) {
   switch (D) {
     case 32:
-      return by_blocks<T, 32>(block_q, block_k, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window,
-                              softcap, q_offset, scale, s);
+      return by_blocks<T, 32>(block_q, block_k, q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal,
+                              window, softcap, q_offset, scale, s);
     case 64:
-      return by_blocks<T, 64>(block_q, block_k, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window,
-                              softcap, q_offset, scale, s);
+      return by_blocks<T, 64>(block_q, block_k, q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal,
+                              window, softcap, q_offset, scale, s);
     case 128:
-      return by_blocks<T, 128>(block_q, block_k, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window,
-                               softcap, q_offset, scale, s);
+      return by_blocks<T, 128>(block_q, block_k, q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, causal,
+                               window, softcap, q_offset, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -139,17 +148,19 @@ cudaError_t by_dim(int D, int block_q, int block_k, const void* q, const void* k
 extern "C" {
 
 // q (B,Sq,Hq,D), k and v (B,Sk,Hkv,D), o (B,Sq,Hq,D), all contiguous, of one
-// type: dtype 0 = f32, 1 = bf16.  Returns the launch's cudaError_t.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                        int Sk, int Hq, int Hkv, int D, int dtype, int causal, int window,
+// type: dtype 0 = f32, 1 = bf16; lse (B,Hq,Sq) f32 or null.  Returns the
+// launch's cudaError_t.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                        int Sq, int Sk, int Hq, int Hkv, int D, int dtype, int causal, int window,
                         float softcap, int q_offset, int block_q, int block_k, float scale,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return by_dim<float>(D, block_q, block_k, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window,
+    return by_dim<float>(D, block_q, block_k, q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal, window,
                          softcap, q_offset, scale, s);
   if (dtype == 1)
-    return by_dim<bf16>(D, block_q, block_k, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, window,
+    return by_dim<bf16>(D, block_q, block_k, q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal, window,
                         softcap, q_offset, scale, s);
   return cudaErrorInvalidValue;
 }

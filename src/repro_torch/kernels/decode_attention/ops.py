@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import DTYPES, HEAD_DIMS, MAX_GROUP, decode_attention_fwd
 from .ref import decode_attention_ref
 
@@ -74,6 +75,7 @@ def decode_attention(
         return decode_attention_ref(q, k_cache, v_cache, lengths, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, lengths)
     ns, seg = split_plan(k_cache.shape[1], num_splits, block_s)
     out = torch.empty_like(q)

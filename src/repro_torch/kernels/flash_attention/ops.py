@@ -1,16 +1,29 @@
-"""Public wrapper of the flash-attention kernel.
+"""Public wrappers of the flash-attention kernels.
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/flash_attention.cu``) or raises; on a CPU tensor it computes the
-plain version ``flash_attention_ref``.  ``flash_attention.launches`` counts
-kernel launches.
+``flash_attention``: on a CUDA tensor it launches the hand-written Hopper
+forward (``csrc/flash_attention.cu``) or raises; when autograd records the
+call (grad mode on and an input that needs a gradient) it goes through
+``FlashAttention``, a ``torch.autograd.Function`` whose forward also keeps
+the rows' log-sum-exp and whose backward is ``flash_attention_bwd``.  On a
+CPU tensor it computes the plain version ``flash_attention_ref``, through
+which autograd runs as usual.
+
+``flash_attention_bwd``: on a CUDA tensor it launches the hand-written
+backward (``csrc/flash_attention_bwd.cu``) or raises; on a CPU tensor it
+computes ``flash_attention_bwd_ref`` (the same math, in f32).
+
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+kernel launches (the backward's three kernels count as one launch).
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-from .kernel import BLOCKS_K, BLOCKS_Q, DTYPES, HEAD_DIMS, flash_attention_fwd
-from .ref import flash_attention_ref
+from .kernel import BLOCKS_K, BLOCKS_Q, DTYPES, HEAD_DIMS, flash_attention_bwd_launch
+from .kernel import flash_attention_fwd as _launch_fwd
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> None:
@@ -39,6 +52,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, bloc
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
 
 
+def _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k,
+             with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    _check(q, k, v, block_q, block_k)
+    o = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        B, Sq, Hq, _ = q.shape
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    _launch_fwd(q, k, v, o, lse, causal=causal, window=window, softcap=softcap,
+                q_offset=q_offset, block_q=block_q, block_k=block_k)
+    flash_attention.launches += 1
+    return o, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """The CUDA kernels under autograd: the forward saves q, k, v, the
+    output and the log-sum-exp; the backward launches ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, block_q, block_k):
+        o, lse = _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.attn = (causal, window, softcap, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, softcap, q_offset = ctx.attn
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=causal,
+                                         window=window, softcap=softcap, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
@@ -52,8 +99,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blocked GQA attention with an online softmax; output in q's dtype.
 
-    ``block_q``/``block_k`` pick the kernel's tile (the result does not
-    depend on them beyond rounding); the plain version ignores them.
+    ``block_q``/``block_k`` pick the forward kernel's tile (the result does
+    not depend on them beyond rounding); the plain version ignores them.
     """
     if q.device.type == "cpu":
         if k.device.type != "cpu" or v.device.type != "cpu":
@@ -62,12 +109,61 @@ def flash_attention(
                                    softcap=softcap, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    _check(q, k, v, block_q, block_k)
-    o = torch.empty_like(q)
-    flash_attention_fwd(q, k, v, o, causal=causal, window=window, softcap=softcap,
-                        q_offset=q_offset, block_q=block_q, block_k=block_k)
-    flash_attention.launches += 1
-    return o
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, q_offset, block_q, block_k)
+    return _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k, False)[0]
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0,
+    softcap: float = 0.0, q_offset: int = 0, block_q: int = 64, block_k: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's (output, log-sum-exp (B, Hq, Sq) f32), the pair
+    that ``flash_attention_bwd`` takes; CUDA tensors only."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_with_lse: no kernel for device {q.device}")
+    return _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k, True)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    o: torch.Tensor,  # (B, Sq, Hq, D), the forward's output
+    lse: torch.Tensor,  # (B, Hq, Sq) f32, the forward's log-sum-exp
+    do: torch.Tensor,  # (B, Sq, Hq, D), the gradient of the output
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention``, in the inputs' dtype; dk and dv
+    are summed over each GQA group."""
+    if q.device.type == "cpu":
+        if any(t.device.type != "cpu" for t in (k, v, o, lse, do)):
+            raise ValueError("flash_attention_bwd: q on the CPU but another input elsewhere")
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
+                                       softcap=softcap, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    _check(q, k, v, 64, 64)
+    B, Sq, Hq, _ = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must match q; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous and 16-byte aligned")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, Sq) or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 ({B}, {Hq}, {Sq}); "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    flash_attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

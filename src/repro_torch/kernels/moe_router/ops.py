@@ -10,6 +10,7 @@ from typing import Tuple
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import MAX_EXPERTS, MAX_K, moe_router_fwd
 from .ref import moe_router_ref
 
@@ -40,6 +41,7 @@ def moe_router(
         return moe_router_ref(logits, k)
     if logits.device.type != "cuda":
         raise ValueError(f"moe_router: no kernel for device {logits.device}")
+    refuse_grad("moe_router", logits)
     _check(logits, k)
     T = logits.shape[0]
     ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)

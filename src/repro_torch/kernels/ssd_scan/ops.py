@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import DTYPES, ssd_scan_fwd
 from .ref import ssd_scan_ref
 
@@ -65,6 +66,7 @@ def ssd_scan(
         return ssd_scan_ref(x, dt, a, Bm, Cm, D)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    refuse_grad("ssd_scan", x, dt, a, Bm, Cm, D)
     chunk = min(chunk, x.shape[1])
     _check(x, dt, a, Bm, Cm, D, chunk)
     Bsz, L, H, P = x.shape

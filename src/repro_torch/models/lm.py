@@ -5,7 +5,11 @@ Layers are organised into *groups* (sub-pattern, repeats) exactly as in the
 JAX model, and the parameters keep that layout: ``params["group<i>"]`` is a
 list over the sub-pattern of per-layer dicts, and a group with repeats > 1
 stores every leaf with a leading repeats dim.  A Python loop over the repeats
-takes the place of ``lax.scan``.  ``cfg.remat`` has no effect when serving.
+takes the place of ``lax.scan``.  With ``cfg.remat == "block"`` and grad
+mode on, each repeat of a repeated group runs under
+``torch.utils.checkpoint`` (non-reentrant), the twin of ``jax.checkpoint`` on
+the scanned body: its activations are recomputed in the backward.  Serving
+(no grad) is unaffected.
 
 Forward signature is batch-dict based: ``{"tokens": (B, S) integer}``, with
 optional ``"positions"`` (B, S).
@@ -16,6 +20,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from . import layers as L
@@ -218,6 +223,13 @@ class LanguageModel:
                 for j, spec in enumerate(g.subpattern):
                     yield gi, r, j, spec, (gp[j] if g.repeats == 1 else _index(gp[j], r))
 
+    def _repeat_apply(self, g: LayerGroup, rp: List[Any], x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """One repeat of group ``g``: its sub-pattern's layers in order."""
+        for spec, p in zip(g.subpattern, rp):
+            x = block_apply(self.cfg, spec, p, x, positions)
+        return x
+
     # -- forward (train / prefill) -----------------------------------------
     def forward(
         self, params: Dict[str, Any], batch: Dict[str, Any], last_token_only: bool = False,
@@ -229,8 +241,16 @@ class LanguageModel:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        for _, _, _, spec, p in self._layers(params):
-            x = block_apply(cfg, spec, p, x, positions)
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
+        for gi, g in enumerate(self.groups):
+            gp = params[f"group{gi}"]
+            for r in range(g.repeats):
+                rp = gp if g.repeats == 1 else [_index(p, r) for p in gp]
+                if remat and g.repeats > 1:
+                    x = checkpoint(self._repeat_apply, g, rp, x, positions,
+                                   use_reentrant=False, preserve_rng_state=False)
+                else:
+                    x = self._repeat_apply(g, rp, x, positions)
         x = L.rms_norm(x, params["final_norm"])
         if last_token_only:  # prefill: only the last position feeds sampling
             x = x[:, -1:, :]

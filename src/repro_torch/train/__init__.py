@@ -1,0 +1,37 @@
+"""repro_torch.train - optimizer, train step, loss and checkpointing (twin of
+the JAX package's ``repro.train``).
+
+Training loops consume batches through ``DeviceFeeder`` (re-exported from
+``repro_torch.feed``): service fetch and the host→device copy run on a
+background thread behind a double buffer, so the step never blocks on input.
+On the card the dense family trains through the flash-attention forward and
+backward kernels; the kernels of the MoE and SSM families have no backward
+yet and raise when a gradient would pass through them.
+"""
+from ..feed import DeviceFeeder, FeedMetrics
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from .optimizer import AdamWConfig, apply_updates, init_state, lr_schedule
+from .step import (
+    cross_entropy,
+    init_train_state,
+    make_eval_step,
+    make_loss_fn,
+    make_train_step,
+)
+
+__all__ = [
+    "AdamWConfig",
+    "DeviceFeeder",
+    "FeedMetrics",
+    "apply_updates",
+    "cross_entropy",
+    "init_state",
+    "init_train_state",
+    "latest_step",
+    "lr_schedule",
+    "make_eval_step",
+    "make_loss_fn",
+    "make_train_step",
+    "restore_checkpoint",
+    "save_checkpoint",
+]

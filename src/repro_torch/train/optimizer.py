@@ -1,0 +1,143 @@
+"""AdamW with dtype-configurable state, written by hand (twin of the JAX
+package's ``repro/train/optimizer.py``; no ``torch.optim``).
+
+The numbers are JAX's: gradients clipped by their global norm, bias
+correction, f32 update math, moments stored in ``state_dtype``, and decoupled
+weight decay on every leaf with ``ndim >= 2``.  The port keeps JAX's stacked
+parameter layout, so a repeated group's per-layer norm scales and SSM vectors
+are 2-D and decayed, as in JAX, and ``final_norm`` is not.
+
+Unlike JAX, ``apply_updates`` updates the parameters and moments IN PLACE
+(and returns the same objects): at full width a stacked leaf such as
+starcoder2-3b's ``w1`` is 30 x 3072 x 12288 f32 = 4.5 GB, and the update
+makes at most one f32 temporary of a leaf's size (more only for leaves or
+moments stored in a narrower type), so parameters, gradients and both
+moments (4 x 12.7 GB) still fit one 80 GB card with the activations.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..bridge import flatten_with_paths, map_with_paths
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_ratio; a 0-d f32 tensor, the
+    arithmetic in f32 as in JAX."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(1.0, cfg.warmup_steps)
+    prog = torch.clamp(
+        (step - cfg.warmup_steps) / max(1.0, cfg.decay_steps - cfg.warmup_steps), 0.0, 1.0
+    )
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * prog))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_state(params: Any, cfg: AdamWConfig) -> Dict[str, Any]:
+    """{"step": 0-d int32 (host), "m", "v": zeros like the params in
+    ``cfg.state_dtype``, on the params' devices}."""
+    dt = DTYPES[cfg.state_dtype]
+    def zeros(_: str, p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    return {
+        "step": torch.zeros((), dtype=torch.int32),
+        "m": map_with_paths(params, zeros),
+        "v": map_with_paths(params, zeros),
+    }
+
+
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    return [t for _, t in flatten_with_paths(tree)]
+
+
+_NORM_ROW = 1024
+
+
+def _square_norm(x: torch.Tensor) -> torch.Tensor:
+    """Sum of the squares of ``x`` (0-d f64): the f32 norms of rows of 1024
+    values, summed in f64.  One f32 reduction over a whole large leaf loses
+    precision on the CPU (its f32 ``vector_norm`` of starcoder2-3b's 151 M
+    embedding gradient comes out 1.9% low), and an f64 copy of a 4.5 GB leaf
+    would not fit beside the training state on the card."""
+    flat = x.reshape(-1)
+    head = flat.numel() - flat.numel() % _NORM_ROW
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    if head:
+        rows = torch.linalg.vector_norm(flat[:head].view(-1, _NORM_ROW), dim=1,
+                                        dtype=torch.float32)
+        total = total + rows.double().square().sum()
+    if head < flat.numel():
+        total = total + torch.linalg.vector_norm(flat[head:], dtype=torch.float32).double() ** 2
+    return total
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares: 0-d f32 on the first leaf's
+    device (the sum in f64, ``_square_norm``)."""
+    squares = [_square_norm(x) for x in _leaves(tree)]
+    dev = squares[0].device
+    return torch.sqrt(torch.stack([s.to(dev) for s in squares]).sum()).float()
+
+
+@torch.no_grad()
+def apply_updates(
+    params: Any, grads: Any, state: Dict[str, Any], cfg: AdamWConfig
+) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step, IN PLACE on ``params`` and ``state`` (returned as
+    ``(params, state, metrics)``; metrics ``grad_norm`` (before clipping)
+    and ``lr``)."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = float(torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0))
+    lr = lr_schedule(cfg, step)
+    step32 = step.to(torch.float32)
+    c1 = float(1.0 - _f32(cfg.b1) ** step32)
+    c2 = float(1.0 - _f32(cfg.b2) ** step32)
+    lr_f = float(lr)
+
+    for p, g, m, v in zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
+                          _leaves(state["v"])):
+        g32 = g if g.dtype == torch.float32 else g.float()
+        m32 = m if m.dtype == torch.float32 else m.float()
+        v32 = v if v.dtype == torch.float32 else v.float()
+        # m = b1 m + (1 - b1) g s ;  v = b2 v + (1 - b2) (g s)^2
+        m32.mul_(cfg.b1).add_(g32, alpha=(1 - cfg.b1) * scale)
+        v32.mul_(cfg.b2).addcmul_(g32, g32, value=(1 - cfg.b2) * scale * scale)
+        # delta = (m / c1) / (sqrt(v / c2) + eps), in the one temporary
+        delta = torch.div(v32, c2).sqrt_().add_(cfg.eps)
+        torch.div(m32, delta, out=delta).div_(c1)
+        p32 = p if p.dtype == torch.float32 else p.float()
+        if p.dim() >= 2:  # decoupled weight decay on matrices only
+            delta.add_(p32, alpha=cfg.weight_decay)
+        p32.sub_(delta, alpha=lr_f)
+        del delta
+        for dst, src in ((p, p32), (m, m32), (v, v32)):
+            if dst is not src:
+                dst.copy_(src)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -176,3 +176,87 @@ def test_require_launches_fails_a_bypassed_kernel():
                                 {"moe_router": 47}, 2)
     with pytest.raises(SystemExit, match="moe_router"):
         chip_smoke.require_launches("bypass", {"moe_router": 93}, {"moe_router": 47}, 2)
+
+
+@pytest.mark.parametrize("arch,replace,want", [
+    ("starcoder2-3b", {}, {"flash_attention": 60, "flash_attention_bwd": 30}),
+    ("starcoder2-3b", {"num_layers": 2}, {"flash_attention": 4, "flash_attention_bwd": 2}),
+    ("starcoder2-3b", {"remat": "none"}, {"flash_attention": 30, "flash_attention_bwd": 30}),
+])
+def test_train_launches_per_step(arch, replace, want):
+    """30 forward + 30 recomputed under remat + 30 backward at full width."""
+    from repro_torch.configs import get_config
+
+    assert chip_smoke.train_launches_per_step(get_config(arch).replace(**replace)) == want
+
+
+def test_augment_bound_is_the_imagenet_bytes():
+    """ResNet-50's recipe at B=256: 38.5 MB read + 154.1 MB written over
+    3.35 TB/s is 57.5 us, bound by bytes."""
+    ms, by = chip_smoke.augment_bound(256, 224, 224, 3)
+    assert by == "bytes" and ms == pytest.approx(0.0575, rel=1e-3)
+
+
+def test_zipf_batches_are_packed_and_seeded():
+    """Rows of S + 1 tokens of zipf ids (no padding id 0), labels shifted by
+    one, the same batches from the same seed."""
+    import numpy as np
+
+    src = chip_smoke.ZipfTokens(vocab=1000, batch=2, seq=700, steps=3, seed=4)
+    a, b = list(src.session()), list(src.session(zero_copy=True))
+    assert len(a) == 3
+    for x, y in zip(a, b):
+        assert x["tokens"].shape == x["labels"].shape == (2, 700)
+        np.testing.assert_array_equal(x["tokens"], y["tokens"])
+        np.testing.assert_array_equal(x["tokens"][:, 1:], x["labels"][:, :-1])
+        assert x["tokens"].min() >= 1 and x["labels"].max() <= 999
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grad_criteria_fail_one_key_too_many(dtype):
+    """The backward's criteria pass the plain gradients rounded to the
+    working type and fail the gradients of a window one key too wide: f32 by
+    the allclose rule (``grad_allclose``), bf16 by the row rule
+    (``grad_row_rel_err``); a query that sees one key (dq = 0 exactly) does
+    not trip the row rule."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((1, 256, h, 64), generator=g).bfloat16().float().requires_grad_()
+               for h in (4, 2, 2))
+    do = torch.randn((1, 256, 4, 64), generator=g)
+
+    def grads(window):
+        return torch.autograd.grad(flash_attention_ref(q, k, v, window=window), (q, k, v), do)
+
+    right, wrong = grads(16), grads(17)
+    dt = getattr(torch, dtype)
+    for r in right:
+        assert chip_smoke.grad_allclose(r.to(dt), r, dtype) <= 1.0
+        assert chip_smoke.grad_row_rel_err(r.to(dt), r) <= chip_smoke.REL_TOL
+    if dtype == "float32":
+        assert max(chip_smoke.grad_allclose(w, r, dtype) for w, r in zip(wrong, right)) > 1.0
+    else:
+        assert max(chip_smoke.grad_row_rel_err(w.to(dt), r)
+                   for w, r in zip(wrong, right)) > chip_smoke.REL_TOL
+
+
+def test_backward_plain_version_on_the_kernels_inputs():
+    """``flash_bwd_plain``'s per-kv-head loop is the backward's plain version
+    on whole tensors (the function is separable by kv head)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_ref,
+                                                     flash_attention_lse_ref)
+
+    g = torch.Generator().manual_seed(4)
+    q, do = (torch.randn((1, 96, 6, 32), generator=g) for _ in range(2))
+    k, v = (torch.randn((1, 96, 2, 32), generator=g) for _ in range(2))
+    kw = dict(causal=True, window=40)
+    o, lse = flash_attention_lse_ref(q, k, v, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    got = chip_smoke.flash_bwd_plain(q, k, v, o, lse, do, kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
