@@ -28,7 +28,12 @@ every phase passed):
               forward's tolerance as atol and rtol: f32 2e-5, bf16 3e-2),
               bf16 also row by row (floored at the tensor's RMS) against the
               backward's plain version on the kernel's own output and
-              log-sum-exp.
+              log-sum-exp.  The bf16 Hopper kernels are also held at both
+              forward tiles (128 x 128, 128 x 64) on their edges
+              (``BF16_EDGES``: ragged tails, q_offset with Sq != Sk,
+              non-causal, MHA, D = 64 and 32, softcap), the backward must be
+              bit-identical across two runs, and every flash record carries
+              its achieved TFLOP/s and share of its bound.
 3. models   - at full width, random weights from a seeded generator, for
               starcoder2-3b (dense), mamba2-2.7b (SSM) and moonshot-v1-16b-a3b
               (MoE, bf16 parameters): (a) a prefill, (b) a ServeEngine
@@ -76,6 +81,21 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py
+# bf16 edges of the Hopper flash kernels (blocks of 128 query rows, key
+# tiles of 128 and 64 in the forward, 128-key blocks and 64-row q tiles in
+# the backward): (name, B, Sq, Sk, Hq, Hkv, D, options).  Each runs the
+# forward at both tiles and the backward.
+BF16_EDGES = (
+    ("bf16_S1000_window300", 1, 1000, 1000, 24, 2, 128, dict(window=300)),
+    ("bf16_ragged_S300", 2, 300, 300, 4, 2, 64, dict()),
+    ("bf16_q_offset_SqneSk", 1, 64, 320, 4, 2, 64, dict(q_offset=256)),
+    ("bf16_q_offset_window", 1, 200, 1000, 8, 2, 128, dict(q_offset=800, window=300)),
+    ("bf16_noncausal_SqneSk", 1, 64, 320, 4, 4, 64, dict(causal=False)),
+    ("bf16_mha_16x16", 1, 1024, 1024, 16, 16, 128, dict()),
+    ("bf16_D64", 2, 256, 256, 8, 2, 64, dict()),
+    ("bf16_mqa_D32", 1, 192, 192, 6, 1, 32, dict()),
+    ("bf16_softcap30", 1, 128, 128, 4, 2, 64, dict(softcap=30.0)),
+)
 # bf16 only: largest error in a row over that row's RMS in the f32 plain
 # output.  A bf16 step is 2^-8 of a value, so a right kernel stays near
 # 2^-8 * (row max / row RMS), about 0.015; one key too many or too few in a
@@ -185,6 +205,19 @@ def grad_row_rel_err(got, want32) -> float:
     return float((err / rms.clamp_min(1e-30)).max())
 
 
+def achieved_tflops(flops: float, ms: float) -> float:
+    """FLOP/s of ``flops`` done in ``ms`` milliseconds, in TFLOP/s."""
+    return flops / (ms * 1e-3) / 1e12
+
+
+def flash_flops(B, Sq, Sk, Hq, D, causal=True, window=0, q_offset=0, backward=False) -> float:
+    """The least FLOPs of a flash call on this run's masks: 4 D a visible
+    pair (Q K^T and P V) forward; 2.5x that backward (Q K^T, dO V^T, P^T dO,
+    dS^T Q, dS K)."""
+    fwd = 4.0 * B * Hq * D * _visible_pairs(Sq, Sk, causal, window, q_offset)
+    return 2.5 * fwd if backward else fwd
+
+
 def bound(flops: float, nbytes: float, dtype: str):
     t_ops = flops / PEAK_FLOPS[dtype]
     t_mem = nbytes / HBM_BYTES_PER_S
@@ -210,14 +243,53 @@ def phase_env():
     paths = _build.build(*_build.SOURCES)
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(paths)} "
         f"(per source: { {k: round(v, 1) for k, v in _build.build_seconds.items()} })")
+    hopper_spills = {}
     for name in _build.SOURCES:
         lines = _build.build_log(name).splitlines()
         regs = [ln.strip() for ln in lines if "registers" in ln]
-        spills = [ln.strip() for ln in lines if "spill" in ln and not ln.strip().startswith(
-            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+        spills = ptxas_spills(lines)
         log(f"ptxas {name}: {len(regs)} kernels; max "
             f"{max((int(r.split('Used ')[1].split()[0]) for r in regs), default=0)} registers; "
             f"spilling: {spills if spills else 'none'}")
+        hopper_spills.update({k: v for k, v in spills.items() if k.split("<")[0].endswith("_sm90")})
+    if hopper_spills:
+        raise SystemExit(f"ptxas: the Hopper flash kernels spill: {hopper_spills}")
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<int args>`` of an Itanium-mangled kernel symbol: the last name
+    of its nested name and the integer template arguments."""
+    import re
+
+    rest = mangled[2:] if mangled.startswith("_Z") else mangled
+    rest = rest[1:] if rest.startswith("N") else rest
+    names = []
+    while rest[:1].isdigit():
+        n = int(re.match(r"\d+", rest).group())
+        width = len(str(n))
+        names.append(rest[width:width + n])
+        rest = rest[width + n:]
+    if not names:
+        return mangled
+    m = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
+    args = re.findall(r"L[a-z]+(\d+)E", m.group(1)) if m else []
+    return names[-1] + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_spills(lines) -> dict:
+    """{kernel: ptxas's stack/spill line} for each kernel of a ``-Xptxas -v``
+    log that spills (its lines follow "Compiling entry function '<name>'")."""
+    import re
+
+    out, current = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            current = kernel_name(m.group(1))
+        elif "spill" in ln and current and not re.search(
+                r"\b0 bytes spill stores, 0 bytes spill loads", ln):
+            out[current] = ln.strip()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +305,17 @@ def _visible_pairs(Sq, Sk, causal, window, q_offset=0) -> int:
 
 
 def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softcap=0.0,
-               q_offset=0, blocks=((64, 64),), iters=10, library=True, gen=None):
+               q_offset=0, blocks=None, iters=10, library=True, gen=None):
+    """The forward kernel at each tile of ``blocks`` (default: the dtype's
+    default tile) against its plain version in f32 on the same inputs."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import TILES
 
     dt = getattr(torch, dtype)
+    blocks = blocks or TILES[dt][:1]
     q = torch.randn((B, Sq, Hq, D), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, Sk, Hkv, D), generator=gen, device="cuda").to(dt)
@@ -277,8 +353,7 @@ def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softca
                 qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
 
         library_ms = time_ms(sdpa, iters)
-    pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
-    flops = 4.0 * B * Hq * D * pairs
+    flops = flash_flops(B, Sq, Sk, Hq, D, causal, window, q_offset)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     rec = dict(kernel="flash_attention", case=name,
@@ -288,7 +363,8 @@ def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softca
                dtype=dtype, max_abs_err=err, block_spread=spread, tol=tol,
                row_rel_err=rel, rel_tol=rel_tol,
                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+               bound_ms=bound_ms, bound_by=bound_by, tflops=achieved_tflops(flops, kernel_ms),
+               bound_share=bound_ms / kernel_ms, ok=ok)
     log(rec)
     del want32, want, outs
     torch.cuda.empty_cache()
@@ -637,7 +713,11 @@ def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, so
         rel_tol = REL_TOL
         rels = [grad_row_rel_err(g, w)
                 for g, w in zip(got, flash_bwd_plain(q, k, v, o, lse, do, kw))]
-    ok = (max(ratios) <= 1.0 and (rel_tol is None or max(rels) <= rel_tol)
+    # the same inputs twice: no atomics, so the outputs must be bit-identical
+    again = [flash_attention_bwd(q, k, v, o, lse, do, **kw) for _ in range(2)]
+    bit_equal = all(torch.equal(a, b) for a, b in zip(*again))
+    del again
+    ok = (max(ratios) <= 1.0 and (rel_tol is None or max(rels) <= rel_tol) and bit_equal
           and all(bool(torch.isfinite(g).all()) for g in got))
     del got
     kernel_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), iters, 1)
@@ -659,8 +739,7 @@ def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, so
         library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                          retain_graph=True), iters, 1)
         del out, qt, kt, vt
-    pairs = _visible_pairs(Sq, Sk, causal, window, q_offset)
-    flops = 2.5 * 4.0 * B * Hq * D * pairs  # Q K^T, dO V^T, P^T dO, dS^T Q, dS K
+    flops = flash_flops(B, Sq, Sk, Hq, D, causal, window, q_offset, backward=True)
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4.0 * B * Hq * Sq
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     rec = dict(kernel="flash_attention_bwd", case=name,
@@ -668,8 +747,9 @@ def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, so
                           softcap=softcap, q_offset=q_offset),
                dtype=dtype, max_abs_err=max(errs), errs_dq_dk_dv=errs, tol=TOL[dtype],
                err_over_allowed=ratios, grad_row_rel_err=rels, rel_tol=rel_tol,
-               kernel_ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+               bit_equal_across_runs=bit_equal, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               tflops=achieved_tflops(flops, kernel_ms), bound_share=bound_ms / kernel_ms, ok=ok)
     log(rec)
     del o, lse
     torch.cuda.empty_cache()
@@ -680,8 +760,10 @@ def phase_kernels(main_S: int):
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import TILES
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    g_edges = torch.Generator(device="cuda").manual_seed(14)
     recs = [
         # starcoder2-3b's attention: Hq=24, Hkv=2, D=128, bf16, window 4096
         flash_case("main_S512", 1, 512, 512, 24, 2, 128, "bfloat16", window=4096, gen=g),
@@ -703,10 +785,16 @@ def phase_kernels(main_S: int):
         flash_case("mha", 2, 256, 256, 8, 8, 64, "bfloat16", gen=g),
         flash_case("mqa_D32", 1, 192, 192, 6, 1, 32, "float32", gen=g),
         flash_case("softcap", 1, 128, 128, 4, 2, 64, "float32", softcap=30.0, gen=g),
-        flash_case("blocks", 1, 256, 256, 4, 2, 64, "float32",
-                   blocks=((64, 64), (64, 32), (128, 32), (128, 64)), gen=g),
+        flash_case("blocks", 1, 256, 256, 4, 2, 64, "float32", blocks=TILES[torch.float32],
+                   gen=g),
         flash_case("blocks_bf16_D128", 1, 1000, 1000, 24, 2, 128, "bfloat16", window=300,
-                   blocks=((64, 64), (64, 32), (128, 32), (128, 64)), gen=g),
+                   blocks=TILES[torch.bfloat16], gen=g),
+        # the edges (and moonshot's prefill shape, its MHA path) draw from
+        # their own generator, so that every earlier case keeps its inputs
+        flash_case("moonshot_prefill_S4096", 1, 4096, 4096, 16, 16, 128, "bfloat16", iters=5,
+                   gen=g_edges),
+        *(flash_case(name, *shape, "bfloat16", blocks=TILES[torch.bfloat16], gen=g_edges, **kw)
+          for name, *shape, kw in BF16_EDGES),
         decode_case("main_serve_B8_S256", 8, 256, 24, 2, 128, "bfloat16", [96] * 8,
                     window=4096, gen=g),
         decode_case(f"long_B8_S{main_S}", 8, main_S, 24, 2, 128, "bfloat16",
@@ -766,7 +854,7 @@ def phase_kernels(main_S: int):
         augment_case("out_of_range_corners", 64, 48, 56, 3, 32, 40, corners="out_of_range", gen=g),
         augment_case("imagenet_B256", 256, 256, 256, 3, 224, 224, gen=g),
     ]
-    recs += flash_bwd_cases(main_S, g)
+    recs += flash_bwd_cases(main_S, g, g_edges)
     bad = [r["case"] for r in recs if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel parity failed: {bad}")
@@ -776,7 +864,7 @@ def phase_kernels(main_S: int):
     return recs
 
 
-def flash_bwd_cases(main_S: int, g):
+def flash_bwd_cases(main_S: int, g, g_edges):
     """The backward at the serving heads (starcoder2-3b's 24/2 and
     moonshot's 16/16, D=128) with the window live at S=8192, then the
     edges: ragged tiles, q_offset, non-causal, MQA, softcap.  A small
@@ -804,6 +892,8 @@ def flash_bwd_cases(main_S: int, g):
         flash_bwd_case("mqa_D32", 1, 192, 192, 6, 1, 32, "float32", gen=g),
         flash_bwd_case("mqa_D32_bf16", 1, 192, 192, 6, 1, 32, "bfloat16", gen=g),
         flash_bwd_case("softcap", 1, 128, 128, 4, 2, 64, "float32", softcap=30.0, gen=g),
+        *(flash_bwd_case(name, *shape, "bfloat16", gen=g_edges, **kw)
+          for name, *shape, kw in BF16_EDGES),
     ]
 
 
@@ -1252,7 +1342,9 @@ def main() -> int:
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=totals.get(name, 0), max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], **({"note": meta["note"]} if "note" in meta else {})))
+            library_ms=r["library_ms"],
+            **{key: r[key] for key in ("tflops", "bound_share") if key in r},
+            **({"note": meta["note"]} if "note" in meta else {})))
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit(f"a kernel of the main path never launched: {totals}")
     log({"kernels": kernels})

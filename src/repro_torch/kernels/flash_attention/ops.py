@@ -1,7 +1,8 @@
 """Public wrappers of the flash-attention kernels.
 
 ``flash_attention``: on a CUDA tensor it launches the hand-written Hopper
-forward (``csrc/flash_attention.cu``) or raises; when autograd records the
+forward (``csrc/flash_attention.cu``: the wgmma/TMA kernel for bf16, the
+scalar kernel for f32) or raises; when autograd records the
 call (grad mode on and an input that needs a gradient) it goes through
 ``FlashAttention``, a ``torch.autograd.Function`` whose forward also keeps
 the rows' log-sum-exp and whose backward is ``flash_attention_bwd``.  On a
@@ -13,7 +14,8 @@ backward (``csrc/flash_attention_bwd.cu``) or raises; on a CPU tensor it
 computes ``flash_attention_bwd_ref`` (the same math, in f32).
 
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-kernel launches (the backward's three kernels count as one launch).
+kernel launches (the backward's kernels, three for f32 and four for bf16,
+count as one launch).
 """
 from __future__ import annotations
 
@@ -21,12 +23,32 @@ from typing import Optional, Tuple
 
 import torch
 
-from .kernel import BLOCKS_K, BLOCKS_Q, DTYPES, HEAD_DIMS, flash_attention_bwd_launch
+from .kernel import DTYPES, HEAD_DIMS, TILES, flash_attention_bwd_launch
 from .kernel import flash_attention_fwd as _launch_fwd
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> None:
+def resolve_tile(dtype: torch.dtype, head_dim: int, block_q: Optional[int] = None,
+                 block_k: Optional[int] = None) -> Tuple[int, int]:
+    """The forward's (block_q, block_k) for ``dtype``: the dtype's default
+    tile where both are None (the fast one), else the pair asked for, which
+    must be one of ``TILES[dtype]``."""
+    if dtype not in TILES:
+        raise TypeError(f"flash_attention: no kernel for {dtype}; want one of {list(TILES)}")
+    if block_q is None and block_k is None:
+        return TILES[dtype][0]
+    default_q, default_k = TILES[dtype][0]
+    tile = (default_q if block_q is None else block_q, default_k if block_k is None else block_k)
+    if tile not in TILES[dtype]:
+        raise ValueError(f"flash_attention: {dtype} takes (block_q, block_k) in "
+                         f"{list(TILES[dtype])}; got {tile}")
+    if dtype == torch.float32 and head_dim == 128 and tile == (128, 64):
+        # the one tile whose shared memory (230 KiB) is over sm_90's 227 KiB
+        raise ValueError("flash_attention: f32 with D=128 takes block_q=64 or block_k=32")
+    return tile
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q (B,Sq,Hq,D), k = v (B,Sk,Hkv,D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -41,12 +63,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, bloc
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    if block_q not in BLOCKS_Q or block_k not in BLOCKS_K:
-        raise ValueError(f"flash_attention: block_q in {BLOCKS_Q}, block_k in {BLOCKS_K}; "
-                         f"got {block_q}, {block_k}")
-    if q.dtype == torch.float32 and D == 128 and (block_q, block_k) == (128, 64):
-        # the one tile whose shared memory (230 KiB) is over sm_90's 227 KiB
-        raise ValueError("flash_attention: f32 with D=128 takes block_q=64 or block_k=32")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
@@ -54,7 +70,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, bloc
 
 def _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k,
              with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    _check(q, k, v, block_q, block_k)
+    _check(q, k, v)
+    block_q, block_k = resolve_tile(q.dtype, q.shape[3], block_q, block_k)
     o = torch.empty_like(q)
     lse = None
     if with_lse:
@@ -94,13 +111,15 @@ def flash_attention(
     window: int = 0,
     softcap: float = 0.0,
     q_offset: int = 0,
-    block_q: int = 64,
-    block_k: int = 64,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Blocked GQA attention with an online softmax; output in q's dtype.
 
-    ``block_q``/``block_k`` pick the forward kernel's tile (the result does
-    not depend on them beyond rounding); the plain version ignores them.
+    ``block_q``/``block_k`` pick the forward kernel's tile, one of
+    ``TILES[dtype]``; None takes the dtype's default (``resolve_tile``).
+    The result does not depend on the tile beyond rounding; the plain
+    version ignores it.
     """
     if q.device.type == "cpu":
         if k.device.type != "cpu" or v.device.type != "cpu":
@@ -116,7 +135,8 @@ def flash_attention(
 
 def flash_attention_with_lse(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, window: int = 0,
-    softcap: float = 0.0, q_offset: int = 0, block_q: int = 64, block_k: int = 64,
+    softcap: float = 0.0, q_offset: int = 0, block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's (output, log-sum-exp (B, Hq, Sq) f32), the pair
     that ``flash_attention_bwd`` takes; CUDA tensors only."""
@@ -146,7 +166,7 @@ def flash_attention_bwd(
                                        softcap=softcap, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
-    _check(q, k, v, 64, 64)
+    _check(q, k, v)
     B, Sq, Hq, _ = q.shape
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:

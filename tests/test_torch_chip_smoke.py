@@ -260,3 +260,58 @@ def test_backward_plain_version_on_the_kernels_inputs():
     got = chip_smoke.flash_bwd_plain(q, k, v, o, lse, do, kw)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "args,want",
+    [
+        ((1, 4, 4, 1, 1), 4 * 10),  # 10 visible pairs, 4 D FLOPs each
+        ((2, 4, 4, 3, 8, False), 2 * 3 * 4 * 8 * 16),
+        ((1, 2, 6, 1, 1, True, 0, 4), 4 * 11),
+    ],
+)
+def test_flash_flops_count_the_visible_pairs(args, want):
+    assert chip_smoke.flash_flops(*args) == want
+    assert chip_smoke.flash_flops(*args, backward=True) == 2.5 * want
+
+
+def test_flash_bounds_at_the_main_shape():
+    """starcoder2-3b at S=8192 (24/2 heads, D=128, window 4096): 309 GFLOP
+    forward, 0.3127 ms at 989 TFLOP/s; 2.5x that backward, 0.7818 ms."""
+    fwd = chip_smoke.flash_flops(1, 8192, 8192, 24, 128, True, 4096)
+    bwd = chip_smoke.flash_flops(1, 8192, 8192, 24, 128, True, 4096, backward=True)
+    assert chip_smoke.bound(fwd, 0.0, "bfloat16")[0] == pytest.approx(0.3127, rel=1e-3)
+    assert chip_smoke.bound(bwd, 0.0, "bfloat16")[0] == pytest.approx(0.7818, rel=1e-3)
+
+
+@pytest.mark.parametrize("flops,ms,want", [(1e12, 1.0, 1000.0), (309e9, 0.3127, 988.2)])
+def test_achieved_tflops(flops, ms, want):
+    assert chip_smoke.achieved_tflops(flops, ms) == pytest.approx(want, rel=1e-3)
+
+
+def test_bf16_edges_cover_the_edges_of_the_hopper_tiles():
+    """Ragged tails at both tile sizes, q_offset with Sq != Sk, non-causal,
+    MHA 16/16, D = 64 and 32, softcap 30, and S=1000 with window 300."""
+    cases = {name: (tuple(shape), kw) for name, *shape, kw in chip_smoke.BF16_EDGES}
+    assert len(cases) == len(chip_smoke.BF16_EDGES) == 9
+    shapes = [shape for shape, _ in cases.values()]
+    assert any(Sq % 128 and Sq % 64 for _, Sq, _, _, _, _ in shapes)  # ragged tails
+    assert any(kw.get("q_offset") and shape[1] != shape[2] for shape, kw in cases.values())
+    assert any(kw.get("causal") is False for _, kw in cases.values())
+    assert any(Hq == Hkv == 16 for _, _, _, Hq, Hkv, _ in shapes)
+    assert {D for *_, D in shapes} == {32, 64, 128}
+    assert any(kw.get("softcap") == 30.0 for _, kw in cases.values())
+    assert cases["bf16_S1000_window300"] == ((1, 1000, 1000, 24, 2, 128), {"window": 300})
+
+
+@pytest.mark.parametrize("case", chip_smoke.BF16_EDGES, ids=lambda c: c[0])
+def test_each_bf16_edge_does_work_the_kernels_take(case):
+    """Every edge case has visible pairs, a head dim the kernels take and a
+    GQA group that divides; the forward's FLOPs follow its masks."""
+    _, B, Sq, Sk, Hq, Hkv, D, kw = case
+    assert D in (32, 64, 128) and Hq % Hkv == 0
+    pairs = chip_smoke._visible_pairs(Sq, Sk, kw.get("causal", True), kw.get("window", 0),
+                                      kw.get("q_offset", 0))
+    assert 0 < pairs <= Sq * Sk
+    assert chip_smoke.flash_flops(B, Sq, Sk, Hq, D, kw.get("causal", True), kw.get("window", 0),
+                                  kw.get("q_offset", 0)) == 4.0 * B * Hq * D * pairs

@@ -454,3 +454,82 @@ class TestWrapperRouting:
         env = {"PATH": str(tmp_path), "PYTHONPATH": os.path.abspath(src),
                "CUDA_VISIBLE_DEVICES": "", "HOME": str(tmp_path)}
         subprocess.run([sys.executable, "-c", code], env=env, check=True, timeout=120)
+
+
+class TestFlashTiles:
+    """The forward's tiles by dtype (``ops.resolve_tile``) and the bf16
+    route's sources: bf16 reaches only the Hopper wgmma kernels."""
+
+    @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, (128, 128)),
+                                            (torch.float32, (64, 64))])
+    def test_default_tile_by_dtype(self, dtype, want):
+        from repro_torch.kernels.flash_attention.ops import resolve_tile
+
+        assert resolve_tile(dtype, 128) == want
+
+    @pytest.mark.parametrize("dtype,tile", [
+        (torch.bfloat16, (128, 128)), (torch.bfloat16, (128, 64)),
+        (torch.float32, (64, 64)), (torch.float32, (64, 32)), (torch.float32, (128, 32)),
+        (torch.float32, (128, 64)),
+    ])
+    def test_each_dtype_takes_its_tiles(self, dtype, tile):
+        from repro_torch.kernels.flash_attention.kernel import TILES
+        from repro_torch.kernels.flash_attention.ops import resolve_tile
+
+        assert tile in TILES[dtype]
+        assert resolve_tile(dtype, 64, *tile) == tile
+
+    @pytest.mark.parametrize("dtype,tile", [
+        # the first version's bf16 WMMA tiles, and other shapes
+        (torch.bfloat16, (64, 64)), (torch.bfloat16, (64, 32)), (torch.bfloat16, (128, 32)),
+        (torch.bfloat16, (256, 128)), (torch.bfloat16, (128, 256)),
+        (torch.float32, (128, 128)), (torch.float32, (32, 32)),
+    ])
+    def test_other_tiles_are_refused(self, dtype, tile):
+        from repro_torch.kernels.flash_attention.ops import resolve_tile
+
+        with pytest.raises(ValueError, match="block_q, block_k"):
+            resolve_tile(dtype, 64, *tile)
+
+    def test_f32_tile_over_shared_memory_is_refused(self):
+        from repro_torch.kernels.flash_attention.ops import resolve_tile
+
+        assert resolve_tile(torch.float32, 64, 128, 64) == (128, 64)
+        with pytest.raises(ValueError, match="D=128"):
+            resolve_tile(torch.float32, 128, 128, 64)
+
+    def test_one_block_size_given_fills_the_other_from_the_default(self):
+        from repro_torch.kernels.flash_attention.ops import resolve_tile
+
+        assert resolve_tile(torch.bfloat16, 128, block_k=64) == (128, 64)
+        assert resolve_tile(torch.float32, 128, block_k=32) == (64, 32)
+        with pytest.raises(TypeError):
+            resolve_tile(torch.float16, 128)
+
+    @pytest.mark.parametrize("source", ["flash_attention.cu", "flash_attention_bwd.cu"])
+    def test_flash_sources_have_no_wmma_route(self, source):
+        """The bf16 flash calls launch only the wgmma kernels: neither source
+        issues a WMMA product or instantiates the f32 tile step for bf16."""
+        from repro_torch.kernels import _build
+
+        text = (_build.CSRC / source).read_text()
+        for token in ("wmma::", "mma_sync", "load_matrix_sync", "attend_rows<T",
+                      "attend_rows<bf16", "nvcuda"):
+            assert token not in text, token
+        assert "wgmma" in (_build.CSRC / "sm90.cuh").read_text()
+        assert '#include "sm90.cuh"' in text
+
+    @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd"])
+    def test_library_path_follows_the_sm90_header(self, name, tmp_path, monkeypatch):
+        """An edit of csrc/sm90.cuh rebuilds both flash libraries."""
+        import shutil
+
+        from repro_torch.kernels import _build
+
+        csrc = tmp_path / "csrc"
+        shutil.copytree(_build.CSRC, csrc)
+        monkeypatch.setattr(_build, "CSRC", csrc)
+        before = _build.library_path(name)
+        assert before == _build.library_path(name)
+        (csrc / "sm90.cuh").write_text((csrc / "sm90.cuh").read_text() + "\n// edited\n")
+        assert _build.library_path(name) != before
