@@ -8,7 +8,8 @@ every phase passed):
 
 1. env      - the card's name and power limit (nvidia-smi), torch/CUDA
               versions, TF32 off for f32 products, and the nvcc build of every
-              kernel in ``src/repro_torch/kernels/csrc`` (build seconds).
+              kernel in ``src/repro_torch/kernels/csrc`` (build seconds); a
+              spill in a Hopper flash, decode or SSD kernel fails the run.
 2. kernels  - each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes and the edge cases of the
               JAX package's kernel tests; one JSON line per case with the
@@ -33,7 +34,17 @@ every phase passed):
               (``BF16_EDGES``: ragged tails, q_offset with Sq != Sk,
               non-causal, MHA, D = 64 and 32, softcap), the backward must be
               bit-identical across two runs, and every flash record carries
-              its achieved TFLOP/s and share of its bound.
+              its achieved TFLOP/s and share of its bound.  decode_attention
+              (also on the card's split plan, ``num_splits=None``) and
+              ssd_scan must be bit-identical across two runs; decode and
+              moe_router records carry ``device_ms``, the profiler's kernel
+              time per call beside the back-to-back ``kernel_ms``, and decode
+              records SDPA's too; ssd_scan records the bound at the tensor
+              cores' rate with the passes its kernels take.  The cases of
+              ``DECODE_CASES_NEW`` and ``SSD_CASES_NEW`` draw from their own
+              generator, after every earlier case.  Last, decode's device
+              time at 1-128 splits beside the card plan's pick
+              (``SPLIT_SWEEP``), from which the plan's constants were set.
 3. models   - at full width, random weights from a seeded generator, for
               starcoder2-3b (dense), mamba2-2.7b (SSM) and moonshot-v1-16b-a3b
               (MoE, bf16 parameters): (a) a prefill, (b) a ServeEngine
@@ -78,7 +89,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
 # the tensor cores, HBM bandwidth.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py
 # bf16 edges of the Hopper flash kernels (blocks of 128 query rows, key
@@ -96,6 +107,38 @@ BF16_EDGES = (
     ("bf16_mqa_D32", 1, 192, 192, 6, 1, 32, dict()),
     ("bf16_softcap30", 1, 128, 128, 4, 2, 64, dict(softcap=30.0)),
 )
+# Cases of the Hopper decode and SSD kernels' redesign.  They draw from a
+# generator of their own (NEW_CASES_SEED), after every earlier case, so that
+# each earlier case keeps its inputs.  Decode: moonshot's heads (16/16, G = 1,
+# no window) at the serve shape and a long cache, and a long context on the
+# card's plan (num_splits None); (name, B, S, Hq, Hkv, D, dtype, lengths,
+# options).  SSD: the main path's dtype, bf16, in the mixer's regime.
+NEW_CASES_SEED = 15
+DECODE_CASES_NEW = (
+    ("moonshot_serve_B8_S256", 8, 256, 16, 16, 128, "bfloat16", [96] * 8, dict()),
+    ("moonshot_long_B8_S4096", 8, 4096, 16, 16, 128, "bfloat16",
+     [1, 64, 65, 1000, 2048, 3000, 4095, 4096], dict()),
+    ("long_B1_S32768_card_plan", 1, 32768, 24, 2, 128, "bfloat16", [32768],
+     dict(splits=(None,))),
+)
+SSD_CASES_NEW = (
+    ("mamba2_prefill_mamba2_regime_bf16", 1, 8192, 80, 64, 128, "bfloat16",
+     dict(groups=1, regime="mamba2")),
+)
+# The decode plan's sweep: device time per call at each split count of
+# SWEEP_SPLITS beside the count the card's plan picks, at the long caches of
+# the main path's heads (name, B, S, Hq, Hkv, lengths, window; D = 128,
+# bf16).  Its inputs come from a generator of their own, after every case.
+SWEEP_SPLITS = (1, 2, 4, 8, 16, 32, 64, 128)
+SPLIT_SWEEP = (
+    ("long_B8_S8192", 8, 8192, 24, 2, [1, 100, 4096, 4097, 5000, 8000, 8192, 3000], 4096),
+    ("long_B1_S32768", 1, 32768, 24, 2, [32768], 0),
+    ("moonshot_long_B8_S4096", 8, 4096, 16, 16, [1, 64, 65, 1000, 2048, 3000, 4095, 4096], 0),
+)
+SWEEP_SEED = 16
+# Kernels of the Hopper redesigns: ptxas must report no spill for any of them.
+NO_SPILL_KERNELS = ("decode_kernel", "decode_merge_kernel", "ssd_chunk_state", "ssd_state_pass",
+                    "ssd_chunk_out")
 # bf16 only: largest error in a row over that row's RMS in the f32 plain
 # output.  A bf16 step is 2^-8 of a value, so a right kernel stays near
 # 2^-8 * (row max / row RMS), about 0.015; one key too many or too few in a
@@ -152,6 +195,27 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time of one ``fn()`` call in ms: the kernels' time that
+    ``torch.profiler`` records over ``iters`` calls (after one warm-up
+    call), divided by ``iters``.  Unlike ``time_ms`` it does not count the
+    host's time between launches.  "not measured" when the profiler saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters if total else "not measured"
 
 
 def profile_device(label: str, fn) -> None:
@@ -251,9 +315,11 @@ def phase_env():
         log(f"ptxas {name}: {len(regs)} kernels; max "
             f"{max((int(r.split('Used ')[1].split()[0]) for r in regs), default=0)} registers; "
             f"spilling: {spills if spills else 'none'}")
-        hopper_spills.update({k: v for k, v in spills.items() if k.split("<")[0].endswith("_sm90")})
+        hopper_spills.update({k: v for k, v in spills.items()
+                              if k.split("<")[0].endswith("_sm90")
+                              or k.split("<")[0] in NO_SPILL_KERNELS})
     if hopper_spills:
-        raise SystemExit(f"ptxas: the Hopper flash kernels spill: {hopper_spills}")
+        raise SystemExit(f"ptxas: the Hopper kernels spill: {hopper_spills}")
 
 
 def kernel_name(mangled: str) -> str:
@@ -371,8 +437,13 @@ def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softca
     return rec
 
 
-def decode_case(name, B, S, Hq, Hkv, D, dtype, lengths, window=0, splits=(8,), block_s=256,
-                iters=20, gen=None):
+def decode_case(name, B, S, Hq, Hkv, D, dtype, lengths, window=0, splits=(None, 8),
+                block_s=256, iters=20, gen=None):
+    """decode_attention at each split count of ``splits`` (None: the card's
+    plan) against its plain version in f32 on the same inputs; the first
+    split count is timed (``kernel_ms`` back to back, ``device_ms`` by the
+    profiler, as SDPA's ``library_ms`` and ``library_device_ms``) and run
+    twice to check that the two outputs are bit-equal."""
     import torch
     import torch.nn.functional as F
 
@@ -387,18 +458,22 @@ def decode_case(name, B, S, Hq, Hkv, D, dtype, lengths, window=0, splits=(8,), b
     want = want32.to(dt).float()
     outs = [decode_attention(q, kc, vc, lens, window=window, num_splits=ns, block_s=block_s)
             for ns in splits]
+    ns0 = splits[0]
+
+    def kernel():
+        return decode_attention(q, kc, vc, lens, window=window, num_splits=ns0, block_s=block_s)
+
+    bit_equal = torch.equal(kernel(), outs[0])
     torch.cuda.synchronize()
     err = max(float((o.float() - want).abs().max()) for o in outs)
     rel = max(row_rel_err(o, want32) for o in outs)
     spread = max(float((o.float() - outs[0].float()).abs().max()) for o in outs)
     tol = TOL[dtype]
     rel_tol = REL_TOL if dtype == "bfloat16" else None
-    ok = (err <= tol and spread <= tol and (rel_tol is None or rel <= rel_tol)
+    ok = (err <= tol and spread <= tol and (rel_tol is None or rel <= rel_tol) and bit_equal
           and all(bool(torch.isfinite(o).all()) for o in outs))
-    ns0 = splits[0]
-    kernel_ms = time_ms(
-        lambda: decode_attention(q, kc, vc, lens, window=window, num_splits=ns0,
-                                 block_s=block_s), iters)
+    kernel_ms = time_ms(kernel, iters)
+    kernel_device_ms = device_ms(kernel, iters)
     plain_ms = time_ms(lambda: decode_attention_ref(q, kc, vc, lens, window=window),
                        max(2, iters // 5), 1)
     pos = torch.arange(S, device="cuda")[None, :]
@@ -408,8 +483,12 @@ def decode_case(name, B, S, Hq, Hkv, D, dtype, lengths, window=0, splits=(8,), b
     qt = q[:, :, None, :]
     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     m4 = mask[:, None, None, :]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=m4, enable_gqa=True), iters)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4, enable_gqa=True)
+
+    library_ms = time_ms(sdpa, iters)
+    library_device_ms = device_ms(sdpa, iters)
     visible = int(mask.sum())
     flops = 4.0 * Hq * D * visible
     nbytes = (2 * visible * Hkv * D + 2 * q.numel()) * q.element_size() + lens.numel() * 4
@@ -418,12 +497,40 @@ def decode_case(name, B, S, Hq, Hkv, D, dtype, lengths, window=0, splits=(8,), b
                shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window, splits=list(splits),
                           block_s=block_s, lengths=list(lengths)),
                dtype=dtype, max_abs_err=err, split_spread=spread, tol=tol,
-               row_rel_err=rel, rel_tol=rel_tol,
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               row_rel_err=rel, rel_tol=rel_tol, bit_equal_across_runs=bit_equal,
+               kernel_ms=kernel_ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_device_ms=library_device_ms,
                bound_ms=bound_ms, bound_by=bound_by, ok=ok)
     log(rec)
     torch.cuda.empty_cache()
     return rec
+
+
+def decode_split_sweep() -> None:
+    """Logs, for each shape of ``SPLIT_SWEEP``, decode_attention's device
+    time per call (``device_ms``) at each split count of ``SWEEP_SPLITS`` and
+    the count that the card's plan (``split_count``) picks there."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.ops import rows_per_block, split_count
+
+    gen = torch.Generator(device="cuda").manual_seed(SWEEP_SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, B, S, Hq, Hkv, lengths, window in SPLIT_SWEEP:
+        q = torch.randn((B, Hq, 128), generator=gen, device="cuda").bfloat16()
+        kc = torch.randn((B, S, Hkv, 128), generator=gen, device="cuda").bfloat16()
+        vc = torch.randn((B, S, Hkv, 128), generator=gen, device="cuda").bfloat16()
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        G = Hq // Hkv
+        units = B * Hkv * -(-G // rows_per_block(torch.bfloat16, G))
+        times = {ns: device_ms(lambda ns=ns: decode_attention(q, kc, vc, lens, window=window,
+                                                              num_splits=ns))
+                 for ns in SWEEP_SPLITS}
+        log(dict(sweep="decode_splits", case=name, B=B, S=S, Hq=Hq, Hkv=Hkv, window=window,
+                 plan=split_count(S, units, sms), device_ms=times))
+        del q, kc, vc
+    torch.cuda.empty_cache()
 
 
 def ssd_allowed(want32, dtype):
@@ -448,13 +555,41 @@ def router_agreement(got, want) -> dict:
                 ok=ids_equal and slots_equal and gate_err <= GATE_TOL)
 
 
-def ssd_flops(B, L, H, P, N, chunk) -> float:
-    """Per chunk of q tokens and head: the q(q+1)/2 causal entries of C.B^T
-    (2N each) and of W x (2P each, W[i, j] = 0 for j > i), plus 4qNP (C h
-    and the state update); the ragged last chunk counts its own q."""
+def ssd_product_flops(B, L, H, P, N, chunk, groups=None) -> dict:
+    """FLOPs of each product of an ssd_scan call: per chunk of q tokens, the
+    q(q+1)/2 causal entries of C.B^T (2N each) once per group (the heads of
+    a group share it), and per head those of W x (2P each, W[i, j] = 0 for
+    j > i), C h and the state update (2qNP each); the ragged last chunk
+    counts its own q.  ``groups`` None: pre-expanded, one group a head."""
+    G = groups or H
     Q = min(chunk, L)
     qs = [min(Q, L - c) for c in range(0, L, Q)]
-    return float(B * H * sum(q * (q + 1) * (N + P) + 4 * q * N * P for q in qs))
+    return dict(cb=float(B * G * sum(q * (q + 1) * N for q in qs)),
+                wx=float(B * H * sum(q * (q + 1) * P for q in qs)),
+                ch=float(B * H * sum(2 * q * N * P for q in qs)),
+                state=float(B * H * sum(2 * q * N * P for q in qs)))
+
+
+def ssd_flops(B, L, H, P, N, chunk, groups=None) -> float:
+    """The least FLOPs of an ssd_scan call (``ssd_product_flops``, summed)."""
+    return sum(ssd_product_flops(B, L, H, P, N, chunk, groups).values())
+
+
+# Tensor-core passes of each product in csrc/ssd_scan.cu, and the rate they
+# run at: bf16 inputs on bf16 mma with C.B^T exact, C h and the state update
+# on two bf16 pieces of their f32 operand, W x on three; f32 inputs on
+# 3xTF32 (three tf32 passes a product).
+SSD_PASSES = {"bfloat16": ("bfloat16", dict(cb=1, ch=2, state=2, wx=3)),
+              "float32": ("tf32", dict(cb=3, ch=3, state=3, wx=3))}
+
+
+def ssd_tensor_core_bound(B, L, H, P, N, chunk, groups, dtype) -> float:
+    """ms for the products of an ssd_scan call as ``csrc/ssd_scan.cu`` takes
+    them: each product's FLOPs times its passes (``SSD_PASSES``) at its
+    tensor-core rate."""
+    unit, passes = SSD_PASSES[dtype]
+    flops = ssd_product_flops(B, L, H, P, N, chunk, groups)
+    return sum(f * passes[k] for k, f in flops.items()) / PEAK_FLOPS[unit] * 1e3
 
 
 def ssd_inputs(B, L, H, P, N, G, dtype, regime, gen):
@@ -487,7 +622,8 @@ def ssd_inputs(B, L, H, P, N, G, dtype, regime, gen):
 def ssd_case(name, B, L, H, P, N, dtype, chunks=(128,), groups=None, regime="jax", iters=5,
              gen=None):
     """ssd_scan against its plain version (the token recurrence) on the same
-    inputs (``ssd_inputs``) for y and the final state."""
+    inputs (``ssd_inputs``) for y and the final state; the first chunk is
+    run twice and must give bit-equal outputs."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
@@ -507,19 +643,26 @@ def ssd_case(name, B, L, H, P, N, dtype, chunks=(128,), groups=None, regime="jax
           and (rel is None or rel <= REL_TOL)
           and all(bool(torch.isfinite(y).all()) for y, _ in outs))
     c0 = chunks[0]
+    again = ssd_scan(x, dt, a, Bm, Cm, D, chunk=c0)
+    bit_equal = torch.equal(again[0], outs[0][0]) and torch.equal(again[1], outs[0][1])
+    del again
+    ok = ok and bit_equal
     kernel_ms = time_ms(lambda: ssd_scan(x, dt, a, Bm, Cm, D, chunk=c0), iters)
     plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, a, Bm, Cm, D), 1, 1)
-    flops = ssd_flops(B, L, H, P, N, c0)
+    flops = ssd_flops(B, L, H, P, N, c0, G)
     nbytes = ((2 * x.numel() + Bm.numel() + Cm.numel()) * x.element_size()
               + 4 * (dt.numel() + a.numel() + D.numel() + B * H * N * P))
     bound_ms, bound_by = bound(flops, nbytes, "float32")  # f32 arithmetic for either type
+    tc_bound_ms = ssd_tensor_core_bound(B, L, H, P, N, c0, G, dtype)
     rec = dict(kernel="ssd_scan", case=name,
                shape=dict(B=B, L=L, H=H, P=P, N=N, G=G, chunks=list(chunks)), regime=regime,
                dtype=dtype,
                max_abs_err=err, err_over_allowed=ratio, state_err_over_allowed=state_ratio,
                chunk_spread=spread, tol=SSD_TOL, chunk_tol=SSD_CHUNK_TOL, row_rel_err=rel,
-               rel_tol=REL_TOL if rel is not None else None, kernel_ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+               rel_tol=REL_TOL if rel is not None else None, bit_equal_across_runs=bit_equal,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+               bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+               tensor_core_bound_ms=tc_bound_ms, ok=ok)
     log(rec)
     del want32, h32, outs
     torch.cuda.empty_cache()
@@ -543,6 +686,7 @@ def router_case(name, T, E, k, ties=False, iters=20, gen=None):
     torch.cuda.synchronize()
     agree = router_agreement(got, want)
     kernel_ms = time_ms(lambda: moe_router(logits, k), iters)
+    kernel_device_ms = device_ms(lambda: moe_router(logits, k), iters)
     plain_ms = time_ms(lambda: moe_router_ref(logits, k), max(2, iters // 5), 1)
     # softmax (max, exp, sum, divide) and k rounds of compare-select, per logit
     flops = float(T * E * (4 + 2 * k))
@@ -551,8 +695,8 @@ def router_case(name, T, E, k, ties=False, iters=20, gen=None):
     rec = dict(kernel="moe_router", case=name, shape=dict(T=T, E=E, k=k, ties=ties),
                dtype="float32", max_abs_err=agree["gate_err"], tol=GATE_TOL,
                ids_equal=agree["ids_equal"], slots_equal=agree["slots_equal"],
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-               bound_by=bound_by, ok=agree["ok"])
+               kernel_ms=kernel_ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by, ok=agree["ok"])
     log(rec)
     return rec
 
@@ -804,7 +948,7 @@ def phase_kernels(main_S: int):
         decode_case("f32_D64_mha", 1, 1024, 8, 8, 64, "float32", [700], splits=(8,),
                     block_s=128, gen=g),
         decode_case("split_invariance", 2, 2048, 8, 2, 64, "float32", [1500, 2048],
-                    window=1000, splits=(1, 2, 8), block_s=128, gen=g),
+                    window=1000, splits=(1, 2, 8, None), block_s=128, gen=g),
         decode_case("mqa_D128", 2, 256, 4, 1, 128, "float32", [17, 256], splits=(2,),
                     block_s=128, gen=g),
     ]
@@ -835,6 +979,10 @@ def phase_kernels(main_S: int):
         ssd_case("mamba2_prefill_mamba2_regime", 1, 8192, 80, 64, 128, "float32", groups=1,
                  regime="mamba2", gen=g),
     ]
+    g_new = torch.Generator(device="cuda").manual_seed(NEW_CASES_SEED)
+    recs += [decode_case(name, *shape, gen=g_new, **kw)
+             for name, *shape, kw in DECODE_CASES_NEW]
+    recs += [ssd_case(name, *shape, gen=g_new, **kw) for name, *shape, kw in SSD_CASES_NEW]
     # the shapes of tests/test_kernels.py::TestMoERouter, then the main path's
     for T, E, k in ((64, 8, 2), (256, 64, 6), (128, 384, 8), (100, 16, 4), (32, 16, 2)):
         recs.append(router_case(f"jax_T{T}_E{E}_k{k}", T, E, k, gen=g))
@@ -855,6 +1003,7 @@ def phase_kernels(main_S: int):
         augment_case("imagenet_B256", 256, 256, 256, 3, 224, 224, gen=g),
     ]
     recs += flash_bwd_cases(main_S, g, g_edges)
+    decode_split_sweep()
     bad = [r["case"] for r in recs if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel parity failed: {bad}")
@@ -1303,7 +1452,10 @@ KERNEL_META = {
         note="the port's own kernel: no TPU kernel computes it; JAX trains through autograd "
              "of _attn_chunked (XLA)"),
 }
-# the parity case at the main path's shape that each kernel's line reports
+# the parity case at the main path's shape that each kernel's line reports.
+# ssd_scan's is f32: mamba2-2.7b's mixer runs its conv with the f32 params
+# uncast (as the JAX function does), so the scan gets f32 x, B and C even in
+# bf16 compute; the bf16 case beside it is reported on its own line.
 MAIN_CASE = {"flash_attention": f"main_S{PREFILL_S}", "decode_attention": "main_serve_B8_S256",
              "ssd_scan": "mamba2_prefill_mamba2_regime", "moe_router": "moonshot_prefill",
              "fused_augment": "imagenet_B256", "flash_attention_bwd": f"main_S{PREFILL_S}"}
@@ -1341,9 +1493,10 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=totals.get(name, 0), max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
-            **{key: r[key] for key in ("tflops", "bound_share") if key in r},
+            device_ms=r.get("device_ms"), plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **{key: r[key] for key in ("library_device_ms", "tflops", "bound_share")
+               if key in r},
             **({"note": meta["note"]} if "note" in meta else {})))
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit(f"a kernel of the main path never launched: {totals}")

@@ -10,8 +10,10 @@ Kernels:
   flash_attention     - blocked causal/windowed GQA attention, online softmax
   flash_attention_bwd - its backward (dq, dk, dv; FlashAttention-2's math),
                         the port's own: the JAX package trains on XLA
-  decode_attention    - split-K flash decoding over a deep KV cache
-  ssd_scan            - mamba2 SSD chunked scan, state carried in shared memory
+  decode_attention    - split-K flash decoding over a deep KV cache, the
+                        visible keys split on the card
+  ssd_scan            - mamba2 SSD scan, chunk-parallel (chunk states, a scan
+                        over chunks, chunk outputs) on bf16 tensor cores
   moe_router          - MoE softmax, top-k and token-major capacity slots
   fused_augment       - crop + horizontal flip + normalise of uint8 images
 

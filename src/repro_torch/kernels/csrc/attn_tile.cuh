@@ -1,6 +1,6 @@
-// Shared building blocks of the two attention kernels (flash_attention.cu,
-// decode_attention.cu): one online-softmax step of a (rows x BK) tile of
-// queries against BK keys, with the running (m, l, acc) in f32 shared memory.
+// Shared building blocks of the f32 flash-attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu): one online-softmax step of a
+// (rows x BK) tile of queries against BK keys, with the running (m, l, acc) in f32 shared memory.
 //
 // A block has kWarps warps. Rows are handled in groups of 16, and a row group
 // belongs to one warp for the whole kernel (warp w owns groups w, w + kWarps,

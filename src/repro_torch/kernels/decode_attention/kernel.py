@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -11,37 +12,51 @@ from .. import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 64  # q heads per kv head that one block holds
+MAX_GROUP = 64  # q heads per kv head
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# (device index, stream) -> the f32 workspace of the split partials, grown
+# as needed: one buffer instead of three allocations a call.
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 9 + [_F, _P]
+        fn.argtypes = [_P] * 6 + [_I] * 9 + [_F, _P]
         fn.restype = _I
     return lib
 
 
+def _workspace(device: torch.device, stream: int, floats: int) -> torch.Tensor:
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < floats:
+        ws = _workspaces[key] = torch.empty((max(floats, 1),), dtype=torch.float32,
+                                            device=device)
+    return ws
+
+
 def decode_attention_fwd(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor,
-    out: torch.Tensor, *, num_splits: int, seg: int, window: int,
+    out: torch.Tensor, *, rows: int, num_splits: int, window: int,
 ) -> None:
-    """Launches phase 1 (partials per split) and phase 2 (merge) on the
-    current stream; writes ``out``.  Inputs are checked by the caller."""
+    """Launches on the current stream and writes ``out``: one kernel, plus
+    the split merge when ``num_splits`` > 1.  ``rows`` query heads per block
+    (``ops.rows_per_block``).  Inputs are checked by the caller."""
     B, Hq, D = q.shape
     _, S, Hkv, _ = k_cache.shape
-    G = Hq // Hkv
-    acc = torch.empty((B, Hkv, num_splits, G, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, Hkv, num_splits, G), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    units = B * Hkv * -(-(Hq // Hkv) // rows)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    floats = units * num_splits * rows * (D + 2) if num_splits > 1 else 0
+    ws = _workspace(q.device, stream, floats)
     lib = _lib()
     err = lib.decode_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
-        B, S, Hq, Hkv, D, DTYPES[q.dtype], num_splits, seg, int(window),
-        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,
+        ws.data_ptr(), out.data_ptr(),
+        B, S, Hq, Hkv, D, DTYPES[q.dtype], rows, num_splits, int(window),
+        1.0 / math.sqrt(D), stream,
     )
     _build.check(lib, "decode_attention", err)

@@ -3,9 +3,19 @@
 On a CUDA tensor it launches the hand-written Hopper kernel
 (``csrc/decode_attention.cu``) or raises; on a CPU tensor it computes the
 plain version ``decode_attention_ref``.  ``decode_attention.launches`` counts
-kernel launches (phase 1 and its merge count as one).
+calls that launched the kernel (one per call, with the split merge's
+launch when there is more than one split).
+
+The split plan: the kernel splits each (sequence, kv head, row block)'s
+visible keys on the card into ``num_splits`` equal shares of 64-key tiles
+(``split_range``).  By default the host picks ``num_splits`` from the cache
+capacity S, the number of row-block units and the card's SM count
+(``split_count``), so it never reads ``lengths``.
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -13,18 +23,57 @@ from .._grad import refuse_grad
 from .kernel import DTYPES, HEAD_DIMS, MAX_GROUP, decode_attention_fwd
 from .ref import decode_attention_ref
 
+TILE = 64  # keys per tile of the kernel
+# The default plan's constants, from chip_smoke.py's split sweep (device time
+# per call at 1-128 splits; NVIDIA H100 80GB HBM3, 700 W): about 8 blocks per
+# SM over the units, and at least 8 tiles (512 keys) a split of a full cache.
+# They pick the fastest count measured, or one within 3% of it, at B=8,
+# S=8192 (24/2 heads, window 4096: 16 splits), B=1, S=32768 (24/2: 64) and
+# B=8, S=4096 (16/16: 8); past that the merge costs more than the splits save.
+BLOCKS_PER_SM = 8
+MIN_TILES = 8
+MAX_SPLITS = 128
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_plan(S: int, num_splits: int, block_s: int):
-    """(num_splits, seg): the TPU kernel's split of S cache rows into
-    segments of ``seg`` rows, a multiple of ``block_s`` (capped at seg)."""
-    num_splits = max(1, min(num_splits, _cdiv(S, block_s)))
-    seg = _cdiv(S, num_splits)
-    block_s = min(block_s, seg)
-    return num_splits, _cdiv(seg, block_s) * block_s
+def rows_per_block(dtype: torch.dtype, G: int) -> int:
+    """Query heads per block: 16 on the bf16 tensor-core route (G >= 8),
+    else the smallest power of two >= G, at most 8 (CUDA-core route)."""
+    if dtype == torch.bfloat16 and G >= 8:
+        return 16
+    return min(8, 1 << (G - 1).bit_length())
+
+
+def split_count(S: int, units: int, sms: int) -> int:
+    """The card's plan: enough splits for about ``BLOCKS_PER_SM`` blocks per
+    SM over ``units`` (sequence, kv head, row block) units, while each split
+    of a full cache of S rows keeps ``MIN_TILES`` 64-key tiles (so a short
+    cache takes one split and one launch), and at most ``MAX_SPLITS``."""
+    return max(1, min(_cdiv(S, TILE * MIN_TILES), _cdiv(BLOCKS_PER_SM * sms, max(units, 1)),
+                      MAX_SPLITS))
+
+
+def split_range(length: int, S: int, window: int, num_splits: int, sp: int) -> Tuple[int, int]:
+    """Keys [k0, k1) that split ``sp`` of ``num_splits`` attends to: an equal
+    share of the 64-key tiles that tile the visible range [lo, hi) from lo
+    (hi = min(length, S); lo = length - window with a window, else 0).  The
+    twin of ``split_range`` in ``csrc/decode_attention.cu``."""
+    hi = min(length, S)
+    lo = max(0, length - window) if window > 0 else 0
+    ntiles = _cdiv(max(hi - lo, 0), TILE)
+    per = _cdiv(ntiles, num_splits)
+    t0 = min(sp * per, ntiles)
+    t1 = min(t0 + per, ntiles)
+    k0 = lo + t0 * TILE
+    return k0, (min(lo + t1 * TILE, hi) if t1 > t0 else k0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k_cache, v_cache, lengths) -> None:
@@ -59,15 +108,16 @@ def decode_attention(
     v_cache: torch.Tensor,  # (B, S, Hkv, D)
     lengths: torch.Tensor,  # (B,) int32 valid lengths
     window: int = 0,
-    num_splits: int = 8,
+    num_splits: Optional[int] = None,
     block_s: int = 256,
 ) -> torch.Tensor:
     """Attention of one new token per sequence over ``lengths[b]`` cache rows
     (the last ``window`` of them when ``window`` > 0); output in q's dtype.
 
-    ``num_splits``/``block_s`` set the split-K plan as in the TPU kernel
-    (``split_plan``); the CUDA kernel streams each segment in 64-row tiles.
-    The plain version ignores them.
+    ``num_splits`` overrides the card's plan (``split_count``), capped at the
+    cache's 64-key tiles and at ``MAX_SPLITS``; ``block_s`` is the TPU
+    kernel's segment tile and is accepted for its API only (the CUDA
+    kernel's tiles are 64 keys).  The plain version ignores both.
     """
     if q.device.type == "cpu":
         if k_cache.device.type != "cpu" or v_cache.device.type != "cpu":
@@ -77,9 +127,16 @@ def decode_attention(
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     refuse_grad("decode_attention", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, lengths)
-    ns, seg = split_plan(k_cache.shape[1], num_splits, block_s)
+    B, Hq, _ = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    rows = rows_per_block(q.dtype, Hq // Hkv)
+    if num_splits is None:
+        units = B * Hkv * _cdiv(Hq // Hkv, rows)
+        ns = split_count(S, units, _sm_count(q.device.index or 0))
+    else:
+        ns = max(1, min(int(num_splits), _cdiv(S, TILE), MAX_SPLITS))
     out = torch.empty_like(q)
-    decode_attention_fwd(q, k_cache, v_cache, lengths, out, num_splits=ns, seg=seg,
+    decode_attention_fwd(q, k_cache, v_cache, lengths, out, rows=rows, num_splits=ns,
                          window=window)
     decode_attention.launches += 1
     return out

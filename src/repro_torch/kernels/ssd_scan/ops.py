@@ -1,15 +1,17 @@
 """Public wrapper of the mamba2 SSD-scan kernel.
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/ssd_scan.cu``) or raises; on a CPU tensor it computes the plain
-version ``ssd_scan_ref``.  ``ssd_scan.launches`` counts kernel launches.
+On a CUDA tensor it launches the hand-written Hopper kernels
+(``csrc/ssd_scan.cu``: chunk states, state passing, chunk output) or
+raises; on a CPU tensor it computes the plain version ``ssd_scan_ref``.
+``ssd_scan.launches`` counts wrapper calls that launched them (one per
+call).
 """
 from __future__ import annotations
 
 import torch
 
 from .._grad import refuse_grad
-from .kernel import DTYPES, ssd_scan_fwd
+from .kernel import DTYPES, HEAD_DIMS, MAX_CHUNK, MAX_STATE, ssd_scan_fwd
 from .ref import ssd_scan_ref
 
 
@@ -25,10 +27,11 @@ def _check(x, dt, a, Bm, Cm, D, chunk) -> None:
         raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}, B "
                          f"{tuple(Bm.shape)}, a {tuple(a.shape)}, D {tuple(D.shape)} disagree, "
                          "or H % G != 0")
-    if P % 4 or N % 4:
-        raise ValueError(f"ssd_scan: head dim {P} and state {N} must be multiples of 4")
-    if chunk < 1:
-        raise ValueError(f"ssd_scan: chunk {chunk} must be positive")
+    if P not in HEAD_DIMS or N % 16 or not 16 <= N <= MAX_STATE:
+        raise ValueError(f"ssd_scan: head dim {P} not in {HEAD_DIMS}, or state {N} not a "
+                         f"multiple of 16 in [16, {MAX_STATE}]")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd_scan: chunk {chunk} not in [1, {MAX_CHUNK}]")
     if x.dtype not in DTYPES or not (x.dtype == Bm.dtype == Cm.dtype):
         raise TypeError(f"ssd_scan: want one of {list(DTYPES)} for x, B, C; "
                         f"got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
@@ -40,6 +43,9 @@ def _check(x, dt, a, Bm, Cm, D, chunk) -> None:
     for name, t in (("x", x), ("dt", dt), ("a", a), ("B", Bm), ("C", Cm), ("D", D)):
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
+    for name, t in (("x", x), ("B", Bm), ("C", Cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan: {name} must be 16-byte aligned")
 
 
 def ssd_scan(
@@ -57,8 +63,9 @@ def ssd_scan(
 
     ``chunk`` is the scan's chunk length (capped at L), as in the TPU
     kernel; the result does not depend on it beyond rounding.  The plain
-    version is the token recurrence and ignores it.  A chunk too long for
-    one block's shared memory (above 128 at N 128, P 64) raises at launch.
+    version is the token recurrence and ignores it.  The kernels take
+    chunks up to 128, head dims 32 and 64 and states of 16 to 128 (a
+    multiple of 16); other shapes raise.
     """
     if x.device.type == "cpu":
         if any(t.device.type != "cpu" for t in (dt, a, Bm, Cm, D)):

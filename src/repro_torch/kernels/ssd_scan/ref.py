@@ -47,3 +47,106 @@ def ssd_scan_ref(
         y[:, t] = torch.einsum("bhn,bhnp->bhp", Cf[:, t], h)
     y = y + xf * D.float()[None, None, :, None]
     return y.to(x.dtype), h
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 t rounded to tf32 (11 significant bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds it."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _pieces(t: torch.Tensor, k: int, tf32: bool = False):
+    """f32 t as k pieces (each returned in f32), each the rounding of what
+    the pieces before it leave, to bf16 (``split_pieces`` in
+    csrc/warp_mma.cuh) or to tf32 (``split_tf32``)."""
+    out, rest = [], t.float()
+    for _ in range(k):
+        piece = _tf32(rest) if tf32 else rest.to(torch.bfloat16).float()
+        out.append(piece)
+        rest = rest - piece
+    return out
+
+
+def _split_product(eq: str, a: torch.Tensor, b: torch.Tensor, ka: int, kb: int,
+                   tf32: bool = False) -> torch.Tensor:
+    """A product of two f32 operands as the kernels take it on the tensor
+    cores: ``a`` in ka pieces, ``b`` in kb, and the products of pieces i, j
+    with i + j < max(ka, kb), each exact, summed in f32 (bf16 pieces:
+    ``pieces_mma``; two tf32 pieces each: ``mma_3xtf32``, in
+    csrc/warp_mma.cuh)."""
+    pa, pb = _pieces(a, ka, tf32), _pieces(b, kb, tf32)
+    out = None
+    for i, p in enumerate(pa):
+        for j, q in enumerate(pb):
+            if i + j < max(ka, kb):
+                term = torch.einsum(eq, p, q)
+                out = term if out is None else out + term
+    return out
+
+
+def ssd_scan_chunked_model(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A plain model of ``csrc/ssd_scan.cu``'s chunk-parallel scan with the
+    kernels' precision split, for the CPU tests (nothing on the card calls
+    it).  Stage 1: each chunk's state S_c = (B o w)^T x with w_j =
+    exp(cum_Q - cum_j) dt_j; stage 2: h_{c+1} = exp(cum_Q) h_c + S_c over the
+    chunks; stage 3: y = exp(cum) (C h_c) + W x + D x with W = C.B^T (once
+    per group) o exp(cum_i - cum_j) o dt_j for j <= i.  The in-chunk cumsum
+    is f64 and each exponent its f64 difference rounded to f32 (off the
+    diagonal blocks of 16 tokens the kernel takes the decay as the product
+    of two such exponentials, through the block's last token: f32 rounding
+    apart, the same).  Every
+    product takes its f32 operands in pieces (``_split_product``): with bf16
+    x, B and C, as bf16 pieces, two for B o w and the states and three for
+    W; with f32 x, B and C, every operand as tf32 hi + lo (3xTF32).  Shapes
+    and outputs as ``ssd_scan_ref``."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, L)
+    nc = -(-L // Q)
+    pad = nc * Q - L
+
+    def chunks(t):
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(Bsz, nc, Q, *t.shape[2:])
+
+    f32 = x.dtype == torch.float32
+
+    def product(eq, a_, b_, ka, kb):  # ka, kb: bf16 pieces (bf16 inputs)
+        return _split_product(eq, a_, b_, 2, 2, tf32=True) if f32 else _split_product(
+            eq, a_, b_, ka, kb)
+
+    xq, Bq, Cq = (chunks(t) for t in (x, Bm, Cm))
+    dtc = chunks(dt)  # (B, nc, Q, H), 0 past L
+    cum = torch.cumsum(dtc.double() * a.double(), dim=2)
+    group = torch.arange(H) // (H // G)
+    # 1. chunk states
+    w = torch.exp((cum[:, :, -1:] - cum).float()) * dtc
+    S = product("bcqhn,bcqhp->bchnp", Bq[:, :, :, group] * w[..., None], xq, 2, 1)
+    # 2. state passing
+    decay = torch.exp(cum[:, :, -1].float())  # (B, nc, H)
+    h = torch.zeros((Bsz, H, N, P))
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = decay[:, c, :, None, None] * h + S[:, c]
+    hin = torch.stack(entering, dim=1)  # (B, nc, H, N, P)
+    # 3. chunk output
+    CB = product("bcign,bcjgn->bcgij", Cq, Bq, 1, 1)[:, :, group]  # (B,nc,H,Q,Q)
+    ci = cum.permute(0, 1, 3, 2)  # (B, nc, H, Q)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    W = torch.where(tri, CB * torch.exp((ci[..., :, None] - ci[..., None, :]).float()), 0.0)
+    W = W * dtc.permute(0, 1, 3, 2)[..., None, :]
+    y = (product("bcihn,bchnp->bcihp", Cq[:, :, :, group], hin, 1, 2)
+         * torch.exp(cum.float())[..., None])
+    y = y + product("bchij,bcjhp->bcihp", W, xq, 3, 1)
+    y = y.reshape(Bsz, nc * Q, H, P)[:, :L] + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype), h

@@ -1,6 +1,7 @@
 """``chip_smoke.py`` off the card: it must refuse to pass without CUDA or
 without the port next to it, and its roofline arithmetic must count the
 work the run's data needs."""
+import inspect
 import os
 import shutil
 import subprocess
@@ -138,20 +139,242 @@ def test_router_criterion_fails_one_entry_off(fault):
 
 
 @pytest.mark.parametrize(
-    "B,L,H,P,N,chunk,want",
+    "B,L,H,P,N,chunk,G,want",
     [
-        # mamba2-2.7b's prefill: 64 chunks x 80 heads x 7.36 MFLOP, the
-        # 8256 causal entries of C.B^T and W x only
-        (1, 8192, 80, 64, 128, 128, 64 * 80 * (8256 * 2 * 128 + 8256 * 2 * 64
-                                                + 4 * 128 * 128 * 64)),
-        # a ragged tail counts its own 4 tokens (10 causal entries)
-        (1, 100, 2, 32, 16, 32, 2 * (3 * (528 * 2 * 16 + 528 * 2 * 32 + 4 * 32 * 16 * 32)
-                                     + (10 * 2 * 16 + 10 * 2 * 32 + 4 * 4 * 16 * 32))),
-        (2, 40, 1, 4, 4, 128, 2 * (820 * 2 * 4 * 2 + 4 * 40 * 4 * 4)),  # chunk capped at L
+        # mamba2-2.7b's prefill: 64 chunks; the 8256 causal entries of C.B^T
+        # once for the one group, then per head those of W x and 4 Q N P
+        (1, 8192, 80, 64, 128, 128, 1, 64 * (8256 * 2 * 128 + 80 * (8256 * 2 * 64
+                                                                   + 4 * 128 * 128 * 64))),
+        # pre-expanded heads (G = H); a ragged tail counts its own 4 tokens
+        (1, 100, 2, 32, 16, 32, None, 2 * (3 * (528 * 2 * 16 + 528 * 2 * 32 + 4 * 32 * 16 * 32)
+                                           + (10 * 2 * 16 + 10 * 2 * 32 + 4 * 4 * 16 * 32))),
+        (2, 40, 1, 4, 4, 128, None, 2 * (820 * 2 * 4 * 2 + 4 * 40 * 4 * 4)),  # chunk capped at L
+        # two groups of four heads: C.B^T twice per chunk, not eight times
+        (1, 64, 8, 32, 16, 64, 2, 2 * 2080 * 2 * 16 + 8 * (2080 * 2 * 32 + 4 * 64 * 16 * 32)),
     ],
 )
-def test_ssd_flops(B, L, H, P, N, chunk, want):
-    assert chip_smoke.ssd_flops(B, L, H, P, N, chunk) == want
+def test_ssd_flops(B, L, H, P, N, chunk, G, want):
+    """C.B^T counts once per (chunk, group): the least work the function
+    needs, whatever implements it."""
+    assert chip_smoke.ssd_flops(B, L, H, P, N, chunk, G) == want
+
+
+def test_ssd_bound_at_the_main_shape():
+    """mamba2-2.7b's prefill: 27.0 GFLOP, 0.403 ms at f32's 67 TFLOP/s; on
+    the tensor cores as csrc/ssd_scan.cu takes the products: bf16 inputs
+    C.B^T in one bf16 pass, C h and the state update in two, W x in three
+    (0.0600 ms at 989 TFLOP/s); f32 inputs three tf32 passes a product
+    (0.1638 ms at 495 TFLOP/s)."""
+    f = chip_smoke.ssd_product_flops(1, 8192, 80, 64, 128, 128, 1)
+    assert f == dict(cb=64 * 8256 * 2 * 128, wx=64 * 80 * 8256 * 2 * 64,
+                     ch=64 * 80 * 2 * 128 * 128 * 64, state=64 * 80 * 2 * 128 * 128 * 64)
+    flops = chip_smoke.ssd_flops(1, 8192, 80, 64, 128, 128, 1)
+    assert flops == sum(f.values()) == pytest.approx(27.0e9, rel=2e-3)
+    assert chip_smoke.bound(flops, 0.0, "float32")[0] == pytest.approx(0.403, rel=2e-3)
+    bf16 = chip_smoke.ssd_tensor_core_bound(1, 8192, 80, 64, 128, 128, 1, "bfloat16")
+    assert bf16 == pytest.approx(
+        (f["cb"] + 2 * f["ch"] + 2 * f["state"] + 3 * f["wx"]) / 989e12 * 1e3)
+    assert bf16 == pytest.approx(0.0600, rel=2e-3)
+    f32 = chip_smoke.ssd_tensor_core_bound(1, 8192, 80, 64, 128, 128, 1, "float32")
+    assert f32 == pytest.approx(3 * flops / 495e12 * 1e3)
+    assert f32 == pytest.approx(0.1638, rel=2e-3)
+
+
+@pytest.mark.parametrize("needle", [
+    "constexpr int kStatePieces = 2;",  # bf16: B o w in two pieces against exact x
+    "constexpr int kWPieces = 3;",  # bf16: W in three
+    "KH = F32 ? 1 : 2;",  # entering states: f32, or two bf16 pieces against exact C
+    "mma(cb[nt], ca, b0, b1);",  # bf16: C.B^T in one pass
+    "mma_3xtf32(cb[nt], ca,",  # f32: every product in three tf32 passes
+    "mma_3xtf32(acc[nt], wa,",
+    "mma_3xtf32(acc[nt], ca,",
+    "mma_3xtf32(acc[nt], af,",
+])
+def test_ssd_passes_follow_the_kernel_source(needle):
+    """The passes that ``SSD_PASSES`` charges are the ones the kernels take."""
+    src = (chip_smoke.ROOT / "src/repro_torch/kernels/csrc/ssd_scan.cu").read_text()
+    assert needle in src
+    assert chip_smoke.SSD_PASSES == {
+        "bfloat16": ("bfloat16", dict(cb=1, ch=2, state=2, wx=3)),
+        "float32": ("tf32", dict(cb=3, ch=3, state=3, wx=3))}
+
+
+def test_kernels_line_reports_no_computed_bound_but_bound_ms():
+    """The ``kernels`` line carries measured numbers and ``bound_ms``; the
+    tensor-core bound stays in the ssd_scan records."""
+    src = Path(chip_smoke.__file__).read_text()
+    at = src.index("kernels.append(dict(")
+    assert "tensor_core_bound_ms" not in src[at:at + 800]
+    assert "tensor_core_bound_ms=" in src[src.index("def ssd_case("):at]
+
+
+# The cases of phase 2 that draw from the shared generator (seed 0), in the
+# order in which they draw, as they stood before the decode and SSD
+# redesign: a case inserted among them would shift the inputs of every case
+# after it.
+SEED0_CASES = [
+    "main_S512",
+    "main_S8192",
+    "f32",
+    "f32_main_heads_window300",
+    "f32_main_heads_window300_q_offset",
+    "f32_main_heads_window4096",
+    "ragged_D64",
+    "ragged_D64_bf16",
+    "noncausal_SqneSk",
+    "q_offset",
+    "mha",
+    "mqa_D32",
+    "softcap",
+    "blocks",
+    "blocks_bf16_D128",
+    "main_serve_B8_S256",
+    "long_B8_S8192",
+    "f32_D32",
+    "f32_D64_mha",
+    "split_invariance",
+    "mqa_D128",
+    "jax_1x64x2x32x16_c16_f32",
+    "jax_2x128x4x64x32_c32_f32",
+    "jax_1x100x2x32x16_c32_f32",
+    "jax_1x256x8x64x128_c64_f32",
+    "mamba2_prefill_f32",
+    "jax_1x64x2x32x16_c16_bf16",
+    "jax_2x128x4x64x32_c32_bf16",
+    "jax_1x100x2x32x16_c32_bf16",
+    "jax_1x256x8x64x128_c64_bf16",
+    "mamba2_prefill_bf16",
+    "ragged_L8000",
+    "chunk_invariance",
+    "grouped_B2_G2",
+    "chunks_40_100",
+    "chunk_40_bf16",
+    "chunks_40_100_mamba2_regime",
+    "mamba2_prefill_mamba2_regime",
+    "jax_T64_E8_k2",
+    "jax_T256_E64_k6",
+    "jax_T128_E384_k8",
+    "jax_T100_E16_k4",
+    "jax_T32_E16_k2",
+    "moonshot_prefill",
+    "moonshot_serve",
+    "kimi_T4096",
+    "ties",
+    "jax_B2_64x64x3_32x32",
+    "jax_B4_48x56x3_32x40",
+    "jax_B1_224x224x3_192x192",
+    "jax_B3_40x40x1_40x40",
+    "flip_involution",
+    "out_of_range_corners",
+    "imagenet_B256",
+]
+
+
+def _phase_kernels_draws(monkeypatch):
+    """(kind, case name, generator seed) of every case phase 2 runs, with the
+    case functions replaced by recorders and a stand-in generator."""
+    import torch
+
+    calls = []
+
+    class Gen:
+        def __init__(self, device=None):
+            self.seed = None
+
+        def manual_seed(self, seed):
+            self.seed = seed
+            return self
+
+    def recorder(kind):
+        def case(name, *args, gen=None, **kw):
+            calls.append((kind, name, gen.seed))
+            return dict(kernel=kind, case=name, ok=True)
+        return case
+
+    def flip(gen=None):
+        calls.append(("augment_flip_case", "flip_involution", gen.seed))
+        return dict(kernel="fused_augment", case="flip_involution", ok=True)
+
+    monkeypatch.setattr(torch, "Generator", Gen)
+    for kind in ("flash_case", "decode_case", "ssd_case", "router_case", "augment_case"):
+        monkeypatch.setattr(chip_smoke, kind, recorder(kind))
+    monkeypatch.setattr(chip_smoke, "augment_flip_case", flip)
+    monkeypatch.setattr(chip_smoke, "flash_bwd_cases", lambda main_S, g, g_edges: [])
+    monkeypatch.setattr(chip_smoke, "decode_split_sweep", lambda: calls.append(
+        ("decode_split_sweep", "sweep", chip_smoke.SWEEP_SEED)))
+    chip_smoke.phase_kernels(8192)
+    return calls
+
+
+def test_new_cases_draw_from_their_own_generator(monkeypatch):
+    """The decode (moonshot's G = 1, the card's plan at S = 32768) and bf16
+    SSD cases draw from the generator seeded NEW_CASES_SEED, and the cases
+    on the shared generator draw in the order they did before them."""
+    calls = _phase_kernels_draws(monkeypatch)
+    new = {name for name, *_ in chip_smoke.DECODE_CASES_NEW + chip_smoke.SSD_CASES_NEW}
+    assert {name for _, name, seed in calls if seed == chip_smoke.NEW_CASES_SEED} == new
+    assert [name for _, name, seed in calls if seed == 0] == SEED0_CASES
+    assert chip_smoke.NEW_CASES_SEED not in (0, 14)
+
+
+def test_new_cases_cover_the_new_routes():
+    """Decode at moonshot's heads (16/16, G = 1, no window) at the serve shape
+    and a long cache, and a long context on the card's plan; the bf16 SSD
+    case in the mixer's regime at mamba2-2.7b's prefill shape."""
+    cases = {name: (shape, kw) for name, *shape, kw in chip_smoke.DECODE_CASES_NEW}
+    for name in ("moonshot_serve_B8_S256", "moonshot_long_B8_S4096"):
+        (B, S, Hq, Hkv, D, dtype, lengths), kw = cases[name]
+        assert (Hq, Hkv, D, dtype) == (16, 16, 128, "bfloat16") and kw.get("window", 0) == 0
+        assert len(lengths) == B and max(lengths) <= S
+    (B, S, Hq, Hkv, *_), kw = cases["long_B1_S32768_card_plan"]
+    assert (B, S, Hq, Hkv) == (1, 32768, 24, 2) and kw["splits"] == (None,)
+    ((B, L, H, P, N, dtype), kw), = [(tuple(shape), kw)
+                                     for _, *shape, kw in chip_smoke.SSD_CASES_NEW]
+    assert (B, L, H, P, N, dtype) == (1, 8192, 80, 64, 128, "bfloat16")
+    assert kw == dict(groups=1, regime="mamba2")
+
+
+def test_main_ssd_case_has_the_dtype_the_mixer_hands_the_scan(monkeypatch):
+    """The kernels line reports ssd_scan at the dtype mamba2-2.7b's mixer
+    hands it in the model's own precision (f32 params, bf16 compute): f32,
+    since the mixer's depthwise conv runs with the f32 params uncast, as in
+    the JAX function; and in the mixer's regime.  The bf16 case at the same
+    shape is a case of its own."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, layers
+
+    seen = []
+    real = layers.ssd_scan
+
+    def spy(x, *args, **kw):
+        seen.append(x.dtype)
+        return real(x, *args, **kw)
+
+    monkeypatch.setattr(layers, "ssd_scan", spy)
+    full = get_config("mamba2-2.7b")
+    cfg = full.scaled_down().replace(attn_impl="pallas", dtype=full.dtype,
+                                     param_dtype=full.param_dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    model.forward(model.cast_for_compute(params),
+                  {"tokens": torch.randint(1, cfg.vocab_size, (1, 16))}, last_token_only=True)
+    assert seen and set(seen) == {torch.float32}
+    name = chip_smoke.MAIN_CASE["ssd_scan"]
+    assert name == "mamba2_prefill_mamba2_regime"
+    src = inspect.getsource(chip_smoke.phase_kernels)
+    call = src[src.index(f'ssd_case("{name}"'):]
+    assert '"float32"' in call[:200] and 'regime="mamba2"' in call[:200]
+    assert any(n == "mamba2_prefill_mamba2_regime_bf16" for n, *_ in chip_smoke.SSD_CASES_NEW)
+
+
+def test_split_invariance_checks_the_card_plan():
+    """phase 2's split_invariance case runs the card's plan (None) beside
+    the explicit split counts."""
+    src = inspect.getsource(chip_smoke.phase_kernels)
+    at = src.index('"split_invariance"')
+    assert "splits=(1, 2, 8, None)" in src[at:at + 200]
 
 
 @pytest.mark.parametrize(
@@ -315,3 +538,22 @@ def test_each_bf16_edge_does_work_the_kernels_take(case):
     assert 0 < pairs <= Sq * Sk
     assert chip_smoke.flash_flops(B, Sq, Sk, Hq, D, kw.get("causal", True), kw.get("window", 0),
                                   kw.get("q_offset", 0)) == 4.0 * B * Hq * D * pairs
+
+
+def test_split_sweep_measures_the_plans_picks(monkeypatch):
+    """The decode split sweep runs after every case of phase 2, draws from a
+    generator of its own and, on 132 SMs, measures the very counts the
+    card's plan picks at its shapes."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import rows_per_block, split_count
+
+    assert chip_smoke.SWEEP_SEED not in (0, chip_smoke.NEW_CASES_SEED)
+    assert _phase_kernels_draws(monkeypatch)[-1][0] == "decode_split_sweep"
+    picks = {}
+    for name, B, S, Hq, Hkv, lengths, window in chip_smoke.SPLIT_SWEEP:
+        assert len(lengths) == B and max(lengths) <= S
+        G = Hq // Hkv
+        picks[name] = split_count(S, B * Hkv * -(-G // rows_per_block(torch.bfloat16, G)), 132)
+    assert picks == {"long_B8_S8192": 16, "long_B1_S32768": 64, "moonshot_long_B8_S4096": 8}
+    assert set(picks.values()) <= set(chip_smoke.SWEEP_SPLITS)

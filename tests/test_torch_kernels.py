@@ -24,6 +24,8 @@ pytest.importorskip("torch")
 pytest.importorskip("jax")
 import jax
 import jax.numpy as jnp
+import math
+
 import numpy as np
 import torch
 
@@ -36,11 +38,20 @@ from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
 from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
-from repro_torch.kernels.decode_attention.ops import split_plan
+from repro_torch.kernels.decode_attention.ops import (MAX_SPLITS, TILE, rows_per_block,
+                                                      split_count, split_range)
+from repro_torch.kernels.decode_attention.ref import decode_attention_split_model
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_model
 from repro_torch.models.layers import _route_top_k
+
+try:
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+except ImportError:  # optional [test] dependency
+    given = None
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
@@ -210,13 +221,92 @@ class TestDecodeAttentionPlain:
         np.testing.assert_allclose(_np(also), _np(jax_also), atol=F32_TOL, rtol=F32_TOL)
         np.testing.assert_allclose(_np(got), _np(also), atol=F32_TOL, rtol=F32_TOL)
 
-    @pytest.mark.parametrize("S,ns,bs", [(512, 8, 128), (300, 4, 128), (100, 8, 256), (8192, 8, 256)])
-    def test_split_plan_covers_cache(self, S, ns, bs):
-        """The port's split plan is the TPU kernel's: whole segments that
-        cover the cache, a multiple of the (capped) block."""
-        n, seg = split_plan(S, ns, bs)
-        assert 1 <= n <= ns and n * seg >= S and (n - 1) * seg < S
-        assert seg % min(bs, -(-S // n)) == 0
+    @pytest.mark.parametrize("S,units,sms", [(512, 16, 132), (300, 8, 132), (100, 1, 132),
+                                             (8192, 16, 132), (32768, 2, 132), (256, 128, 132),
+                                             (8192, 1, 1)])
+    def test_split_plan_covers_cache(self, S, units, sms):
+        """The card's plan (``split_count``): about 8 blocks per SM over the
+        units, each split of a full cache 8 tiles or more, at most 128
+        splits; its splits of a full cache cover every key once."""
+        ns = split_count(S, units, sms)
+        assert 1 <= ns <= min(-(-S // TILE), MAX_SPLITS)
+        assert ns == max(1, min(-(-S // (8 * TILE)), -(-8 * sms // units), MAX_SPLITS))
+        covered = [k for sp in range(ns) for k in range(*split_range(S, S, 0, ns, sp))]
+        assert covered == list(range(S))
+
+    @pytest.mark.parametrize("S,units,want", [(8192, 16, 16), (32768, 2, 64), (4096, 128, 8),
+                                              (256, 16, 1), (256, 128, 1)])
+    def test_card_plan_at_the_swept_shapes(self, S, units, want):
+        """On 132 SMs the plan picks the split counts that chip_smoke.py's
+        sweep (``SPLIT_SWEEP``) measured fastest or within 3% of it: 16 at
+        B=8, S=8192, 24/2 heads (16 units); 64 at B=1, S=32768 (2 units); 8
+        at moonshot's B=8, S=4096, 16/16 (128 units); one split, and one
+        launch, at the serve shapes (S=256)."""
+        assert split_count(S, units, 132) == want
+
+    def _check_split_ranges(self, S, length, window, ns):
+        """Every split is whole 64-key tiles from lo (the last may be cut at
+        hi), the splits cover [lo, hi) in order, each key once, and their
+        tile counts differ by at most one share."""
+        hi = min(length, S)
+        lo = max(0, length - window) if window > 0 else 0
+        ranges = [split_range(length, S, window, ns, sp) for sp in range(ns)]
+        keys = [k for k0, k1 in ranges for k in range(k0, k1)]
+        assert keys == list(range(lo, hi))
+        for k0, k1 in ranges:
+            assert (k0 - lo) % TILE == 0 and k0 <= k1
+            assert k1 == hi or (k1 - k0) % TILE == 0
+        ntiles = -(-max(hi - lo, 0) // TILE)
+        assert all(-(-(k1 - k0) // TILE) <= -(-ntiles // ns) for k0, k1 in ranges)
+
+    @pytest.mark.parametrize("S,length,window,ns", [
+        (8192, 1, 4096, 33), (8192, 100, 4096, 33), (8192, 4096, 4096, 33),
+        (8192, 4097, 4096, 33), (8192, 5000, 4096, 33), (8192, 8000, 4096, 33),
+        (8192, 8192, 4096, 33), (8192, 3000, 4096, 33), (256, 96, 4096, 4), (256, 0, 0, 4),
+        (300, 300, 0, 4), (2048, 1500, 1000, 8), (2048, 2048, 1000, 1), (64, 64, 1, 1),
+    ])
+    def test_split_ranges_cover_the_visible_keys_once(self, S, length, window, ns):
+        self._check_split_ranges(S, length, window, ns)
+
+    if given is not None:
+        @settings(max_examples=300, deadline=None)
+        @given(st.integers(1, 40000), st.integers(0, 40000), st.integers(0, 5000),
+               st.integers(1, 264), st.integers(1, 1024))
+        def test_card_plan_covers_the_visible_keys_once(self, S, length, window, sms, units):
+            """For any cache size, length, window, SM count and unit count,
+            the card's plan splits the visible keys exactly once."""
+            self._check_split_ranges(S, min(length, S), window, split_count(S, units, sms))
+
+    @pytest.mark.parametrize("dtype,G,want", [
+        (torch.bfloat16, 12, 16), (torch.bfloat16, 8, 16), (torch.bfloat16, 64, 16),
+        (torch.bfloat16, 1, 1), (torch.bfloat16, 3, 4), (torch.bfloat16, 7, 8),
+        (torch.float32, 12, 8), (torch.float32, 1, 1), (torch.float32, 2, 2),
+        (torch.float32, 64, 8),
+    ])
+    def test_rows_per_block(self, dtype, G, want):
+        """bf16 groups of 8 or more take the tensor-core route (16 rows);
+        the rest the CUDA-core route, at most 8 rows a block."""
+        assert rows_per_block(dtype, G) == want
+
+    @pytest.mark.parametrize("G,window", [(1, 0), (1, 100), (12, 0), (12, 100)])
+    @pytest.mark.parametrize("ns", [1, 3, "card"])
+    def test_split_model_vs_pallas(self, G, window, ns):
+        """The kernel's algorithm (split of the visible keys, 4 warps of 16
+        keys a tile, warp merge, split merge, each in a fixed order) against
+        the Pallas kernel in interpret mode, f32, at 2e-5."""
+        rng = np.random.default_rng(21)
+        B, S, Hkv, D = 3, 700, 2, 32
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _both(_randn(rng, s)) for s in ((B, G * Hkv, D), (B, S, Hkv, D), (B, S, Hkv, D))
+        )
+        lens = np.asarray([1, 333, 700], np.int32)
+        if ns == "card":
+            ns = split_count(S, B * Hkv * -(-G // rows_per_block(torch.float32, G)), 132)
+        want = jax_decode_attention(jq, jk, jv, jnp.asarray(lens), window=window, num_splits=4,
+                                    block_s=128, interpret=True)
+        got = decode_attention_split_model(tq, tk, tv, torch.from_numpy(lens), window=window,
+                                           num_splits=ns)
+        np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL, rtol=F32_TOL)
 
 
 SSD_SHAPES = [  # tests/test_kernels.py::TestSSDScan
@@ -320,6 +410,137 @@ class TestSSDScanPlain:
         np.testing.assert_allclose(_np(got_h), _np(want_h), atol=SSD_TOL, rtol=SSD_TOL)
         np.testing.assert_allclose(_np(got), _np(jax_ssd_scan_ref(*jargs)), atol=SSD_TOL,
                                    rtol=SSD_TOL)
+
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("chunk", [40, 100, 128])
+    def test_chunked_model_vs_pallas_and_recurrence(self, dtype, chunk):
+        """The kernels' chunk-parallel stages with their precision split
+        (bf16 pieces for bf16 inputs, tf32 hi + lo for f32 inputs, f32 sums;
+        ``ssd_scan_chunked_model``) in the
+        mamba2 regime, where the in-chunk log-decay reaches the hundreds:
+        y and the final state within chip_smoke's allowance (5e-4 atol and
+        rtol, plus 2^-8 rtol for a bf16 y) of the Pallas kernel in interpret
+        mode and of the token recurrence, on the same bf16-valued or f32
+        inputs."""
+        rng = np.random.default_rng(22)
+        B, L, H, P, N = 1, 300, 4, 32, 32
+
+        def silu(v):
+            return v / (1.0 + np.exp(-v))
+
+        x, Bm, Cm = (silu(_randn(rng, s)) for s in ((B, L, H, P), (B, L, 1, N), (B, L, 1, N)))
+        dt = np.log1p(np.exp(_randn(rng, (B, L, H))))
+        a = -np.linspace(1.0, 16.0, H, dtype=np.float32)
+        D = _randn(rng, (H,))
+        tdt = getattr(torch, dtype)
+        tx, tB, tC = (torch.from_numpy(np.ascontiguousarray(v)).to(tdt) for v in (x, Bm, Cm))
+        x, Bm, Cm = (t.float().numpy() for t in (tx, tB, tC))  # the values the kernel reads
+        got, got_h = ssd_scan_chunked_model(tx, torch.from_numpy(dt), torch.from_numpy(a), tB,
+                                            tC, torch.from_numpy(D), chunk=chunk)
+        assert got.dtype == tdt and got_h.dtype == torch.float32
+        rtol = SSD_TOL + (2.0 ** -8 if dtype == "bfloat16" else 0.0)
+        jargs = [jnp.asarray(v) for v in (x, dt, a, Bm.repeat(H, axis=2), Cm.repeat(H, axis=2), D)]
+        want, want_h = jax_ssd_scan(*jargs, chunk=chunk, interpret=True, return_state=True)
+        rec, rec_h = ssd_scan_ref(*(torch.from_numpy(v) for v in (x, dt, a, Bm, Cm, D)))
+        for ref_y, ref_h in ((_np(want), _np(want_h)), (_np(rec), _np(rec_h))):
+            np.testing.assert_allclose(_np(got), ref_y, atol=SSD_TOL, rtol=rtol)
+            np.testing.assert_allclose(_np(got_h), ref_h, atol=SSD_TOL, rtol=SSD_TOL)
+
+    @pytest.mark.parametrize("chunk", [40, 128])
+    def test_tf32_route_keeps_f32_precision(self, chunk):
+        """The f32 route's 3xTF32 products (``ssd_scan_chunked_model`` on f32
+        inputs) in the mamba2 regime: y and the final state within four times
+        the distance from an f64 token recurrence that the same chunked
+        stages reach with plain f32 products (hi + lo keeps 2^-22 of a value,
+        f32 2^-24), and more than ten times closer than with single tf32
+        products (one piece a product)."""
+        from repro_torch.kernels.ssd_scan import ref
+
+        rng = np.random.default_rng(24)
+        B, L, H, P, N = 1, 300, 4, 32, 32
+
+        def silu(v):
+            return v / (1.0 + np.exp(-v))
+
+        x, Bm, Cm = (silu(_randn(rng, s)) for s in ((B, L, H, P), (B, L, 1, N), (B, L, 1, N)))
+        dt = np.log1p(np.exp(_randn(rng, (B, L, H))))
+        a = -np.linspace(1.0, 16.0, H, dtype=np.float32)
+        D = _randn(rng, (H,))
+        args = [torch.from_numpy(np.ascontiguousarray(v)) for v in (x, dt, a, Bm, Cm, D)]
+        xd, dtd, ad, Bd, Cd, Dd = (t.double() for t in args)
+        h = torch.zeros((B, H, N, P), dtype=torch.float64)
+        ys = []
+        for t in range(L):
+            h = (h * torch.exp(dtd[:, t] * ad)[..., None, None]
+                 + torch.einsum("bn,bh,bhp->bhnp", Bd[:, t, 0], dtd[:, t], xd[:, t]))
+            ys.append(torch.einsum("bn,bhnp->bhp", Cd[:, t, 0], h))
+        y64 = torch.stack(ys, 1) + xd * Dd[None, None, :, None]
+        h64 = h
+
+        def errs(y, hh):
+            return float((y.double() - y64).abs().max()), float((hh.double() - h64).abs().max())
+
+        got = errs(*ref.ssd_scan_chunked_model(*args, chunk=chunk))
+        real = ref._split_product
+
+        def model_with(product):
+            try:
+                ref._split_product = product
+                return errs(*ref.ssd_scan_chunked_model(*args, chunk=chunk))
+            finally:
+                ref._split_product = real
+
+        exact = model_with(lambda eq, a_, b_, *_, **__: torch.einsum(eq, a_, b_))
+        one = model_with(lambda eq, a_, b_, *_, **__: real(eq, a_, b_, 1, 1, tf32=True))
+        for g, e, o in zip(got, exact, one):
+            assert g <= 4 * e
+            assert 10 * g < o
+
+    @pytest.mark.parametrize("value", [1.0, -3.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                                       -(1.0 + 2.0 ** -11), 0.1, 1e-30, 3.0e30])
+    def test_tf32_pieces(self, value):
+        """The model's tf32 rounding is ``cvt.rna.tf32.f32``'s: 10 stored
+        mantissa bits, to nearest with ties away from zero; hi + lo keeps
+        the value to 2^-22 of itself."""
+        from repro_torch.kernels.ssd_scan.ref import _pieces, _tf32
+
+        t = torch.tensor([value], dtype=torch.float32)
+        hi = _tf32(t)
+        assert int(hi.view(torch.int32)) & 0x1FFF == 0
+        assert abs(float(hi - t)) <= 2.0 ** -11 * abs(value)
+        if value in (1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)):  # a tie: away from zero
+            assert float(hi) == math.copysign(1.0 + 2.0 ** -10, value)
+        p0, p1 = _pieces(t, 2, tf32=True)
+        assert float(p0) == float(hi)
+        assert abs(float(p0 + p1 - t)) <= 2.0 ** -22 * abs(value)
+
+    @pytest.mark.parametrize("G", [1, 2, 4])
+    def test_chunked_model_reads_groups_in_place(self, G):
+        """The model's C.B^T once per (chunk, group) gives what the
+        recurrence gives with the groups expanded to heads (jax suite's
+        inputs, a ragged tail: 100 = 2 x 40 + 20)."""
+        _, targs = _ssd_inputs(np.random.default_rng(23), 2, 100, 4, 32, 16, groups=G)
+        got, got_h = ssd_scan_chunked_model(*targs, chunk=40)
+        want, want_h = ssd_scan_ref(*targs)
+        np.testing.assert_allclose(_np(got), _np(want), atol=SSD_TOL, rtol=SSD_TOL)
+        np.testing.assert_allclose(_np(got_h), _np(want_h), atol=SSD_TOL, rtol=SSD_TOL)
+
+    @pytest.mark.parametrize("shape,chunk,match", [
+        ((1, 64, 2, 48, 16), 32, "head dim"),
+        ((1, 64, 2, 32, 24), 32, "state"),
+        ((1, 64, 2, 32, 256), 32, "state"),
+        ((1, 300, 2, 32, 16), 256, "chunk"),
+    ])
+    def test_kernel_shapes_are_checked(self, shape, chunk, match):
+        """Shapes the CUDA kernels do not take are refused before a launch."""
+        from repro_torch.kernels.ssd_scan.ops import _check
+
+        B, L, H, P, N = shape
+        x = torch.zeros((B, L, H, P))
+        with pytest.raises(ValueError, match=match):
+            _check(x, torch.zeros((B, L, H)), torch.zeros((H,)), torch.zeros((B, L, 1, N)),
+                   torch.zeros((B, L, 1, N)), torch.zeros((H,)), chunk)
 
 
 ROUTER_SHAPES = [  # tests/test_kernels.py::TestMoERouter
@@ -519,9 +740,15 @@ class TestFlashTiles:
         assert "wgmma" in (_build.CSRC / "sm90.cuh").read_text()
         assert '#include "sm90.cuh"' in text
 
-    @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd"])
-    def test_library_path_follows_the_sm90_header(self, name, tmp_path, monkeypatch):
-        """An edit of csrc/sm90.cuh rebuilds both flash libraries."""
+    @pytest.mark.parametrize("name,header", [("flash_attention", "sm90.cuh"),
+                                             ("flash_attention_bwd", "sm90.cuh"),
+                                             ("decode_attention", "warp_mma.cuh"),
+                                             ("ssd_scan", "warp_mma.cuh")])
+    def test_library_path_follows_the_sm90_header(self, name, header, tmp_path,
+                                                  monkeypatch):
+        """An edit of a shared header (csrc/sm90.cuh for the flash kernels,
+        csrc/warp_mma.cuh for decode and SSD) rebuilds the libraries that
+        include it."""
         import shutil
 
         from repro_torch.kernels import _build
@@ -531,5 +758,6 @@ class TestFlashTiles:
         monkeypatch.setattr(_build, "CSRC", csrc)
         before = _build.library_path(name)
         assert before == _build.library_path(name)
-        (csrc / "sm90.cuh").write_text((csrc / "sm90.cuh").read_text() + "\n// edited\n")
+        assert f'#include "{header}"' in (csrc / f"{name}.cu").read_text()
+        (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
         assert _build.library_path(name) != before
