@@ -29,7 +29,8 @@
 //     P fed from the S accumulators as the A operand.  wgmma's 64-row minimum
 //     would waste 4x or more at G <= 16.
 //   - R in {1, 2, 4, 8} (f32, or bf16 with G < 8): CUDA-core dots with lanes
-//     across D and a butterfly sum per key; lane j keeps key j's score.
+//     across D (ceil(D / 32) columns a lane; at D = 112 lanes 28-31 hold
+//     none) and a butterfly sum per key; lane j keeps key j's score.
 //   G above R takes several row blocks (units) per kv head.
 // * Loads overlap math: a 3-stage ring of K/V tiles filled by 16-byte
 //   cp.async copies; rows past the split's end are zero-filled by the copy.
@@ -39,7 +40,7 @@
 //   sequence) merges the splits in a fixed order.  No atomics: two runs are
 //   bit-equal.
 //
-// Supported: T in {f32, bf16}, D in {32, 64, 128}, G = Hq / Hkv <= 64.
+// Supported: T in {f32, bf16}, D in {32, 64, 112, 128}, G = Hq / Hkv <= 64.
 #include <type_traits>
 
 #include "warp_mma.cuh"
@@ -121,12 +122,20 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kg, const T* vg
   }
 }
 
+// Columns of D a lane holds on the CUDA-core route and in the split merge:
+// lane l takes columns l DL .. l DL + DL - 1 below D.
+template <int D>
+__host__ __device__ constexpr int lane_cols() {
+  return (D + 31) / 32;
+}
+
 // ---------------------------------------------------------------------------
-// CUDA-core route: R rows, lanes across D (DL = D / 32 elements a lane).
+// CUDA-core route: R rows, lanes across D (DL = ceil(D / 32) columns a lane,
+// masked at D).
 // ---------------------------------------------------------------------------
 template <typename T, int D, int R>
 struct CoreState {
-  static constexpr int DL = D / 32;
+  static constexpr int DL = lane_cols<D>();
   float q[R][DL];
   float acc[R][DL];
   float m[R];
@@ -138,7 +147,8 @@ struct CoreState {
     for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int e = 0; e < DL; ++e) {
-        const float x = r < rows ? to_f(qg[r * D + lane * DL + e]) * scale : 0.f;
+        const int d = lane * DL + e;
+        const float x = r < rows && d < D ? to_f(qg[r * D + d]) * scale : 0.f;
         q[r][e] = to_f(from_f<T>(x));
         acc[r][e] = 0.f;
       }
@@ -158,7 +168,8 @@ struct CoreState {
     for (int j = 0; j < kWarpKeys; ++j) {
       float kv[DL];
 #pragma unroll
-      for (int e = 0; e < DL; ++e) kv[e] = to_f(ks[j * P + lane * DL + e]);
+      for (int e = 0; e < DL; ++e)
+        kv[e] = lane * DL + e < D ? to_f(ks[j * P + lane * DL + e]) : 0.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float part = 0.f;
@@ -193,7 +204,8 @@ struct CoreState {
     for (int j = 0; j < kWarpKeys; ++j) {
       float vv[DL];
 #pragma unroll
-      for (int e = 0; e < DL; ++e) vv[e] = to_f(vs[j * P + lane * DL + e]);
+      for (int e = 0; e < DL; ++e)
+        vv[e] = lane * DL + e < D ? to_f(vs[j * P + lane * DL + e]) : 0.f;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float pj = __shfl_sync(0xffffffffu, p_own[r], j);
@@ -210,7 +222,8 @@ struct CoreState {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int e = 0; e < DL; ++e) os[(warp * R + r) * (D + 2) + lane * DL + e] = acc[r][e];
+      for (int e = 0; e < DL; ++e)
+        if (lane * DL + e < D) os[(warp * R + r) * (D + 2) + lane * DL + e] = acc[r][e];
       if (lane == 0) {
         ms[warp * R + r] = m[r];
         ls[warp * R + r] = l[r];
@@ -439,15 +452,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(Args a) {
 // The splits' partials of one (q head, batch) merged by one block of
 // kMergeWarps warps: m = max_s m_s, then sum_s acc_s exp(m_s - m) / sum_s l_s
 // exp(m_s - m).  Threads take the splits in strides for m, the weights and
-// l; warp w sums acc over the splits s = w mod kMergeWarps, D / 32 columns a
-// lane; the warps' partial sums are added in warp order.  Every sum has a
-// fixed order, so two runs are bit-equal.
+// l; warp w sums acc over the splits s = w mod kMergeWarps, ceil(D / 32)
+// columns a lane (masked at D); the warps' partial sums are added in warp
+// order.  Every sum has a fixed order, so two runs are bit-equal.
 constexpr int kMergeWarps = 4;
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(kMergeWarps * 32) decode_merge_kernel(
     const float* __restrict__ ws, T* __restrict__ out, int Hkv, int G, int nrc, int ns,
     int units) {
-  constexpr int DL = D / 32;
+  constexpr int DL = lane_cols<D>();
   __shared__ float wts[kMaxSplits];
   __shared__ float red[kMergeWarps];
   __shared__ float part[kMergeWarps][D];
@@ -493,15 +506,18 @@ __global__ void __launch_bounds__(kMergeWarps * 32) decode_merge_kernel(
     const float f = wts[s];
     const float* v = acc + long(s) * R * D;
 #pragma unroll
-    for (int e = 0; e < DL; ++e) o[e] = fmaf(v[e], f, o[e]);
+    for (int e = 0; e < DL; ++e)
+      if (lane * DL + e < D) o[e] = fmaf(v[e], f, o[e]);
   }
 #pragma unroll
-  for (int e = 0; e < DL; ++e) part[warp][lane * DL + e] = o[e];
+  for (int e = 0; e < DL; ++e)
+    if (lane * DL + e < D) part[warp][lane * DL + e] = o[e];
   __syncthreads();
   if (warp == 0) {
     T* dst = out + (long(b) * Hkv * G + hq) * D + lane * DL;
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
+      if (lane * DL + e >= D) break;
       float sum = part[0][lane * DL + e];
 #pragma unroll
       for (int w = 1; w < kMergeWarps; ++w) sum += part[w][lane * DL + e];
@@ -545,6 +561,7 @@ cudaError_t by_dim(int D, int R, const Args& a, int B, cudaStream_t s) {
   switch (D) {
     case 32: return by_rows<T, 32>(R, a, B, s);
     case 64: return by_rows<T, 64>(R, a, B, s);
+    case 112: return by_rows<T, 112>(R, a, B, s);
     case 128: return by_rows<T, 128>(R, a, B, s);
   }
   return cudaErrorInvalidValue;

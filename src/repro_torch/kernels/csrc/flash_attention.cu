@@ -26,6 +26,10 @@
 // diagonal, the window's edge or the key tail are masked.  P is rounded to
 // bf16 for its product, as in the first version; scores, m, l and O are f32.
 // Consumers run at 240 registers and the producer at 24 (setmaxnreg).
+// D = 112 (kimi-k2) runs the D = 128 kernel on tiles padded to two 64-column
+// panels: the tensor maps keep the true extent 112, so TMA fills columns
+// 112-127 with zeros; Q K^T takes 7 k-steps, P V's zero columns are never
+// stored.  The padded columns cost 1/7 more P V work than D = 112 needs.
 //
 // f32 route (the first version's, unchanged): one block of 4 warps per (q
 // block, q head, batch), the online-softmax state (m, l, acc) in f32 shared
@@ -36,7 +40,7 @@
 // m + log(l) of the online softmax in f32, (B, Hq, Sq): the backward kernel
 // (flash_attention_bwd.cu) recomputes the probabilities from it.
 //
-// Supported: D in {32, 64, 128}, any Hq % Hkv == 0 (GQA, MQA, MHA);
+// Supported: D in {32, 64, 112, 128}, any Hq % Hkv == 0 (GQA, MQA, MHA);
 // bf16 with (block_q, block_k) in {(128, 128), (128, 64)}; f32 with block_q
 // in {64, 128} and block_k in {32, 64}, but not 128 x 64 at D = 128 (over
 // the shared memory of a block).  The wrapper
@@ -160,10 +164,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegBig = -1e30f;  // initial row max (log2 units): no inf - inf
 
+// Tiles hold D padded to whole panels (sm90::Panel<D>::kPadD columns).
 template <int D, int BK>
 struct FwdSmem {
-  static constexpr int kQ = kBQ * D * 2;
-  static constexpr int kKV = BK * D * 2;
+  static constexpr int kQ = kBQ * sm90::Panel<D>::kPadD * 2;
+  static constexpr int kKV = BK * sm90::Panel<D>::kPadD * 2;
   static constexpr int q_off = 0;
   static constexpr int k_off = kQ;                     // + stage * kKV
   static constexpr int v_off = k_off + kStages * kKV;  // + stage * kKV
@@ -179,6 +184,7 @@ __global__ void __launch_bounds__(kThreads90, 1)
              float softcap, int q_offset, float scale) {
   using L = FwdSmem<D, BK>;
   using P = sm90::Panel<D>;
+  constexpr int DP = P::kPadD;  // columns of the O accumulator
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sm = sm90::align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::bar_off);
@@ -240,9 +246,9 @@ __global__ void __launch_bounds__(kThreads90, 1)
     const int qp_lo = qp0 + 64 * c;
     const float scale2 = scale * kLog2e;
 
-    float acc[D / 2];
+    float acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegBig, kNegBig};  // running row max of the scores, log2 units
     float l[2] = {0.f, 0.f};          // this thread's part of the running row sums
 
@@ -302,7 +308,7 @@ __global__ void __launch_bounds__(kThreads90, 1)
         l[r] += p;
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
       uint32_t pa[BK / 16][4];  // A fragments of P, k-steps of 16 keys
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
@@ -315,7 +321,7 @@ __global__ void __launch_bounds__(kThreads90, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        sm90::Wgmma<D>::template rs<1>(acc, pa[kk], P::template mnmajor<BK>(sV, kk), 1);
+        sm90::Wgmma<DP>::template rs<1>(acc, pa[kk], P::template mnmajor<BK>(sV, kk), 1);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -330,11 +336,11 @@ __global__ void __launch_bounds__(kThreads90, 1)
       l[r] = fmaxf(l[r], 1e-30f);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < DP / 2; i += 2) {
       const int r = (i >> 1) & 1;
       const int row = q0 + r0 + 8 * r;
       const int col = 8 * (i >> 2) + kc0;
-      if (row < Sq)
+      if (row < Sq && col < D)  // the padded columns are zeros
         *reinterpret_cast<__nv_bfloat162*>(o + (((long)b * Sq + row) * Hq + h) * D + col) =
             __floats2bfloat162_rn(acc[i] / l[r], acc[i + 1] / l[r]);
     }
@@ -412,6 +418,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
       case 64:
         return f32_by_blocks<64>(block_q, block_k, q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal,
                                  window, softcap, q_offset, scale, s);
+      case 112:
+        return f32_by_blocks<112>(block_q, block_k, q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal,
+                                  window, softcap, q_offset, scale, s);
       case 128:
         return f32_by_blocks<128>(block_q, block_k, q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal,
                                   window, softcap, q_offset, scale, s);
@@ -426,6 +435,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
       case 64:
         return hopper::bf16_by_blocks<64>(block_q, block_k, q, k, v, o, l, B, Sq, Sk, Hq,
                                           Hkv, causal, window, softcap, q_offset, scale, s);
+      case 112:
+        return hopper::bf16_by_blocks<112>(block_q, block_k, q, k, v, o, l, B, Sq, Sk, Hq,
+                                           Hkv, causal, window, softcap, q_offset, scale, s);
       case 128:
         return hopper::bf16_by_blocks<128>(block_q, block_k, q, k, v, o, l, B, Sq, Sk, Hq,
                                           Hkv, causal, window, softcap, q_offset, scale, s);

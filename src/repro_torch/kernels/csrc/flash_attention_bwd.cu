@@ -40,7 +40,10 @@
 // Only tiles on the causal diagonal, the window's edge or the key tail are
 // masked.  P and dS are rounded to bf16 for their products, as
 // FlashAttention-2 does; scores and accumulators are f32.  Consumers run at
-// 240 registers and the producer at 24 (setmaxnreg).
+// 240 registers and the producer at 24 (setmaxnreg).  D = 112 runs the
+// D = 128 kernels on tiles padded with zero columns (sm90.cuh, Panel): the
+// products over D take 7 k-steps, the products into D give zero columns
+// 112-127, and the dQ store and the f32 partials keep the first 112.
 //
 // f32 route (the first version's, unchanged): one block of 4 warps per (k
 // block, kv head, batch) loops over the G query heads of its group, so the
@@ -48,7 +51,7 @@
 // Accumulators in shared memory, scalar FMAs in full f32 (the TPU kernel's
 // f32 dots), tiles of 64 query rows and 32 keys.
 //
-// Supported: bf16 and f32, D in {32, 64, 128}, any Hq % Hkv == 0.  The
+// Supported: bf16 and f32, D in {32, 64, 112, 128}, any Hq % Hkv == 0.  The
 // wrapper (repro_torch/kernels/flash_attention/ops.py) checks everything
 // else and allocates the scratch.
 #include "attn_tile.cuh"
@@ -439,11 +442,12 @@ __device__ __forceinline__ float prob_dscore(float s, float& dp, float lse2, flo
   return p;
 }
 
-// Shared memory of dkdv_sm90 (offsets from a 1024-byte aligned base).
+// Shared memory of dkdv_sm90 (offsets from a 1024-byte aligned base); tiles
+// hold D padded to whole panels.
 template <int D>
 struct DkdvSmem {
-  static constexpr int kKV = kKeyBlock * D * 2;
-  static constexpr int kQ = kQTile * D * 2;
+  static constexpr int kKV = kKeyBlock * sm90::Panel<D>::kPadD * 2;
+  static constexpr int kQ = kQTile * sm90::Panel<D>::kPadD * 2;
   static constexpr int k_off = 0;
   static constexpr int v_off = kKV;
   static constexpr int q_off = 2 * kKV;                        // + stage * kQ
@@ -463,6 +467,7 @@ __global__ void __launch_bounds__(kThreads90, 1)
               float scale) {
   using L = DkdvSmem<D>;
   using P = sm90::Panel<D>;
+  constexpr int DP = P::kPadD;  // columns of the dK and dV accumulators
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sm = sm90::align1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::bar_off);
@@ -527,9 +532,9 @@ __global__ void __launch_bounds__(kThreads90, 1)
     const int qc0 = 2 * (lane % 4);        // and query columns qc0 + 8 j (+ 1)
     const int wk_lo = k_lo + 64 * c;
 
-    float dk[D / 2], dv[D / 2];
+    float dk[DP / 2], dv[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
 
     sm90::mbar_wait(kv_full, 0);
     const unsigned char* sK = sm + L::k_off;
@@ -587,10 +592,10 @@ __global__ void __launch_bounds__(kThreads90, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        sm90::Wgmma<D>::template rs<1>(dv, pa[kk], P::template mnmajor<kQTile>(sDO, kk), 1);
+        sm90::Wgmma<DP>::template rs<1>(dv, pa[kk], P::template mnmajor<kQTile>(sDO, kk), 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        sm90::Wgmma<D>::template rs<1>(dk, da[kk], P::template mnmajor<kQTile>(sQ, kk), 1);
+        sm90::Wgmma<DP>::template rs<1>(dk, da[kk], P::template mnmajor<kQTile>(sQ, kk), 1);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dk);
@@ -600,10 +605,10 @@ __global__ void __launch_bounds__(kThreads90, 1)
 
     // f32 partials of this q head; the group sum scales dK
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < DP / 2; i += 2) {
       const int key = wk_lo + kr0 + 8 * ((i >> 1) & 1);
       const int col = 8 * (i >> 2) + qc0;
-      if (key < Sk) {
+      if (key < Sk && col < D) {  // the padded columns are zeros
         const long at = (((long)b * Sk + key) * Hq + h) * D + col;
         *reinterpret_cast<float2*>(dk_part + at) = make_float2(dk[i], dk[i + 1]);
         *reinterpret_cast<float2*>(dv_part + at) = make_float2(dv[i], dv[i + 1]);
@@ -613,7 +618,9 @@ __global__ void __launch_bounds__(kThreads90, 1)
 }
 
 // dk[b, s, hk] = scale * sum_g dk_part[b, s, hk G + g] (g = 0 .. G-1 in
-// order), dv likewise without the scale; four elements a thread.
+// order), dv likewise without the scale; four elements a thread (every D
+// the kernels take, 112 included, is a multiple of 4, so a thread's four
+// stay in one row).
 __global__ void __launch_bounds__(256)
     group_sum_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, long n4, int Hkv, int G, int D,
@@ -644,8 +651,8 @@ __global__ void __launch_bounds__(256)
 // Shared memory of dq_sm90 (offsets from a 1024-byte aligned base).
 template <int D>
 struct DqSmem {
-  static constexpr int kQ = kQBlock * D * 2;
-  static constexpr int kKV = kKTile * D * 2;
+  static constexpr int kQ = kQBlock * sm90::Panel<D>::kPadD * 2;
+  static constexpr int kKV = kKTile * sm90::Panel<D>::kPadD * 2;
   static constexpr int q_off = 0;
   static constexpr int do_off = kQ;
   static constexpr int k_off = 2 * kQ;                   // + stage * kKV
@@ -663,6 +670,7 @@ __global__ void __launch_bounds__(kThreads90, 1)
             int window, float softcap, int q_offset, float scale) {
   using L = DqSmem<D>;
   using P = sm90::Panel<D>;
+  constexpr int DP = P::kPadD;  // columns of the dQ accumulator
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sm = sm90::align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::bar_off);
@@ -722,9 +730,9 @@ __global__ void __launch_bounds__(kThreads90, 1)
     const float dlt[2] = {delta_pad[stat_row], delta_pad[stat_row + 8]};
     const int qp_lo = qp0 + 64 * c;
 
-    float dqa[D / 2];
+    float dqa[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
 
     sm90::mbar_wait(q_full, 0);
     const unsigned char* sQ = sm + L::q_off;
@@ -770,7 +778,7 @@ __global__ void __launch_bounds__(kThreads90, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        sm90::Wgmma<D>::template rs<1>(dqa, da[kk], P::template mnmajor<kKTile>(sK, kk), 1);
+        sm90::Wgmma<DP>::template rs<1>(dqa, da[kk], P::template mnmajor<kKTile>(sK, kk), 1);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dqa);
@@ -778,10 +786,10 @@ __global__ void __launch_bounds__(kThreads90, 1)
     }
 
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
+    for (int i = 0; i < DP / 2; i += 2) {
       const int row = q0 + r0 + 8 * ((i >> 1) & 1);
       const int col = 8 * (i >> 2) + kc0;
-      if (row < Sq)
+      if (row < Sq && col < D)
         *reinterpret_cast<__nv_bfloat162*>(dq + (((long)b * Sq + row) * Hq + h) * D + col) =
             __floats2bfloat162_rn(dqa[i] * scale, dqa[i + 1] * scale);
     }
@@ -876,6 +884,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
       case 64:
         return launch_f32<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
                               causal, window, softcap, q_offset, scale, s);
+      case 112:
+        return launch_f32<112>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
+                               causal, window, softcap, q_offset, scale, s);
       case 128:
         return launch_f32<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
                                causal, window, softcap, q_offset, scale, s);
@@ -896,6 +907,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
         return hopper::launch_bf16<64>(q, k, v, o, dout, lse, fd, fl, pk, pv, dq, dk, dv, B,
                                         Sq, Sk, Hq, Hkv, causal, window, softcap, q_offset,
                                         scale, s);
+      case 112:
+        return hopper::launch_bf16<112>(q, k, v, o, dout, lse, fd, fl, pk, pv, dq, dk, dv, B,
+                                         Sq, Sk, Hq, Hkv, causal, window, softcap, q_offset,
+                                         scale, s);
       case 128:
         return hopper::launch_bf16<128>(q, k, v, o, dout, lse, fd, fl, pk, pv, dq, dk, dv, B,
                                         Sq, Sk, Hq, Hkv, causal, window, softcap, q_offset,

@@ -14,8 +14,14 @@
 //    (TMA's out-of-bounds fill), never the next sequence's rows.
 //  * box_d is 64 elements (128 bytes) with the 128-byte swizzle for D >= 64,
 //    and 32 elements (64 bytes) with the 64-byte swizzle for D = 32.  A tile
-//    of `rows` x D lands as D / box_d column panels of rows x box_d, each
-//    1024-byte aligned, panel p at p * rows * box_d elements.
+//    of `rows` x D lands as ceil(D / box_d) column panels of rows x box_d,
+//    each 1024-byte aligned, panel p at p * rows * box_d elements.  When
+//    box_d does not divide D (D = 112: two boxes of 64), the tensor map keeps
+//    the true extent D, so the last panel's columns past D read zeros (TMA's
+//    out-of-bounds fill, as for a ragged row tail): the tile is D padded to
+//    a whole panel (Panel<D>::kPadD), its zero columns add nothing to a
+//    product over D and give zero columns of a product into D, and the
+//    kernels store only the first D columns.
 //  * wgmma reads such a panel through a descriptor whose swizzle matches
 //    TMA's: K-major (the reduced dimension contiguous, e.g. Q or K in Q K^T)
 //    advances 32 bytes per k16 step inside a panel; MN-major (the output
@@ -272,13 +278,15 @@ struct Wgmma<128> {
 // ---------------------------------------------------------------------------
 // tiles of (B, S, H, D) bf16 tensors in shared memory
 // ---------------------------------------------------------------------------
-// Column panels of a rows x D tile as TMA writes it: D / kBoxD panels of
-// rows x kBoxD, panel p at p * rows * kRowBytes, each row kRowBytes long and
-// swizzled over 8-row atoms (kAtom bytes, the stride byte offset).
+// Column panels of a rows x D tile as TMA writes it: ceil(D / kBoxD) panels
+// of rows x kBoxD, panel p at p * rows * kRowBytes, each row kRowBytes long
+// and swizzled over 8-row atoms (kAtom bytes, the stride byte offset).  The
+// tile holds kPadD >= D columns; those past D are zeros.
 template <int D>
 struct Panel {
   static constexpr int kBoxD = D >= 64 ? 64 : 32;
-  static constexpr int kCount = D / kBoxD;
+  static constexpr int kCount = (D + kBoxD - 1) / kBoxD;
+  static constexpr int kPadD = kCount * kBoxD;
   static constexpr int kRowBytes = kBoxD * 2;  // = the swizzle, 128 or 64 bytes
   static constexpr int kSwizzle = kRowBytes;
   static constexpr int kAtom = 8 * kRowBytes;
@@ -297,8 +305,8 @@ struct Panel {
   }
 };
 
-// The TMA loads of a rows x D tile (all panels) of head `head`, batch `b`,
-// from sequence row `row`.
+// The TMA loads of a rows x D tile (all panels, kPadD * rows * 2 bytes with
+// the zero columns) of head `head`, batch `b`, from sequence row `row`.
 template <int D>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
                                           uint64_t* bar, int rows, int head, int row, int b) {
@@ -364,7 +372,9 @@ inline EncodeTiledFn encode_tiled() {
 
 // The tensor map of a contiguous (B, S, H, D) bf16 tensor as rank 4 over
 // (D, H, S, B), with boxes of (box_d, 1, rows, 1) and the swizzle that
-// matches box_d (128 bytes for 64 elements, 64 for 32); zeros out of bounds.
+// matches box_d (128 bytes for 64 elements, 64 for 32); zeros out of bounds,
+// in D (a box past column D) as in S.  The row stride, 2 D bytes, must be a
+// multiple of 16: D a multiple of 8.
 inline cudaError_t make_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
                                  int box_d, int rows) {
   EncodeTiledFn encode = encode_tiled();

@@ -11,7 +11,7 @@ import torch
 from .. import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)  # 112: kimi-k2 (7168 / 64)
 MAX_GROUP = 64  # q heads per kv head
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -12,7 +12,7 @@ import torch
 from .. import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)  # 112: kimi-k2 (7168 / 64)
 # The forward's (block_q, block_k) tiles by dtype, the default first: f32
 # runs the first version's scalar kernel, bf16 the Hopper wgmma kernel (128
 # query rows a block, 64 a consumer warpgroup, keys streamed 128 or 64 at a

@@ -8,8 +8,9 @@ import torch
 
 from .. import _build
 
-MAX_EXPERTS = 384  # kimi-k2's routing; a (64, 384) f32 tile is 96 KB of shared memory
+MAX_EXPERTS = 384  # kimi-k2's routing: 12 experts a lane in registers
 MAX_K = 8
+TOKEN_BLOCK = 32  # tokens a block of the first launch (kBlockT in the source)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -18,7 +19,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("moe_router")
     fn = lib.moe_router_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         fn.restype = _I
     return lib
 
@@ -26,12 +27,19 @@ def _lib() -> ctypes.CDLL:
 def moe_router_fwd(
     logits: torch.Tensor, ids: torch.Tensor, gates: torch.Tensor, slots: torch.Tensor, k: int,
 ) -> None:
-    """Launches the kernel on the current stream; writes ``ids``, ``gates``
-    and ``slots``.  Inputs are checked by the caller (``ops.moe_router``)."""
+    """Launches on the current stream and writes ``ids``, ``gates`` and
+    ``slots``: the token blocks' routing and in-block slots, then, when there
+    is more than one token block, the prefix of the earlier blocks' counts
+    (the (blocks, E) int32 scratch is allocated here).  Inputs are checked by
+    the caller (``ops.moe_router``)."""
     T, E = logits.shape
+    nb = -(-T // TOKEN_BLOCK)  # blocks of the first launch
+    counts = (torch.empty((nb, E), dtype=torch.int32, device=logits.device) if nb > 1
+              else None)
     lib = _lib()
     err = lib.moe_router_fwd(
-        logits.data_ptr(), ids.data_ptr(), gates.data_ptr(), slots.data_ptr(), T, E, k,
+        logits.data_ptr(), ids.data_ptr(), gates.data_ptr(), slots.data_ptr(),
+        None if counts is None else counts.data_ptr(), T, E, k,
         torch.cuda.current_stream(logits.device).cuda_stream,
     )
     _build.check(lib, "moe_router", err)

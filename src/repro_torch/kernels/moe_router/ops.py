@@ -1,8 +1,11 @@
 """Public wrapper of the fused MoE-router kernel.
 
 On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/moe_router.cu``) or raises; on a CPU tensor it computes the plain
-version ``moe_router_ref``.  ``moe_router.launches`` counts kernel launches.
+(``csrc/moe_router.cu``: token blocks routed in parallel, then the prefix
+of the earlier blocks' expert counts added to the slots; ``ref.
+moe_router_blocked_model`` is its plain model) or raises; on a CPU tensor it
+computes the plain version ``moe_router_ref``.  ``moe_router.launches``
+counts calls that launched the kernel (its two launches count as one).
 """
 from __future__ import annotations
 

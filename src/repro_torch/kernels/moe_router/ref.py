@@ -43,3 +43,28 @@ def exclusive_slots(ids: torch.Tensor, E: int) -> torch.Tensor:
     flat = F.one_hot(ids.long(), E).reshape(T * k, E)
     pos = torch.cumsum(flat, dim=0) - flat
     return (pos * flat).sum(-1).reshape(T, k).to(torch.int32)
+
+
+def moe_router_blocked_model(
+    logits: torch.Tensor,  # (T, E)
+    k: int,
+    block_t: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain model of the kernel's decomposition (``csrc/moe_router.cu``):
+    each block of ``block_t`` tokens is routed on its own and its slots
+    counted within the block (``route_blocks``), then each choice's slot is
+    raised by the exclusive prefix over the blocks of its expert's counts
+    (``add_prefix``).  It must give ``moe_router_ref``'s result; only the
+    CPU tests run it."""
+    T, E = logits.shape
+    ids, gates, slots, counts = [], [], [], []
+    for t0 in range(0, T, block_t):
+        i, g, s = moe_router_ref(logits[t0:t0 + block_t], k)
+        ids.append(i)
+        gates.append(g)
+        slots.append(s)
+        counts.append(torch.bincount(i.reshape(-1).long(), minlength=E))
+    counts_t = torch.stack(counts)  # (blocks, E)
+    base = torch.cumsum(counts_t, dim=0) - counts_t  # the earlier blocks' counts
+    slots = [s + b[i.long()].to(torch.int32) for s, b, i in zip(slots, base, ids)]
+    return torch.cat(ids), torch.cat(gates), torch.cat(slots)

@@ -252,8 +252,11 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     each with its own capacity C (``dropless``: C = tokens per group, as the
     serving path uses).  Routing (softmax, top-k, slots) is the
     ``moe_router`` kernel on the kernel route, once per group; a choice with
-    slot >= C is dropped and scatters 0 into slot C - 1, so every kept
-    (expert, slot) receives exactly one token and the scatter is exact.
+    slot >= C is dropped.  The dispatch buffer has a spare slot C per expert
+    that takes every dropped choice (``dispatch_slots``), so each kept
+    (group, expert, slot) receives exactly one token: the scatter is a plain
+    assignment, not a sum.  The spare slot is cut off before the expert
+    products and reads as zero in the gather.
     """
     T, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
@@ -274,14 +277,11 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
         expert_ids, gate, pos = (torch.stack(r) for r in zip(*routed))
     expert_ids = expert_ids.long()
     gate = gate.to(x.dtype)
-    keep = pos < C  # capacity-dropped choices fall back to the residual only
-
-    safe_pos = torch.where(keep, pos, C - 1).long()
+    slot = dispatch_slots(pos, C)  # capacity-dropped choices fall back to the residual only
     gid = torch.arange(G, device=x.device)[:, None, None].expand(G, t, k)
-    buf = torch.zeros((G, E, C, d), dtype=x.dtype, device=x.device)
-    tok = xg[:, :, None, :].expand(G, t, k, d)
-    buf.index_put_((gid, expert_ids, safe_pos), torch.where(keep[..., None], tok, 0),
-                   accumulate=True)
+    buf = torch.zeros((G, E, C + 1, d), dtype=x.dtype, device=x.device)
+    buf[gid, expert_ids, slot] = xg[:, :, None, :].expand(G, t, k, d)
+    buf = buf[:, :, :C]
 
     w1 = params["w1"].to(x.dtype)
     if cfg.mlp_act == "swiglu":
@@ -289,11 +289,20 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
             "gecd,edf->gecf", buf, params["w3"].to(x.dtype))
     else:
         h = F.gelu(torch.einsum("gecd,edf->gecf", buf, w1), approximate="tanh")
-    out_buf = torch.einsum("gecf,efd->gecd", h, params["w2"].to(x.dtype))
+    out_buf = F.pad(torch.einsum("gecf,efd->gecd", h, params["w2"].to(x.dtype)),
+                    (0, 0, 0, 1))  # the spare slot C reads zero
 
-    gathered = out_buf[gid, expert_ids, safe_pos]  # (G, t, k, d)
-    out = (gathered * (gate * keep)[..., None]).sum(dim=2)
+    gathered = out_buf[gid, expert_ids, slot]  # (G, t, k, d)
+    out = (gathered * gate[..., None]).sum(dim=2)
     return out.reshape(T, d)
+
+
+def dispatch_slots(pos: torch.Tensor, C: int) -> torch.Tensor:
+    """The dispatch slot of each choice: its capacity slot when it is kept
+    (``pos < C``), else the spare slot C that collects every dropped choice.
+    Kept (group, expert, slot) triples are unique because the router's slots
+    count each expert's choices in token-major order."""
+    return torch.where(pos < C, pos, C).long()
 
 
 # ---------------------------------------------------------------------------

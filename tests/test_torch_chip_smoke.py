@@ -296,7 +296,8 @@ def _phase_kernels_draws(monkeypatch):
         return dict(kernel="fused_augment", case="flip_involution", ok=True)
 
     monkeypatch.setattr(torch, "Generator", Gen)
-    for kind in ("flash_case", "decode_case", "ssd_case", "router_case", "augment_case"):
+    for kind in ("flash_case", "decode_case", "ssd_case", "router_case", "augment_case",
+                 "flash_bwd_case"):
         monkeypatch.setattr(chip_smoke, kind, recorder(kind))
     monkeypatch.setattr(chip_smoke, "augment_flip_case", flip)
     monkeypatch.setattr(chip_smoke, "flash_bwd_cases", lambda main_S, g, g_edges: [])
@@ -386,6 +387,10 @@ def test_split_invariance_checks_the_card_plan():
          {"decode_attention": 48, "moe_router": 47}),
         ("moonshot-v1-16b-a3b", {"num_layers": 4}, {"flash_attention": 4, "moe_router": 3},
          {"decode_attention": 4, "moe_router": 3}),
+        # kimi-k2 as the run cuts it: 1 dense + 1 MoE layer, its f32 check dense only
+        ("kimi-k2-1t-a32b", {"num_layers": 2}, {"flash_attention": 2, "moe_router": 1},
+         {"decode_attention": 2, "moe_router": 1}),
+        ("kimi-k2-1t-a32b", {"num_layers": 1}, {"flash_attention": 1}, {"decode_attention": 1}),
     ],
 )
 def test_expected_launches_follow_the_layers(arch, replace, forward, step):
@@ -557,3 +562,99 @@ def test_split_sweep_measures_the_plans_picks(monkeypatch):
         picks[name] = split_count(S, B * Hkv * -(-G // rows_per_block(torch.bfloat16, G)), 132)
     assert picks == {"long_B8_S8192": 16, "long_B1_S32768": 64, "moonshot_long_B8_S4096": 8}
     assert set(picks.values()) <= set(chip_smoke.SWEEP_SPLITS)
+
+
+D112_REDESIGN_TABLES = ("FLASH_CASES_D112", "FLASH_BWD_CASES_D112", "DECODE_CASES_D112",
+                 "ROUTER_CASES_NEW", "AUGMENT_CASES_NEW")
+
+
+def test_d112_and_redesign_cases_draw_from_their_own_generator(monkeypatch):
+    """The head-dim-112, router and augment cases draw from the generator
+    seeded D112_REDESIGN_SEED, after every earlier case and before the split
+    sweep, so no earlier case's inputs move."""
+    calls = _phase_kernels_draws(monkeypatch)
+    names = {case[0] for table in D112_REDESIGN_TABLES for case in getattr(chip_smoke, table)}
+    assert {name for _, name, seed in calls if seed == chip_smoke.D112_REDESIGN_SEED} == names
+    assert chip_smoke.D112_REDESIGN_SEED not in (0, 14, chip_smoke.NEW_CASES_SEED,
+                                          chip_smoke.SWEEP_SEED)
+    seeds = [seed for _, _, seed in calls]
+    first = seeds.index(chip_smoke.D112_REDESIGN_SEED)
+    assert set(seeds[first:-1]) == {chip_smoke.D112_REDESIGN_SEED}
+    assert calls[-1][0] == "decode_split_sweep"
+    n_cases = sum(len(getattr(chip_smoke, table)) for table in D112_REDESIGN_TABLES)
+    assert len(names) == n_cases == seeds.count(chip_smoke.D112_REDESIGN_SEED)  # names unique
+
+
+def test_d112_and_redesign_cases_cover_the_new_routes():
+    """Flash at kimi-k2's prefill shape (B=1, S=4096, 64/8 heads x 112,
+    causal), a ragged S and a window, f32; its backward in bf16 and f32;
+    decode at kimi's serve shape and a long cache on the mma.sync route
+    (G = 8) and f32 on the CUDA-core route; the router at T = 1, 65, 4097 and
+    E = 64, 384; the augment at C = 4, unaligned rows, a row longer than one
+    staged piece and a generic C, all with flips."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import rows_per_block
+    from repro_torch.kernels.moe_router.kernel import TOKEN_BLOCK
+
+    flash = {name: (shape, kw) for name, *shape, kw in chip_smoke.FLASH_CASES_D112}
+    shape, kw = flash["kimi_prefill_S4096_D112"]
+    assert shape == [1, 4096, 4096, 64, 8, 112, "bfloat16"] and kw.get("causal", True)
+    assert all(shape[5] == 112 for shape, _ in flash.values())
+    assert any(shape[1] % 128 and shape[6] == "bfloat16" for shape, _ in flash.values())
+    assert any(kw.get("window") and shape[6] == "bfloat16" for shape, kw in flash.values())
+    assert any(shape[6] == "float32" for shape, _ in flash.values())
+    bwd = [shape for _, *shape, _ in chip_smoke.FLASH_BWD_CASES_D112]
+    assert {s[5] for s in bwd} == {112} and {s[6] for s in bwd} == {"bfloat16", "float32"}
+    decode = {name: shape for name, *shape, _ in chip_smoke.DECODE_CASES_D112}
+    assert decode["kimi_serve_B8_S256_D112"][:6] == [8, 256, 64, 8, 112, "bfloat16"]
+    assert decode["kimi_long_B8_S4096_D112"][:6] == [8, 4096, 64, 8, 112, "bfloat16"]
+    routes = {rows_per_block(getattr(torch, s[5]), s[2] // s[3]) for s in decode.values()}
+    assert routes == {16, 8}  # the mma.sync route and the CUDA-core route
+    router = {(T, E, k) for _, T, E, k in chip_smoke.ROUTER_CASES_NEW}
+    assert {T for T, _, _ in router} == {1, 65, 4097} and {E for _, E, _ in router} == {64, 384}
+    assert all(T % TOKEN_BLOCK for T, _, _ in router)
+    aug = [shape for _, *shape in chip_smoke.AUGMENT_CASES_NEW]
+    assert any(C == 4 for _, _, _, C, _, _ in aug)
+    assert any(W % 2 and ow % 2 and (ow * C) % 4 for _, _, W, C, _, ow in aug)
+    assert any(ow * C > 2048 for _, _, _, C, _, ow in aug)
+    assert any(C not in (1, 3, 4) for _, _, _, C, _, _ in aug)
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("fwd_sm90<128,128,0>", True), ("route_blocks<12>", True), ("add_prefix", True),
+    ("augment_rows<0>", True), ("fa_fwd_kernel<112,64,64>", True),
+    ("dkdv_kernel<112,64,32>", True), ("decode_kernel<112,16>", True),
+    ("fa_fwd_kernel<64,128,64>", False), ("dq_kernel<128,64,32>", False),
+    ("delta_kernel", False),
+])
+def test_no_spill_rule(kernel, want):
+    """Every Hopper redesign's kernel and every head-dim-112 instantiation
+    must not spill; the first version's f32 kernels at other D may."""
+    assert chip_smoke.no_spill(kernel) is want
+
+
+def test_kimi_cell_is_cut_to_fit_the_card():
+    """kimi-k2 runs at full width, cut to its first 2 layers (1 dense + 1
+    MoE of 384 experts top-8, heads 64/8 x 112): 17.2 B parameters in the
+    layers, 39.1 GB in bf16 with the embedding and the head; its f32 check
+    at the dense layer alone (the f32 MoE layer would be 67.6 GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import layer_pattern
+
+    (arch, replace, prefill_S, check, lengths), = [
+        m for m in chip_smoke.MODELS if m[0] == "kimi-k2-1t-a32b"]
+    cfg = get_config(arch).replace(**replace)
+    assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (7168, 64, 8, 112)
+    assert (cfg.num_experts, cfg.experts_per_token, cfg.param_dtype) == (384, 8, "bfloat16")
+    assert [f for _, f in layer_pattern(cfg)] == ["dense", "moe"]
+    total = cfg.param_counts()["total"]
+    emb = 2 * cfg.vocab_size * cfg.d_model
+    assert (total - emb) / 1e9 == pytest.approx(17.19, abs=0.01)
+    assert 2 * total / 1e9 == pytest.approx(39.08, abs=0.01)
+    cfg32 = cfg.replace(dtype="float32", **check)
+    assert cfg32.param_dtype == "float32" and cfg32.num_layers == 1
+    assert [f for _, f in layer_pattern(cfg32)] == ["dense"]
+    assert 4 * cfg32.param_counts()["total"] / 1e9 < 11
+    assert 4 * 384 * 3 * 7168 * 2048 / 1e9 == pytest.approx(67.6, abs=0.1)
+    assert prefill_S == 4096 and lengths == (32,)

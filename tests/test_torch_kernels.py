@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro.kernels.decode_attention.ops import decode_attention as jax_decode_attention
+from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decode_attention_ref
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_attention_ref
 from repro.kernels.moe_router.ops import moe_router as jax_moe_router
@@ -42,7 +43,8 @@ from repro_torch.kernels.decode_attention.ops import (MAX_SPLITS, TILE, rows_per
                                                       split_count, split_range)
 from repro_torch.kernels.decode_attention.ref import decode_attention_split_model
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-from repro_torch.kernels.moe_router import moe_router, moe_router_ref
+from repro_torch.kernels.moe_router import moe_router, moe_router_blocked_model, moe_router_ref
+from repro_torch.kernels.moe_router.kernel import TOKEN_BLOCK
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_model
 from repro_torch.models.layers import _route_top_k
@@ -159,6 +161,34 @@ class TestFlashAttentionPlain:
         got = flash_attention_ref(tq, tk, tv, causal=True)
         np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL, rtol=F32_TOL)
 
+    # kimi-k2's head dim: 112 = 7168 / 64, G = 8 (64 / 8 heads), scaled to
+    # 16 / 2 heads; S = 200 is ragged against the Pallas blocks of 64
+    @pytest.mark.parametrize("causal,window,S", [(True, 0, 200), (True, 50, 200),
+                                                 (False, 0, 200), (True, 0, 128)])
+    def test_head_dim_112_vs_pallas(self, causal, window, S):
+        rng = np.random.default_rng(22)
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _both(_randn(rng, s)) for s in ((1, S, 16, 112), (1, S, 2, 112), (1, S, 2, 112))
+        )
+        want = jax_flash_attention(jq, jk, jv, causal=causal, window=window, interpret=True,
+                                   block_q=64, block_k=64)
+        got = flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+        np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL, rtol=F32_TOL)
+        also = jax_flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+        np.testing.assert_allclose(_np(got), _np(also), atol=F32_TOL, rtol=F32_TOL)
+
+    def test_head_dim_112_bfloat16(self):
+        rng = np.random.default_rng(23)
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _both(_randn(rng, s), "bfloat16")
+            for s in ((1, 192, 16, 112), (1, 192, 2, 112), (1, 192, 2, 112))
+        )
+        want = jax_flash_attention(jq, jk, jv, causal=True, window=64, interpret=True,
+                                   block_q=64, block_k=64)
+        got = flash_attention_ref(tq, tk, tv, causal=True, window=64)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), _np(want), atol=BF16_TOL, rtol=BF16_TOL)
+
 
 DECODE_SHAPES = [
     (2, 512, 4, 2, 64, 4),
@@ -219,6 +249,25 @@ class TestDecodeAttentionPlain:
         jax_also = jax_flash_attention_ref(jq[:, None], jk, jv, causal=False)[:, 0]
         np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL, rtol=F32_TOL)
         np.testing.assert_allclose(_np(also), _np(jax_also), atol=F32_TOL, rtol=F32_TOL)
+        np.testing.assert_allclose(_np(got), _np(also), atol=F32_TOL, rtol=F32_TOL)
+
+    @pytest.mark.parametrize("window,ns", [(0, 2), (100, 4), (0, 1)])
+    def test_head_dim_112_vs_pallas(self, window, ns):
+        """kimi-k2's head dim at G = 8 (16 / 2 heads), ragged lengths."""
+        rng = np.random.default_rng(24)
+        B, S = 3, 300
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _both(_randn(rng, s)) for s in ((B, 16, 112), (B, S, 2, 112), (B, S, 2, 112))
+        )
+        lens = np.asarray([1, 177, 300], np.int32)
+        want = jax_decode_attention(jq, jk, jv, jnp.asarray(lens), window=window,
+                                    num_splits=ns, block_s=128, interpret=True)
+        got = decode_attention_ref(tq, tk, tv, torch.from_numpy(lens), window=window)
+        np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL, rtol=F32_TOL)
+        model = decode_attention_split_model(tq, tk, tv, torch.from_numpy(lens), window=window,
+                                             num_splits=ns)
+        np.testing.assert_allclose(_np(model), _np(want), atol=F32_TOL, rtol=F32_TOL)
+        also = jax_decode_attention_ref(jq, jk, jv, jnp.asarray(lens), window=window)
         np.testing.assert_allclose(_np(got), _np(also), atol=F32_TOL, rtol=F32_TOL)
 
     @pytest.mark.parametrize("S,units,sms", [(512, 16, 132), (300, 8, 132), (100, 1, 132),
@@ -607,6 +656,67 @@ class TestMoERouterPlain:
         tids, _, tslots = _route_top_k(torch.from_numpy(logits)[None], k)
         assert torch.equal(tids[0].int(), ids) and torch.equal(tslots[0], slots)
 
+    @pytest.mark.parametrize("T,E,k", [(1, 64, 6), (32, 64, 6), (33, 384, 8), (65, 384, 8),
+                                       (100, 16, 4)])
+    def test_blocked_model_vs_pallas(self, T, E, k):
+        """The kernel's decomposition (token blocks of TOKEN_BLOCK, slots
+        within a block plus the earlier blocks' counts) against the Pallas
+        kernel in interpret mode and the plain version."""
+        logits = _randn(np.random.default_rng(25), (T, E))
+        got = moe_router_blocked_model(torch.from_numpy(logits), k, TOKEN_BLOCK)
+        _router_check(got, jax_moe_router(jnp.asarray(logits), k=k, capacity=T, block_t=64,
+                                          interpret=True))
+        for a, b in zip(got, moe_router_ref(torch.from_numpy(logits), k)):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("block_t", [TOKEN_BLOCK, 7, 64])
+    def test_blocked_model_keeps_exact_ties(self, block_t):
+        """The exact-ties input of test_exact_ties_go_to_the_lowest_id."""
+        logits = np.random.default_rng(16).integers(0, 3, (96, 16)).astype(np.float32)
+        logits[:8] = 1.0
+        got = moe_router_blocked_model(torch.from_numpy(logits), 4, block_t)
+        assert got[0][:8].tolist() == [[0, 1, 2, 3]] * 8
+        _router_check(got, jax_moe_router(jnp.asarray(logits), k=4, capacity=96, block_t=16,
+                                          interpret=True))
+        for a, b in zip(got, moe_router_ref(torch.from_numpy(logits), 4)):
+            assert torch.equal(a, b)
+
+    def test_token_block_follows_the_kernel_source(self):
+        """The wrapper sizes the block-count scratch with the kernel's token
+        block: 32 tokens, one a warp of 32."""
+        from repro_torch.kernels import _build
+
+        src = (_build.CSRC / "moe_router.cu").read_text()
+        assert "constexpr int kWarps = 32;" in src
+        assert "constexpr int kBlockT = kWarps;" in src
+        assert TOKEN_BLOCK == 32
+
+    if given is not None:
+        @settings(max_examples=200, deadline=None)
+        @given(st.integers(1, 100), st.integers(1, 384), st.integers(1, 8),
+               st.integers(0, 2 ** 31 - 1))
+        def test_blocked_model_equals_the_plain_version(self, T, E, k, seed):
+            """For any T (one block up to several, ragged), E <= 384 and
+            k <= min(E, 8): ids, gates and slots of the decomposition equal
+            the plain version's."""
+            k = min(k, E)
+            logits = torch.from_numpy(_randn(np.random.default_rng(seed), (T, E)))
+            for a, b in zip(moe_router_blocked_model(logits, k, TOKEN_BLOCK),
+                            moe_router_ref(logits, k)):
+                assert torch.equal(a, b)
+
+        @settings(max_examples=12, deadline=None)
+        @given(st.integers(1, 70), st.sampled_from([8, 16, 64, 384]), st.integers(1, 8),
+               st.integers(0, 2 ** 31 - 1))
+        def test_blocked_model_vs_pallas_any_shape(self, T, E, k, seed):
+            """The decomposition against the Pallas kernel in interpret mode
+            over T and k at moonshot's and kimi-k2's expert counts."""
+            k = min(k, E)
+            logits = _randn(np.random.default_rng(seed), (T, E))
+            got = moe_router_blocked_model(torch.from_numpy(logits), k, TOKEN_BLOCK)
+            _router_check(got, jax_moe_router(jnp.asarray(logits), k=k, capacity=T,
+                                              block_t=64, interpret=True))
+
 
 class TestWrapperRouting:
     def test_flash_cpu_takes_plain_version(self):
@@ -644,6 +754,27 @@ class TestWrapperRouting:
         for got, want in zip(moe_router(logits, 4), moe_router_ref(logits, 4)):
             assert torch.equal(got, want)
         assert launch_counts() == NO_LAUNCHES
+
+    @pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention"])
+    @pytest.mark.parametrize("D,ok", [(112, True), (96, False)])
+    def test_cuda_route_checks_the_head_dim(self, kernel, D, ok):
+        """The CUDA route's checks take kimi-k2's head dim 112 and still
+        refuse one that no kernel is built for (96)."""
+        if kernel == "flash_attention":
+            from repro_torch.kernels.flash_attention.ops import _check
+
+            args = (torch.zeros((1, 64, 16, D)), torch.zeros((1, 64, 2, D)),
+                    torch.zeros((1, 64, 2, D)))
+        else:
+            from repro_torch.kernels.decode_attention.ops import _check
+
+            args = (torch.zeros((2, 16, D)), torch.zeros((2, 64, 2, D)),
+                    torch.zeros((2, 64, 2, D)), torch.zeros((2,), dtype=torch.int32))
+        if ok:
+            _check(*args)
+        else:
+            with pytest.raises(ValueError, match="head dim 96"):
+                _check(*args)
 
     def test_other_devices_raise(self):
         """No kernel and no plain fallback for a device that is neither CPU

@@ -23,6 +23,8 @@ The mixer is one projection-bearing layer (2e-5) whose scan sums a sequence
 in another order on the kernel route (the token recurrence against the
 chunked einsums), so it is held at 1e-4 there.
 """
+import inspect
+
 import pytest
 
 pytest.importorskip("torch")
@@ -225,6 +227,47 @@ def test_moe_ffn(arch, impl, dropless, cf, groups):
     got = TL.moe_ffn(tp, _t(x), tcfg, dropless=dropless)
     want = JL.moe_ffn(p, jnp.asarray(x), jcfg, dropless=dropless)
     _close(got, want, LAYER_TOL)
+
+
+def test_dispatch_slots_are_unique_and_drops_take_the_spare_slot():
+    """With capacity drops (moonshot at capacity factor 0.5): every kept
+    (group, expert, slot) triple of moe_ffn's dispatch is unique and below
+    C, the kept slots are the router's, and every dropped choice lands in
+    the spare slot C, which the dispatch buffer has in addition to C."""
+    _, tcfg = _cfgs("moonshot-v1-16b-a3b", attn_impl="pallas", capacity_factor=0.5)
+    T, E, k = 64, tcfg.num_experts, tcfg.experts_per_token
+    logits = torch.from_numpy(np.random.default_rng(26).standard_normal((T, E)).astype(np.float32))
+    ids, _, pos = TL.moe_router(logits, k)
+    C = min(T, int(np.ceil(T * k / E * 0.5)))
+    slot = TL.dispatch_slots(pos[None], C)[0]
+    keep = pos < C
+    assert 0 < int((~keep).sum()) < T * k  # the case keeps some choices and drops others
+    assert torch.equal(slot[keep], pos[keep].long()) and bool((slot[keep] < C).all())
+    assert bool((slot[~keep] == C).all())
+    kept = list(zip(ids[keep].tolist(), slot[keep].tolist()))
+    assert len(set(kept)) == len(kept)
+    src = inspect.getsource(TL.moe_ffn)
+    assert "accumulate" not in src and "dispatch_slots(pos, C)" in src
+    assert "(G, E, C + 1, d)" in src
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_kimi_head_dim_112_matches_jax(impl):
+    """kimi-k2 at ``scaled_down()`` with its head dim 112 restored (64/8
+    heads scaled to 4/2): forward logits and 8 decode steps against JAX's
+    LanguageModel, weights carried across."""
+    jm, jp, tm, tp = _models("kimi-k2-1t-a32b", attn_impl=impl, head_dim=112)
+    assert tm.cfg.head_dim == 112 and tm.cfg.q_dim == 448
+    toks = np.random.default_rng(27).integers(1, jm.cfg.vocab_size, (2, 32)).astype(np.int32)
+    want = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    got = tm.forward(tp, {"tokens": _t(toks)})
+    _close(got, want, LOGITS_TOL)
+    step = jax.jit(jm.decode_step)
+    jc, tc = jm.init_cache(2, 8), tm.init_cache(2, 8, device="cpu")
+    for t in range(8):
+        want, jc = step(jp, jc, jnp.asarray(toks[:, t]))
+        got, tc = tm.decode_step(tp, tc, _t(toks[:, t]))
+        _close(got, want, LOGITS_TOL)
 
 
 # ---------------------------------------------------------------------------
