@@ -9,7 +9,8 @@ every phase passed):
 1. env      - the card's name and power limit (nvidia-smi), torch/CUDA
               versions, TF32 off for f32 products, and the nvcc build of every
               kernel in ``src/repro_torch/kernels/csrc`` (build seconds); a
-              spill in a Hopper flash, decode or SSD kernel fails the run.
+              spill in a Hopper flash, decode or SSD kernel, or in a backward
+              of the SSD scan or the router, fails the run.
 2. kernels  - each hand-written kernel against its plain PyTorch version on
               the card, at the main path's shapes and the edge cases of the
               JAX package's kernel tests; one JSON line per case with the
@@ -49,6 +50,14 @@ every phase passed):
               f32), the router at T = 1, 65, 4097 and E = 64, 384, and the
               augment at C = 4, unaligned rows, a row longer than one staged
               piece and a generic C; every router case must be bit-equal
+              across two runs.  Then, on a generator of their own
+              (``BWD_SEED``), the backward kernels: ``ssd_scan_bwd``'s dx,
+              ddt, da, dB, dC and dD against ``ssd_scan_bwd_ref`` in f64 on
+              the card (f32 within allclose(rtol=5e-4, atol=5e-4 x the
+              reference's RMS), bf16 by the row rule at 3e-2) at mamba2's
+              train shape, bf16, G < H, a ragged L and a non-zero dh_final,
+              and ``moe_router_bwd`` within 1e-6 of its plain version at
+              moonshot's and kimi's routing, T = 8 and ties; both bit-equal
               across two runs.
               Last, decode's device time at 1-128 splits beside the card
               plan's pick (``SPLIT_SWEEP``), from which the plan's constants
@@ -70,21 +79,25 @@ every phase passed):
               recipe (256 images 256x256x3 cropped to 224x224, random
               corners and flips) on 8 batches; no model path calls it in
               either package, so this op phase is its main path.
-5. train    - starcoder2-3b at full width (f32 parameters and AdamW state,
-              bf16 compute, ``remat="block"``), fed by a
-              ``repro_torch.feed.DeviceFeeder`` over packed zipf token
-              batches (B=1, S=8192): 6 steps with the loss, seconds and
-              tokens per step, peak memory, the feed's idle and stall
-              numbers, flash forward/backward launches per step (30 + 30
-              recomputed + 30 backward; fewer fails) and a profiled step;
-              then the same model at 2 layers in f32 (B=1, S=256): one
-              train step through the kernels on the card against the same
-              step on CPU copies through the plain route (loss, gradient
-              norm, updated parameters, each against a stated tolerance).
+5. train    - ``TRAIN_RUNS``, each fed by a ``repro_torch.feed.DeviceFeeder``
+              over packed zipf token batches (B=1), f32 parameters and
+              AdamW state, bf16 compute, ``remat="block"``: starcoder2-3b at
+              full width (S=8192, 6 steps), mamba2-2.7b at full width (64
+              layers, S=8192, 4 steps) and moonshot-v1-16b-a3b at full width
+              cut to 4 of its 48 layers (S=4096, 4 steps).  Each logs the
+              loss, seconds and tokens per step, peak memory, the feed's
+              idle and stall numbers and the launches per step of every
+              kernel with a backward (a forward per layer, one more per
+              layer of a repeated group under remat, a backward per layer;
+              fewer fails), then a profiled step.  Then each of the three
+              at 2 layers in f32 (B=1, S=256): one train step through the
+              kernels on the card against the same step on CPU copies
+              through the plain route (loss, gradient norm, updated
+              parameters, each against a stated tolerance).
 6. a ``{"kernels": [...]}`` line with each kernel's launches on the main
-   paths ((a) and (b) of every model, the augment phase, the 6 train steps;
-   the checks are reported on their own lines) and its times, then the card
-   line, then ``{"ok": true, ...}``.
+   paths ((a) and (b) of every model, the augment phase, the steps of the
+   train runs; the checks are reported on their own lines) and its times,
+   then the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -190,10 +203,38 @@ AUGMENT_CASES_NEW = (
     ("wide_row_B2_40x1500x3_33x1111", 2, 40, 1500, 3, 33, 1111),
     ("C7_B4_33x35x7_20x21", 4, 33, 35, 7, 20, 21),
 )
-# Kernels of the Hopper redesigns: ptxas must report no spill for any of
-# them, nor for any instantiation at head dim 112 (``no_spill``).
+# Cases of the backward kernels.  They draw from a generator of their own
+# (BWD_SEED), after every earlier case and before the split sweep.  SSD
+# (name, B, L, H, P, N, dtype, options): mamba2-2.7b's mixer at the train
+# shape in the model's precision (f32 x, B, C) and in bf16, both in the
+# mixer's regime; two groups of four heads over a ragged L (300 = 4 x 64 +
+# 44) with a non-zero dh_final; a ragged L at the mixer's shape; P = 32, N =
+# 16 in bf16 with dh_final.  Router (name, T, E, k, options): moonshot's
+# train shape, kimi's routing, a serve batch, ties.
+BWD_SEED = 18
+SSD_BWD_CASES = (
+    ("mamba2_train_S8192", 1, 8192, 80, 64, 128, "float32", dict(groups=1, regime="mamba2")),
+    ("mamba2_train_S8192_bf16", 1, 8192, 80, 64, 128, "bfloat16",
+     dict(groups=1, regime="mamba2")),
+    ("grouped_B2_G2_ragged_L300_dh", 2, 300, 8, 64, 64, "float32",
+     dict(groups=2, dh_final=True)),
+    ("ragged_L8000_mamba2_regime", 1, 8000, 80, 64, 128, "float32",
+     dict(groups=1, regime="mamba2")),
+    ("P32_N16_L100_dh_bf16", 1, 100, 4, 32, 16, "bfloat16", dict(dh_final=True)),
+)
+ROUTER_BWD_CASES = (
+    ("moonshot_train_T4096", 4096, 64, 6, dict()),
+    ("kimi_T4096", 4096, 384, 8, dict()),
+    ("serve_T8", 8, 64, 6, dict()),
+    ("ties_T1000", 1000, 64, 6, dict(ties=True)),
+)
+# Kernels of the Hopper redesigns and of the backwards of the SSD scan and
+# the router: ptxas must report no spill for any of them, nor for any
+# instantiation at head dim 112 (``no_spill``).
 NO_SPILL_KERNELS = ("decode_kernel", "decode_merge_kernel", "ssd_chunk_state", "ssd_state_pass",
-                    "ssd_chunk_out", "route_blocks", "add_prefix", "augment_rows")
+                    "ssd_chunk_out", "route_blocks", "add_prefix", "augment_rows",
+                    "ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk",
+                    "ssd_bwd_group_sum", "ssd_bwd_head_sum", "route_bwd")
 # bf16 only: largest error in a row over that row's RMS in the f32 plain
 # output.  A bf16 step is 2^-8 of a value, so a right kernel stays near
 # 2^-8 * (row max / row RMS), about 0.015; one key too many or too few in a
@@ -207,9 +248,15 @@ GATE_TOL = 1e-6  # tests/test_kernels.py::TestMoERouter
 AUG_TOL = 1e-5  # tests/test_kernels.py::TestFusedAugment (atol and rtol)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-TRAIN_ARCH = "starcoder2-3b"
-TRAIN_S = 8192
-TRAIN_STEPS = 6
+# The train runs of phase 5: (arch, config changes, S, steps).  moonshot is
+# cut to 4 of its 48 layers (1 dense + 3 MoE): 2.41 B parameters, 38.5 GB of
+# f32 parameters, gradients and AdamW state; the whole model's 27.5 B would
+# need 440 GB.
+TRAIN_RUNS = (
+    ("starcoder2-3b", {}, 8192, 6),
+    ("mamba2-2.7b", {}, 8192, 4),
+    ("moonshot-v1-16b-a3b", {"num_layers": 4}, 4096, 4),
+)
 # The f32 train-step check (2 layers, card kernels against the CPU plain
 # route): the loss and the gradient norm within a relative 1e-5 and 1e-4
 # (f32 sums in another order through two layers and a 49152-wide head), the
@@ -733,18 +780,26 @@ def ssd_case(name, B, L, H, P, N, dtype, chunks=(128,), groups=None, regime="jax
     return rec
 
 
-def router_case(name, T, E, k, ties=False, iters=20, gen=None):
-    """moe_router against its plain version: ids and slots bit-exact, gates
-    within 1e-6.  ``ties``: integer logits, so many experts tie exactly."""
+def router_logits(T, E, ties, gen):
+    """(T, E) f32 logits on the card.  ``ties``: integer logits, so many
+    experts tie exactly."""
     import torch
-
-    from repro_torch.kernels.moe_router import moe_router, moe_router_ref
 
     if ties:
         logits = torch.randint(0, 3, (T, E), generator=gen, device="cuda").float()
         logits[: T // 8] = 1.0  # rows where every expert ties
-    else:
-        logits = torch.randn((T, E), generator=gen, device="cuda")
+        return logits
+    return torch.randn((T, E), generator=gen, device="cuda")
+
+
+def router_case(name, T, E, k, ties=False, iters=20, gen=None):
+    """moe_router against its plain version: ids and slots bit-exact, gates
+    within 1e-6."""
+    import torch
+
+    from repro_torch.kernels.moe_router import moe_router, moe_router_ref
+
+    logits = router_logits(T, E, ties, gen)
     got = moe_router(logits, k)
     want = moe_router_ref(logits, k)
     again = moe_router(logits, k)
@@ -767,6 +822,156 @@ def router_case(name, T, E, k, ties=False, iters=20, gen=None):
                ok=agree["ok"] and bit_equal)
     log(rec)
     return rec
+
+
+def ssd_bwd_product_flops(B, L, H, P, N, chunk=64, groups=None) -> dict:
+    """FLOPs of each product of an ssd_scan backward, the least the function
+    needs: per chunk of q tokens the q(q+1)/2 causal entries of C.B^T (2N
+    each) once per group, and per head those of G = dy.x^T (2P), of W dy for
+    dx (2P), and of (G o L) with C and with B for dB and dC (2N each); per
+    token and head the state terms R^T B, R x, h dy, the backward chunk state
+    and the recomputed forward chunk state (2NP each).  ``groups`` None: one
+    group a head."""
+    G = groups or H
+    Q = min(chunk, L)
+    qs = [min(Q, L - c) for c in range(0, L, Q)]
+    tri = sum(q * (q + 1) for q in qs)
+    return dict(cb=float(B * G * tri * N), g=float(B * H * tri * P), wdy=float(B * H * tri * P),
+                dbdc=float(2 * B * H * tri * N), state=float(5 * B * H * L * 2 * N * P))
+
+
+def ssd_bwd_flops(B, L, H, P, N, chunk=64, groups=None) -> float:
+    return sum(ssd_bwd_product_flops(B, L, H, P, N, chunk, groups).values())
+
+
+def ssd_bwd_ratio(got, want) -> float:
+    """Largest |got - want| over allclose's allowance with rtol = 5e-4 and
+    atol = 5e-4 x the RMS of ``want`` (the forward's SSD_TOL); 1 or less
+    passes."""
+    rms = float(want.pow(2).mean().sqrt())
+    return float(((got.double() - want).abs() / (SSD_TOL * rms + SSD_TOL * want.abs())).max())
+
+
+SSD_BWD_NAMES = ("dx", "ddt", "da", "dB", "dC", "dD")
+
+
+def ssd_bwd_verdict(got, again, want, dtype) -> dict:
+    """The SSD backward's criteria on its outputs ``got``, a second run's
+    ``again`` and the f64 reference ``want`` (each in ``SSD_BWD_NAMES``
+    order): f32 within ``ssd_bwd_ratio``, bf16 by the row rule at 3e-2
+    (``grad_row_rel_err``), finite, and bit-equal across the two runs."""
+    import torch
+
+    errs = {n: float((g.double() - w).abs().max()) for n, g, w in zip(SSD_BWD_NAMES, got, want)}
+    if dtype == "float32":
+        crit = {n: ssd_bwd_ratio(g, w) for n, g, w in zip(SSD_BWD_NAMES, got, want)}
+        lim = 1.0
+    else:
+        crit = {n: grad_row_rel_err(g, w) for n, g, w in zip(SSD_BWD_NAMES, got, want)}
+        lim = REL_TOL
+    bit_equal = all(torch.equal(p, q) for p, q in zip(got, again))
+    ok = (bit_equal and all(v <= lim for v in crit.values())
+          and all(bool(torch.isfinite(g).all()) for g in got))
+    return dict(errs=errs, crit=crit, lim=lim, bit_equal=bit_equal, ok=ok)
+
+
+def router_bwd_verdict(got, again, want) -> dict:
+    """The router backward's criteria: within GATE_TOL of its plain
+    version, finite, and bit-equal across two runs."""
+    import torch
+
+    err = float((got - want).abs().max())
+    bit_equal = torch.equal(got, again)
+    return dict(err=err, bit_equal=bit_equal,
+                ok=err <= GATE_TOL and bit_equal and bool(torch.isfinite(got).all()))
+
+
+def ssd_bwd_case(name, B, L, H, P, N, dtype, groups=None, regime="jax", dh_final=False,
+                 iters=3, gen=None):
+    """The SSD backward kernel against ``ssd_scan_bwd_ref`` in f64 on the
+    card, on the same (rounded) inputs: each of dx, ddt, da, dB, dC, dD
+    within ``ssd_bwd_ratio`` (f32) or the row rule at 3e-2 (bf16,
+    ``grad_row_rel_err``); two runs bit-equal.  The plain version's time is
+    ``ssd_scan_bwd_ref`` in f32."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan.kernel import BWD_CHUNK
+
+    G = groups or H
+    x, dt, a, Bm, Cm, D = ssd_inputs(B, L, H, P, N, G, dtype, regime, gen)
+    dy = torch.randn((B, L, H, P), generator=gen, device="cuda").to(x.dtype)
+    dh = torch.randn((B, H, N, P), generator=gen, device="cuda") if dh_final else None
+    got = ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh)
+    again = ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh)
+    want = ssd_scan_bwd_ref(*(t.double() for t in (x, dt, a, Bm, Cm, D, dy)),
+                            None if dh is None else dh.double())
+    v = ssd_bwd_verdict(got, again, want, dtype)
+    del got, again, want
+    torch.cuda.empty_cache()
+    kernel_ms = time_ms(lambda: ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh), iters, 1)
+    kernel_device_ms = device_ms(lambda: ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh), iters)
+    plain_ms = time_ms(lambda: ssd_scan_bwd_ref(x, dt, a, Bm, Cm, D, dy, dh), 1, 1)
+    flops = ssd_bwd_flops(B, L, H, P, N, BWD_CHUNK, G)
+    # x, dy, B, C read and dx, dB, dC written; dt read and ddt written; a, D,
+    # da, dD; dh_final
+    nbytes = (3 * x.numel() + 4 * Bm.numel()) * x.element_size() + 4 * (
+        2 * dt.numel() + 4 * H + (0 if dh is None else dh.numel()))
+    bound_ms, bound_by = bound(flops, nbytes, "float32")
+    rec = dict(kernel="ssd_scan_bwd", case=name,
+               shape=dict(B=B, L=L, H=H, P=P, N=N, G=G, dh_final=dh_final), regime=regime,
+               dtype=dtype, max_abs_err=max(v["errs"].values()), errs=v["errs"],
+               criterion="allclose rtol=atol/rms=5e-4" if dtype == "float32" else "row rule",
+               err_over_allowed=v["crit"], limit=v["lim"],
+               bit_equal_across_runs=v["bit_equal"], kernel_ms=kernel_ms,
+               device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+               ok=v["ok"])
+    log(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def router_bwd_case(name, T, E, k, ties=False, iters=20, gen=None):
+    """The router's backward against its plain version on the forward
+    kernel's ids and gates and a random gates' gradient: within GATE_TOL,
+    and bit-equal across two runs."""
+    import torch
+
+    from repro_torch.kernels.moe_router import moe_router, moe_router_bwd, moe_router_bwd_ref
+
+    logits = router_logits(T, E, ties, gen)
+    with torch.no_grad():
+        ids, gates, _ = moe_router(logits, k)
+    dgates = torch.randn((T, k), generator=gen, device="cuda")
+    got = moe_router_bwd(ids, gates, dgates, E)
+    again = moe_router_bwd(ids, gates, dgates, E)
+    v = router_bwd_verdict(got, again, moe_router_bwd_ref(ids, gates, dgates, E))
+    kernel_ms = time_ms(lambda: moe_router_bwd(ids, gates, dgates, E), iters)
+    kernel_device_ms = device_ms(lambda: moe_router_bwd(ids, gates, dgates, E), iters)
+    plain_ms = time_ms(lambda: moe_router_bwd_ref(ids, gates, dgates, E), max(2, iters // 5), 1)
+    flops = float(T * k * 4)
+    nbytes = 4.0 * (T * E + 3 * T * k)
+    bound_ms, bound_by = bound(flops, nbytes, "float32")
+    rec = dict(kernel="moe_router_bwd", case=name, shape=dict(T=T, E=E, k=k, ties=ties),
+               dtype="float32", max_abs_err=v["err"], tol=GATE_TOL,
+               bit_equal_across_runs=v["bit_equal"], kernel_ms=kernel_ms,
+               device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by, ok=v["ok"])
+    log(rec)
+    return rec
+
+
+def backward_cases():
+    """The cases of the SSD and router backward kernels, on their own
+    generator (``BWD_SEED``)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(BWD_SEED)
+    recs = [ssd_bwd_case(name, *shape, gen=g, **kw) for name, *shape, kw in SSD_BWD_CASES]
+    recs += [router_bwd_case(name, *shape, gen=g, **kw)
+             for name, *shape, kw in ROUTER_BWD_CASES]
+    return recs
 
 
 def augment_inputs(B, H, W, C, oh, ow, corners, gen, alternate_flips=False):
@@ -1079,6 +1284,7 @@ def phase_kernels(main_S: int):
     ]
     recs += flash_bwd_cases(main_S, g, g_edges)
     recs += d112_and_redesign_cases()
+    recs += backward_cases()
     decode_split_sweep()
     bad = [r["case"] for r in recs if not r["ok"]]
     if bad:
@@ -1404,25 +1610,36 @@ class _ZipfSession:
         self.closed = True
 
 
+# the kernels with a backward: forward, its backward, and the layers that run it
+BACKWARD_OF = (("flash_attention", "flash_attention_bwd", lambda m, f: m == "attn"),
+               ("ssd_scan", "ssd_scan_bwd", lambda m, f: m == "ssm"),
+               ("moe_router", "moe_router_bwd", lambda m, f: f == "moe"))
+
+
 def train_launches_per_step(cfg):
-    """Flash launches of one train step under ``remat="block"``: a forward
-    per attention layer, one more for each layer of a repeated group (the
-    recomputation), and a backward per attention layer."""
+    """Launches of one train step of each kernel with a backward under
+    ``remat="block"``: a forward per layer that runs it (attention, mamba2,
+    MoE), one more for each such layer of a repeated group (the
+    recomputation), and a backward per layer."""
     from repro_torch.models.lm import compute_groups
 
-    fwd = recompute = 0
-    for g in compute_groups(cfg):
-        n = g.repeats * sum(m == "attn" for m, _ in g.subpattern)
-        fwd += n
-        if cfg.remat == "block" and g.repeats > 1:
-            recompute += n
-    return {"flash_attention": fwd + recompute, "flash_attention_bwd": fwd}
+    out = {}
+    for fwd_name, bwd_name, runs in BACKWARD_OF:
+        fwd = recompute = 0
+        for g in compute_groups(cfg):
+            n = g.repeats * sum(runs(m, f) for m, f in g.subpattern)
+            fwd += n
+            if cfg.remat == "block" and g.repeats > 1:
+                recompute += n
+        if fwd:
+            out[fwd_name], out[bwd_name] = fwd + recompute, fwd
+    return out
 
 
-def phase_train():
-    """starcoder2-3b at full width, fed by a DeviceFeeder: TRAIN_STEPS
-    steps, then a profiled one.  Returns the launches of the TRAIN_STEPS
-    steps (the main path)."""
+def phase_train(arch, replace, S, steps):
+    """One model of ``TRAIN_RUNS``, fed by a DeviceFeeder: ``steps`` steps,
+    then a profiled one.  Returns the launches of the ``steps`` steps (the
+    main path)."""
     import gc
     import math
 
@@ -1433,56 +1650,57 @@ def phase_train():
     from repro_torch.models import build_model
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch).replace(**replace)
     model = build_model(cfg)
     # A warmup as in real runs.  AdamW's first steps move every entry by
-    # about lr, along a gradient spread over 3.2 B random parameters, so the
-    # loss is steep along them: a first step of lr 2.5e-4 throws it from
-    # 11.3 to 20, and steps of 3.3e-6 already overshoot.  lr rises to 2e-6
-    # over the 6 steps.
-    opt = AdamWConfig(lr=2e-6, warmup_steps=TRAIN_STEPS)
+    # about lr, along a gradient spread over billions of random parameters,
+    # so the loss is steep along them: on starcoder2-3b a first step of lr
+    # 2.5e-4 throws it from 11.3 to 20, and steps of 3.3e-6 already
+    # overshoot.  lr rises to 2e-6 over the run's steps.
+    opt = AdamWConfig(lr=2e-6, warmup_steps=steps)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt,
                              device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(state["params"]))
-    log(f"train {TRAIN_ARCH}: {cfg.num_layers} layers, params {cfg.param_dtype}, compute "
-        f"{cfg.dtype}, remat {cfg.remat}, {n_params / 1e9:.3f} B params, AdamW state "
-        f"{opt.state_dtype}; init {time.perf_counter() - t0:.1f} s, "
+    log(f"train {arch}: {cfg.num_layers} layers {[g.subpattern for g in model.groups]}, params "
+        f"{cfg.param_dtype}, compute {cfg.dtype}, remat {cfg.remat}, {n_params / 1e9:.3f} B "
+        f"params, AdamW state {opt.state_dtype}; init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     step = make_train_step(model, opt)
     per_step = train_launches_per_step(cfg)
-    src = ZipfTokens(cfg.vocab_size, 1, TRAIN_S, TRAIN_STEPS + 1, seed=0)
+    src = ZipfTokens(cfg.vocab_size, 1, S, steps + 1, seed=0)
     losses, secs = [], []
     with DeviceFeeder(src, device="cuda", depth=2) as feeder:
-        def steps():
-            for _ in range(TRAIN_STEPS):
+        def run_steps():
+            for _ in range(steps):
                 t = time.perf_counter()
                 batch = feeder.next()
                 _, m = step(state, batch)
                 losses.append(float(m["loss"]))  # host sync: the step is done
                 secs.append(time.perf_counter() - t)
-                log(dict(phase="train/step", step=len(losses), loss=losses[-1],
+                log(dict(phase="train/step", arch=arch, step=len(losses), loss=losses[-1],
                          total_loss=float(m["total_loss"]), grad_norm=float(m["grad_norm"]),
                          lr=float(m["lr"]), seconds=secs[-1]))
 
-        _, _, counts, peak = counted(f"train {TRAIN_ARCH} {TRAIN_STEPS} steps", steps)
+        _, _, counts, peak = counted(f"train {arch} {steps} steps", run_steps)
         feed = feeder.metrics.summary()
-        profile_device(f"{TRAIN_ARCH}/train_step", lambda: step(state, feeder.next()))
+        profile_device(f"{arch}/train_step", lambda: step(state, feeder.next()))
     steady = secs[1:] if len(secs) > 1 else secs
     sps = sum(steady) / len(steady)
-    log(dict(phase="train", arch=TRAIN_ARCH, B=1, S=TRAIN_S, steps=TRAIN_STEPS, losses=losses,
-             seconds_per_step=secs, steady_seconds_per_step=sps, tokens_per_s=TRAIN_S / sps,
-             max_memory_allocated_gb=peak, feed_idle_s_per_step=feed["idle_s_per_step"],
+    log(dict(phase="train", arch=arch, layers=cfg.num_layers, B=1, S=S, steps=steps,
+             losses=losses, seconds_per_step=secs, steady_seconds_per_step=sps,
+             tokens_per_s=S / sps, max_memory_allocated_gb=peak,
+             feed_idle_s_per_step=feed["idle_s_per_step"],
              feed_stall_fraction=feed["stall_frac"], feed_breakdown=feed["breakdown"],
              feed_transfer_s=feed["transfer_s"], feed_bytes=feed["bytes_to_device"],
              launches=counts, launches_per_step_want=per_step))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise SystemExit(f"train: loss not finite and falling: {losses}")
+        raise SystemExit(f"train {arch}: loss not finite and falling: {losses}")
     if peak > 80.0:
-        raise SystemExit(f"train: peak memory {peak:.1f} GB over 80 GB")
-    require_launches("train", counts, per_step, TRAIN_STEPS)
+        raise SystemExit(f"train {arch}: peak memory {peak:.1f} GB over 80 GB")
+    require_launches(f"train {arch}", counts, per_step, steps)
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -1494,11 +1712,13 @@ def _max_leaf_err(a, b) -> float:
                for x, y in zip(_leaves(a), _leaves(b)))
 
 
-def phase_train_check():
-    """One f32 train step of starcoder2-3b at 2 layers (B=1, S=256) through
-    the kernels on the card against the same step through the plain route
-    (``_attn_chunked``, autograd) on CPU copies of the same parameters and
-    batch."""
+def phase_train_check(arch):
+    """One f32 train step of ``arch`` at 2 layers (B=1, S=256) through the
+    kernels on the card against the same step through the plain route
+    (``_attn_chunked``, the chunked SSD einsums, ``top_k`` plus cumsum, and
+    autograd) on CPU copies of the same parameters and batch."""
+    import gc
+
     import torch
 
     from repro_torch.bridge import map_with_paths
@@ -1506,7 +1726,7 @@ def phase_train_check():
     from repro_torch.models import build_model
     from repro_torch.train import AdamWConfig, init_state, make_train_step
 
-    cfg = get_config(TRAIN_ARCH).replace(num_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(num_layers=2, dtype="float32")
     model = build_model(cfg)
     opt = AdamWConfig(lr=CHECK_LR, eps=CHECK_EPS, warmup_steps=1)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -1516,7 +1736,7 @@ def phase_train_check():
     batch = next(iter(ZipfTokens(cfg.vocab_size, 1, 256, 1, seed=1).session()))
     batch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
     (_, mg), _, counts, peak = counted(
-        "train_check_f32", lambda: make_train_step(model, opt)(
+        f"train_check_f32 {arch}", lambda: make_train_step(model, opt)(
             gpu, {k: v.cuda() for k, v in batch.items()}))
     _, mc = make_train_step(model, opt)(cpu, batch)
     per_step = train_launches_per_step(cfg)
@@ -1525,13 +1745,17 @@ def phase_train_check():
     p_err = _max_leaf_err(gpu["params"], cpu["params"])
     ok = (loss_err <= CHECK_TOL["loss"] and gn_err <= CHECK_TOL["grad_norm"]
           and p_err <= CHECK_TOL["params"])
-    log(dict(phase="train_check_f32", layers=2, B=1, S=256, lr=CHECK_LR, eps=CHECK_EPS,
-             loss_card=float(mg["total_loss"]), loss_cpu=float(mc["total_loss"]),
+    log(dict(phase="train_check_f32", arch=arch, layers=2, B=1, S=256, lr=CHECK_LR,
+             eps=CHECK_EPS, loss_card=float(mg["total_loss"]), loss_cpu=float(mc["total_loss"]),
              loss_rel_err=loss_err, grad_norm_rel_err=gn_err, params_max_abs_err=p_err,
              tol=CHECK_TOL, ok=ok, launches=counts, max_memory_allocated_gb=peak))
     if not ok:
-        raise SystemExit("train_check_f32: the card's train step disagrees with the plain route")
-    require_launches("train_check_f32", counts, per_step, 1)
+        raise SystemExit(f"train_check_f32 {arch}: the card's train step disagrees with the "
+                         "plain route")
+    require_launches(f"train_check_f32 {arch}", counts, per_step, 1)
+    del gpu, cpu, params, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -1568,6 +1792,16 @@ KERNEL_META = {
         replaces="src/repro/models/layers.py:89",
         note="the port's own kernel: no TPU kernel computes it; JAX trains through autograd "
              "of _attn_chunked (XLA)"),
+    "ssd_scan_bwd": dict(
+        source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/models/layers.py:362",
+        note="the port's own kernel: no TPU kernel computes it; JAX trains through autograd "
+             "of the jnp mamba2_mixer (XLA)"),
+    "moe_router_bwd": dict(
+        source="src/repro_torch/kernels/csrc/moe_router.cu",
+        replaces="src/repro/models/layers.py:267",
+        note="the port's own kernel (route_bwd): no TPU kernel computes it; JAX trains "
+             "through autograd of the jnp moe_ffn (XLA)"),
 }
 # the parity case at the main path's shape that each kernel's line reports.
 # ssd_scan's is f32: mamba2-2.7b's mixer runs its conv with the f32 params
@@ -1575,7 +1809,8 @@ KERNEL_META = {
 # bf16 compute; the bf16 case beside it is reported on its own line.
 MAIN_CASE = {"flash_attention": f"main_S{PREFILL_S}", "decode_attention": "main_serve_B8_S256",
              "ssd_scan": "mamba2_prefill_mamba2_regime", "moe_router": "moonshot_prefill",
-             "fused_augment": "imagenet_B256", "flash_attention_bwd": f"main_S{PREFILL_S}"}
+             "fused_augment": "imagenet_B256", "flash_attention_bwd": f"main_S{PREFILL_S}",
+             "ssd_scan_bwd": "mamba2_train_S8192", "moe_router_bwd": "moonshot_train_T4096"}
 
 
 def main() -> int:
@@ -1601,8 +1836,10 @@ def main() -> int:
     for spec in MODELS:
         add(phase_model(*spec))
     add(phase_augment(torch.Generator(device="cuda").manual_seed(2)))
-    add(phase_train())
-    phase_train_check()
+    for run in TRAIN_RUNS:
+        add(phase_train(*run))
+    for arch, *_ in TRAIN_RUNS:
+        phase_train_check(arch)
 
     kernels = []
     for name, meta in KERNEL_META.items():

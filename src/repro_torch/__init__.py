@@ -6,9 +6,8 @@ It serves and trains decoder-only LMs of the dense, MoE, SSM (mamba2) and
 hybrid (jamba) families on one NVIDIA H100: configs (``repro_torch.configs``),
 the model (``repro_torch.models``), the serving engine
 (``repro_torch.serve``), the feed from the data service
-(``repro_torch.feed``), training (``repro_torch.train``) and six
-hand-written Hopper kernels (``repro_torch.kernels``).  On the card only the
-dense family trains (the other families' kernels have no backward yet).
+(``repro_torch.feed``), training (``repro_torch.train``) and the
+hand-written Hopper kernels and their backwards (``repro_torch.kernels``).
 ``repro_torch.bridge`` carries parameters from the JAX model across,
 through numpy.
 

@@ -14,23 +14,30 @@ Kernels:
                         visible keys split on the card
   ssd_scan            - mamba2 SSD scan, chunk-parallel (chunk states, a scan
                         over chunks, chunk outputs) on bf16 tensor cores
+  ssd_scan_bwd        - its backward (dx, ddt, da, dB, dC, dD; chunk-parallel
+                        with a reverse state pass), the port's own
   moe_router          - MoE softmax, top-k and token-major capacity slots
+  moe_router_bwd      - the gates' backward (the gradient of the logits)
   fused_augment       - crop + horizontal flip + normalise of uint8 images
 
-``decode_attention``, ``ssd_scan`` and ``moe_router`` have no backward: on a
-CUDA tensor that needs a gradient they raise (``_grad.refuse_grad``).
+Under autograd on a CUDA tensor, ``flash_attention``, ``ssd_scan`` and
+``moe_router`` run their forward and backward kernels through a
+``torch.autograd.Function``.  ``decode_attention`` (serving) has no
+backward: on a CUDA tensor that needs a gradient it raises
+(``_grad.refuse_grad``).
 """
 from typing import Dict
 
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention, flash_attention_bwd
 from .fused_augment import fused_augment
-from .moe_router import moe_router
-from .ssd_scan import ssd_scan
+from .moe_router import moe_router, moe_router_bwd
+from .ssd_scan import ssd_scan, ssd_scan_bwd
 
 KERNELS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
            "decode_attention": decode_attention, "ssd_scan": ssd_scan,
-           "moe_router": moe_router, "fused_augment": fused_augment}
+           "ssd_scan_bwd": ssd_scan_bwd, "moe_router": moe_router,
+           "moe_router_bwd": moe_router_bwd, "fused_augment": fused_augment}
 
 
 def launch_counts() -> Dict[str, int]:

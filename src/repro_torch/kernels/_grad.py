@@ -1,18 +1,19 @@
-"""The guard of the kernels that have no backward.
+"""The guard of ``decode_attention``, the one kernel with no backward.
 
-``decode_attention``, ``ssd_scan`` and ``moe_router`` return tensors with no
-``grad_fn``: a CUDA launch inside a graph that autograd records would cut
-the gradient off silently (``wq``/``wk``/``wv`` of a decode step, the router
-weights behind the gates, the SSM leaves behind the scan).  Their wrappers
-call ``refuse_grad`` on the CUDA route, so training such a path on the card
-raises instead.  On a CPU tensor every wrapper computes its plain version,
-through which autograd runs as usual.
+A decode step is a serving step: neither package differentiates it (the
+JAX package has no backward for its decode kernel either), so the kernel
+has none.  Its CUDA launch returns tensors with no ``grad_fn``, and inside
+a graph that autograd records it would cut the gradient of ``wq``/``wk``/
+``wv`` off silently.  The wrapper calls ``refuse_grad`` on its CUDA route, so
+such a graph raises instead.  On a CPU tensor the wrapper computes its plain
+version, through which autograd runs as usual.
 """
 from __future__ import annotations
 
 import torch
 
-BACKWARD_ITEM = "ROADMAP queue 1, item 1 (backward kernels for ssd_scan and moe_router)"
+BACKWARD_ITEM = ("a decode step is serving, which neither package differentiates; train "
+                 "through the forward (flash_attention), which has a backward kernel")
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -21,6 +22,5 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward, so a gradient through it would be "
-            f"lost; run it under torch.no_grad() (serving), or train on the CPU route until "
-            f"{BACKWARD_ITEM} lands"
+            f"lost; run it under torch.no_grad(): {BACKWARD_ITEM}"
         )

@@ -37,6 +37,21 @@
 // When T fits one token block (serving: T = the batch), launch 1 alone
 // writes the final slots.
 //
+// Backward (route_bwd, the port's own kernel: the JAX package differentiates
+// its jnp router in models/layers.py:267 through XLA).  Only the gates have
+// a gradient.  The renormalised top-k of a softmax is a softmax over the k
+// winning logits (the softmax's normaliser cancels), so
+//
+//   dlogits[t, ids[t, j]] = g_tj (dg_tj - sum_i g_ti dg_ti),  0 at every other expert.
+//
+// The max(sum, 1e-9) clamp of the forward never binds: the k winners'
+// probabilities sum to at least k / E >= 1 / 384, so the gradient is that
+// of the plain division.  One warp per token, 8 tokens a block: every lane
+// forms the token's k values in the same order (bit-equal across lanes and
+// runs) and writes experts lane, lane + 32, ... of the row, zeros included,
+// so one launch writes the whole (T, E) gradient.  Bound: bytes, the (T,
+// E) f32 write (1 MB at T = 4096, E = 64; 6.3 MB at E = 384).
+//
 // Bound on the card: bytes, T*E*4 read and 3*T*k*4 written (about 1.3 MB at
 // T=4096, E=64, k=6, well under a microsecond at 3.35 TB/s on an H100 SXM),
 // plus block_counts (ceil(T / 32) * E * 4, through L2).  The design spreads
@@ -207,6 +222,38 @@ __global__ void __launch_bounds__(kPrefixThreads)
   for (int i = tid; i < n; i += kPrefixThreads) slots[at + i] += base[ids[at + i]];
 }
 
+constexpr int kBwdWarps = 8;
+
+__global__ void __launch_bounds__(kBwdWarps * 32)
+    route_bwd(const int* __restrict__ ids, const float* __restrict__ gates,
+              const float* __restrict__ dgates, float* __restrict__ dlogits, int T, int E,
+              int k) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+  if (t >= T) return;
+  const long at = (long)t * k;
+  float g[kMaxK], dg[kMaxK];
+  int id[kMaxK];
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxK; ++j) {
+    if (j < k) {
+      g[j] = gates[at + j];
+      dg[j] = dgates[at + j];
+      id[j] = ids[at + j];
+      dot = fmaf(g[j], dg[j], dot);
+    }
+  }
+  float* row = dlogits + (long)t * E;
+  for (int e = lane; e < E; e += 32) {
+    float out = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxK; ++j)
+      if (j < k && id[j] == e) out = g[j] * (dg[j] - dot);
+    row[e] = out;
+  }
+}
+
 template <int NPL>
 cudaError_t launch(const float* logits, int* ids, float* gates, int* slots, int* block_counts,
                    int T, int E, int k, int nb, cudaStream_t stream) {
@@ -243,6 +290,18 @@ int moe_router_fwd(const void* logits, void* ids, void* gates, void* slots, void
   if (npl <= 4) return launch<4>(l, i, g, s, c, T, E, k, nb, st);
   if (npl <= 8) return launch<8>(l, i, g, s, c, T, E, k, nb, st);
   return launch<12>(l, i, g, s, c, T, E, k, nb, st);
+}
+
+// ids (T,k) int32, gates and dgates (T,k) f32, dlogits (T,E) f32, all
+// contiguous: the gradient of the logits for the gates' gradient dgates.
+int moe_router_bwd(const void* ids, const void* gates, const void* dgates, void* dlogits, int T,
+                   int E, int k, void* stream) {
+  if (T < 1 || E < 1 || E > kMaxE || k < 1 || k > kMaxK || k > E) return cudaErrorInvalidValue;
+  route_bwd<<<(T + kBwdWarps - 1) / kBwdWarps, kBwdWarps * 32, 0,
+              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ids), static_cast<const float*>(gates),
+      static_cast<const float*>(dgates), static_cast<float*>(dlogits), T, E, k);
+  return cudaGetLastError();
 }
 
 const char* moe_router_error_string(int err) {

@@ -635,10 +635,26 @@ cudaError_t launch(const void* xv, const void* dtv, const void* av, const void* 
   const int PN = P * N;
   ssd_state_pass<T, Route<T>::KH><<<dim3((PN + 255) / 256, Bsz * H), 256, 0, stream>>>(
       states, cq, hp, static_cast<float*>(hv), nc, N, PN);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess || yv == nullptr) return err;
   k3<<<grid, kThreads, s3, stream>>>(x, dt, a, Bm, static_cast<const T*>(Cv),
                                      static_cast<const float*>(Dv), hp, static_cast<T*>(yv), d);
   return cudaGetLastError();
+}
+
+int run(const void* x, const void* dt, const void* a, const void* Bm, const void* Cm,
+        const void* D, void* y, void* h, void* states, void* hp, void* cq, int Bsz, int L,
+        int H, int G, int P, int N, int Q, int dtype, void* stream) {
+  if (G <= 0 || H % G || N % 16 || N < 16 || N > kMaxN || Q < 1 || Q > kMaxQ || L < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto kernel) {
+    return kernel(x, dt, a, Bm, Cm, D, y, h, states, hp, cq, Bsz, L, H, G, N, Q, s);
+  };
+  if (dtype == 0 && P == 32) return go(launch<float, 32>);
+  if (dtype == 0 && P == 64) return go(launch<float, 64>);
+  if (dtype == 1 && P == 32) return go(launch<bf16, 32>);
+  if (dtype == 1 && P == 64) return go(launch<bf16, 64>);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -655,17 +671,17 @@ extern "C" {
 int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* Bm, const void* Cm,
                  const void* D, void* y, void* h, void* states, void* hp, void* cq, int Bsz,
                  int L, int H, int G, int P, int N, int Q, int dtype, void* stream) {
-  if (G <= 0 || H % G || N % 16 || N < 16 || N > kMaxN || Q < 1 || Q > kMaxQ || L < 1)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto kernel) {
-    return kernel(x, dt, a, Bm, Cm, D, y, h, states, hp, cq, Bsz, L, H, G, N, Q, s);
-  };
-  if (dtype == 0 && P == 32) return run(launch<float, 32>);
-  if (dtype == 0 && P == 64) return run(launch<float, 64>);
-  if (dtype == 1 && P == 32) return run(launch<bf16, 32>);
-  if (dtype == 1 && P == 64) return run(launch<bf16, 64>);
-  return cudaErrorInvalidValue;
+  return run(x, dt, a, Bm, Cm, D, y, h, states, hp, cq, Bsz, L, H, G, P, N, Q, dtype, stream);
+}
+
+// Kernels 1 and 2 alone: the states entering each chunk (hp), their
+// log-decays (cq) and the final state (h), as ssd_scan_fwd writes them, with
+// no output.  The backward (ssd_scan_bwd.cu) recomputes them at its chunk.
+int ssd_scan_states(const void* x, const void* dt, const void* a, const void* Bm, void* h,
+                    void* states, void* hp, void* cq, int Bsz, int L, int H, int G, int P,
+                    int N, int Q, int dtype, void* stream) {
+  return run(x, dt, a, Bm, nullptr, nullptr, nullptr, h, states, hp, cq, Bsz, L, H, G, P, N,
+             Q, dtype, stream);
 }
 
 const char* ssd_scan_error_string(int err) {

@@ -1,4 +1,5 @@
-from .ops import moe_router
-from .ref import moe_router_blocked_model, moe_router_ref
+from .ops import MoERouter, moe_router, moe_router_bwd
+from .ref import moe_router_blocked_model, moe_router_bwd_ref, moe_router_ref
 
-__all__ = ["moe_router", "moe_router_blocked_model", "moe_router_ref"]
+__all__ = ["MoERouter", "moe_router", "moe_router_blocked_model", "moe_router_bwd",
+           "moe_router_bwd_ref", "moe_router_ref"]

@@ -1,5 +1,6 @@
-"""ctypes binding of the Hopper MoE-router kernel (``csrc/moe_router.cu``).
-The library is built on the first launch."""
+"""ctypes bindings of the Hopper MoE-router kernels (``csrc/moe_router.cu``:
+the forward and its backward, ``route_bwd``).  The library is built on the
+first launch."""
 from __future__ import annotations
 
 import ctypes
@@ -15,11 +16,11 @@ TOKEN_BLOCK = 32  # tokens a block of the first launch (kBlockT in the source)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(entry: str, argtypes) -> ctypes.CDLL:
     lib = _build.load("moe_router")
-    fn = lib.moe_router_fwd
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        fn.argtypes = argtypes
         fn.restype = _I
     return lib
 
@@ -36,10 +37,25 @@ def moe_router_fwd(
     nb = -(-T // TOKEN_BLOCK)  # blocks of the first launch
     counts = (torch.empty((nb, E), dtype=torch.int32, device=logits.device) if nb > 1
               else None)
-    lib = _lib()
+    lib = _lib("moe_router_fwd", [_P] * 5 + [_I] * 3 + [_P])
     err = lib.moe_router_fwd(
         logits.data_ptr(), ids.data_ptr(), gates.data_ptr(), slots.data_ptr(),
         None if counts is None else counts.data_ptr(), T, E, k,
         torch.cuda.current_stream(logits.device).cuda_stream,
+    )
+    _build.check(lib, "moe_router", err)
+
+
+def moe_router_bwd_launch(
+    ids: torch.Tensor, gates: torch.Tensor, dgates: torch.Tensor, dlogits: torch.Tensor,
+) -> None:
+    """Launches ``route_bwd`` on the current stream and writes every entry
+    of ``dlogits`` (T, E) f32.  Inputs are checked by the caller
+    (``ops.moe_router_bwd``)."""
+    T, k = ids.shape
+    lib = _lib("moe_router_bwd", [_P] * 4 + [_I] * 3 + [_P])
+    err = lib.moe_router_bwd(
+        ids.data_ptr(), gates.data_ptr(), dgates.data_ptr(), dlogits.data_ptr(), T,
+        dlogits.shape[1], k, torch.cuda.current_stream(ids.device).cuda_stream,
     )
     _build.check(lib, "moe_router", err)

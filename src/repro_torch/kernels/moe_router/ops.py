@@ -1,11 +1,19 @@
-"""Public wrapper of the fused MoE-router kernel.
+"""Public wrappers of the fused MoE-router kernels.
 
-On a CUDA tensor it launches the hand-written Hopper kernel
+``moe_router``: on a CUDA tensor it launches the hand-written Hopper kernel
 (``csrc/moe_router.cu``: token blocks routed in parallel, then the prefix
 of the earlier blocks' expert counts added to the slots; ``ref.
-moe_router_blocked_model`` is its plain model) or raises; on a CPU tensor it
-computes the plain version ``moe_router_ref``.  ``moe_router.launches``
-counts calls that launched the kernel (its two launches count as one).
+moe_router_blocked_model`` is its plain model) or raises; when autograd
+records the call it goes through ``MoERouter``, a ``torch.autograd.Function``
+whose backward is ``moe_router_bwd`` (the gates' gradient; ids and slots
+have none).  On a CPU tensor it computes the plain version
+``moe_router_ref``, through which autograd runs as usual.
+
+``moe_router_bwd``: on a CUDA tensor it launches ``route_bwd`` or raises; on
+a CPU tensor it computes ``moe_router_bwd_ref``.
+
+``moe_router.launches`` counts calls that launched the forward (its two
+launches count as one), ``moe_router_bwd.launches`` those of the backward.
 """
 from __future__ import annotations
 
@@ -13,9 +21,8 @@ from typing import Tuple
 
 import torch
 
-from .._grad import refuse_grad
-from .kernel import MAX_EXPERTS, MAX_K, moe_router_fwd
-from .ref import moe_router_ref
+from .kernel import MAX_EXPERTS, MAX_K, moe_router_bwd_launch, moe_router_fwd
+from .ref import moe_router_bwd_ref, moe_router_ref
 
 
 def _check(logits: torch.Tensor, k: int) -> None:
@@ -31,6 +38,35 @@ def _check(logits: torch.Tensor, k: int) -> None:
         raise ValueError("moe_router: logits must be contiguous")
 
 
+def _forward(logits: torch.Tensor, k: int):
+    _check(logits, k)
+    T = logits.shape[0]
+    ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)
+    gates = torch.empty((T, k), dtype=torch.float32, device=logits.device)
+    slots = torch.empty((T, k), dtype=torch.int32, device=logits.device)
+    moe_router_fwd(logits, ids, gates, slots, k)
+    moe_router.launches += 1
+    return ids, gates, slots
+
+
+class MoERouter(torch.autograd.Function):
+    """The CUDA kernels under autograd: the forward saves ids and gates; the
+    backward launches ``moe_router_bwd``."""
+
+    @staticmethod
+    def forward(ctx, logits, k):
+        ids, gates, slots = _forward(logits, k)
+        ctx.save_for_backward(ids, gates)
+        ctx.num_experts = logits.shape[1]
+        ctx.mark_non_differentiable(ids, slots)
+        return ids, gates, slots
+
+    @staticmethod
+    def backward(ctx, _dids, dgates, _dslots):
+        ids, gates = ctx.saved_tensors
+        return moe_router_bwd(ids, gates, dgates.contiguous(), ctx.num_experts), None
+
+
 def moe_router(
     logits: torch.Tensor,  # (T, E) f32
     k: int,
@@ -44,15 +80,44 @@ def moe_router(
         return moe_router_ref(logits, k)
     if logits.device.type != "cuda":
         raise ValueError(f"moe_router: no kernel for device {logits.device}")
-    refuse_grad("moe_router", logits)
-    _check(logits, k)
-    T = logits.shape[0]
-    ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)
-    gates = torch.empty((T, k), dtype=torch.float32, device=logits.device)
-    slots = torch.empty((T, k), dtype=torch.int32, device=logits.device)
-    moe_router_fwd(logits, ids, gates, slots, k)
-    moe_router.launches += 1
-    return ids, gates, slots
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return MoERouter.apply(logits, k)
+    return _forward(logits, k)
+
+
+def moe_router_bwd(
+    ids: torch.Tensor,  # (T, k) int32
+    gates: torch.Tensor,  # (T, k) f32, the forward's gates
+    dgates: torch.Tensor,  # (T, k) f32, their gradient
+    E: int,
+) -> torch.Tensor:
+    """The gradient of the logits, (T, E) f32, for the gates' gradient."""
+    if ids.device.type == "cpu":
+        if gates.device.type != "cpu" or dgates.device.type != "cpu":
+            raise ValueError("moe_router_bwd: ids on the CPU but gates elsewhere")
+        return moe_router_bwd_ref(ids, gates, dgates, E)
+    if ids.device.type != "cuda":
+        raise ValueError(f"moe_router_bwd: no kernel for device {ids.device}")
+    if ids.dim() != 2 or gates.shape != ids.shape or dgates.shape != ids.shape:
+        raise ValueError(f"moe_router_bwd: want ids, gates, dgates (T, k); got "
+                         f"{tuple(ids.shape)}, {tuple(gates.shape)}, {tuple(dgates.shape)}")
+    T, k = ids.shape
+    if not 1 <= E <= MAX_EXPERTS or not 1 <= k <= min(E, MAX_K):
+        raise ValueError(f"moe_router_bwd: want E <= {MAX_EXPERTS} and k <= min(E, {MAX_K}); "
+                         f"got E={E}, k={k}")
+    if (ids.dtype != torch.int32 or gates.dtype != torch.float32
+            or dgates.dtype != torch.float32):
+        raise TypeError(f"moe_router_bwd: want int32 ids and float32 gates, dgates; got "
+                        f"{ids.dtype}, {gates.dtype}, {dgates.dtype}")
+    if not (ids.device == gates.device == dgates.device):
+        raise ValueError("moe_router_bwd: inputs on different devices")
+    if not all(t.is_contiguous() for t in (ids, gates, dgates)):
+        raise ValueError("moe_router_bwd: ids, gates and dgates must be contiguous")
+    dlogits = torch.empty((T, E), dtype=torch.float32, device=ids.device)
+    moe_router_bwd_launch(ids, gates, dgates, dlogits)
+    moe_router_bwd.launches += 1
+    return dlogits
 
 
 moe_router.launches = 0
+moe_router_bwd.launches = 0

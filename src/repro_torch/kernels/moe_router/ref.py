@@ -68,3 +68,20 @@ def moe_router_blocked_model(
     base = torch.cumsum(counts_t, dim=0) - counts_t  # the earlier blocks' counts
     slots = [s + b[i.long()].to(torch.int32) for s, b, i in zip(slots, base, ids)]
     return torch.cat(ids), torch.cat(gates), torch.cat(slots)
+
+
+def moe_router_bwd_ref(
+    ids: torch.Tensor,  # (T, k) int
+    gates: torch.Tensor,  # (T, k) f32, the forward's renormalised gates
+    dgates: torch.Tensor,  # (T, k), the gradient of the gates
+    E: int,
+) -> torch.Tensor:
+    """The gradient of the logits (T, E) f32 for the gates' gradient: the
+    renormalised top-k of a softmax is a softmax over the k winning logits,
+    so dlogits[t, ids[t, j]] = g_tj (dg_tj - sum_i g_ti dg_ti), and 0 at every
+    other expert (ids and slots have no gradient; the forward's 1e-9 clamp
+    never binds, since the winners' probabilities sum to at least k / E)."""
+    g, dg = gates.float(), dgates.float()
+    vals = g * (dg - (g * dg).sum(-1, keepdim=True))
+    out = torch.zeros((ids.shape[0], E), dtype=torch.float32, device=ids.device)
+    return out.scatter_(1, ids.long(), vals)

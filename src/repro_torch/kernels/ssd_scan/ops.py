@@ -1,18 +1,29 @@
-"""Public wrapper of the mamba2 SSD-scan kernel.
+"""Public wrappers of the mamba2 SSD-scan kernels.
 
-On a CUDA tensor it launches the hand-written Hopper kernels
+``ssd_scan``: on a CUDA tensor it launches the hand-written Hopper kernels
 (``csrc/ssd_scan.cu``: chunk states, state passing, chunk output) or
-raises; on a CPU tensor it computes the plain version ``ssd_scan_ref``.
-``ssd_scan.launches`` counts wrapper calls that launched them (one per
-call).
+raises; when autograd records the call (grad mode on and an input that
+needs a gradient) it goes through ``SSDScan``, a ``torch.autograd.Function``
+whose backward is ``ssd_scan_bwd``.  On a CPU tensor it computes the plain
+version ``ssd_scan_ref``, through which autograd runs as usual.
+
+``ssd_scan_bwd``: on a CUDA tensor it launches the hand-written backward
+(``csrc/ssd_scan_bwd.cu``, after the forward's first two kernels recompute
+the states entering each chunk) or raises; on a CPU tensor it computes
+``ssd_scan_bwd_ref`` (the same math, in f32).
+
+``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count wrapper calls
+that launched their kernels (one per call).
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-from .._grad import refuse_grad
-from .kernel import DTYPES, HEAD_DIMS, MAX_CHUNK, MAX_STATE, ssd_scan_fwd
-from .ref import ssd_scan_ref
+from .kernel import (BWD_CHUNK, DTYPES, HEAD_DIMS, MAX_CHUNK, MAX_STATE, ssd_scan_bwd_launch,
+                     ssd_scan_fwd)
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 
 def _check(x, dt, a, Bm, Cm, D, chunk) -> None:
@@ -48,6 +59,38 @@ def _check(x, dt, a, Bm, Cm, D, chunk) -> None:
             raise ValueError(f"ssd_scan: {name} must be 16-byte aligned")
 
 
+def _forward(x, dt, a, Bm, Cm, D, chunk) -> Tuple[torch.Tensor, torch.Tensor]:
+    chunk = min(chunk, x.shape[1])
+    _check(x, dt, a, Bm, Cm, D, chunk)
+    Bsz, L, H, P = x.shape
+    y = torch.empty_like(x)
+    h = torch.empty((Bsz, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
+    ssd_scan_fwd(x, dt, a, Bm, Cm, D, y, h, chunk=chunk)
+    ssd_scan.launches += 1
+    return y, h
+
+
+class SSDScan(torch.autograd.Function):
+    """The CUDA kernels under autograd: the forward saves its inputs (the
+    backward recomputes the states entering each of its chunks with the
+    forward's first two kernels, rather than hold them from the forward);
+    the backward launches ``ssd_scan_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, Bm, Cm, D, chunk):
+        y, h = _forward(x, dt, a, Bm, Cm, D, chunk)
+        ctx.save_for_backward(x, dt, a, Bm, Cm, D)
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, Bm, Cm, D = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, None if dh is None else dh.contiguous())
+        return (*grads, None)
+
+
 def ssd_scan(
     x: torch.Tensor,  # (B, L, H, P)
     dt: torch.Tensor,  # (B, L, H) f32, post-softplus step sizes
@@ -73,15 +116,51 @@ def ssd_scan(
         return ssd_scan_ref(x, dt, a, Bm, Cm, D)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    refuse_grad("ssd_scan", x, dt, a, Bm, Cm, D)
-    chunk = min(chunk, x.shape[1])
-    _check(x, dt, a, Bm, Cm, D, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, Bm, Cm, D)):
+        return SSDScan.apply(x, dt, a, Bm, Cm, D, chunk)
+    return _forward(x, dt, a, Bm, Cm, D, chunk)
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,  # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H) f32
+    a: torch.Tensor,  # (H,) f32
+    Bm: torch.Tensor,  # (B, L, G, N)
+    Cm: torch.Tensor,  # (B, L, G, N)
+    D: torch.Tensor,  # (H,) f32
+    dy: torch.Tensor,  # (B, L, H, P), the gradient of y, in x's dtype
+    dh_final: Optional[torch.Tensor] = None,  # (B, H, N, P) f32, of h; None: 0
+) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, da, dB, dC, dD) of ``ssd_scan``: dx, dB and dC in x's
+    dtype (computed in f32), dB and dC summed over each group's heads; ddt,
+    da and dD in f32.  The kernels run at their own chunk (``BWD_CHUNK``)
+    whatever the forward's was; the shapes the forward refuses raise."""
+    if x.device.type == "cpu":
+        if any(t.device.type != "cpu" for t in (dt, a, Bm, Cm, D, dy)):
+            raise ValueError("ssd_scan_bwd: x on the CPU but another input elsewhere")
+        return ssd_scan_bwd_ref(x, dt, a, Bm, Cm, D, dy, dh_final)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
     Bsz, L, H, P = x.shape
-    y = torch.empty_like(x)
-    h = torch.empty((Bsz, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
-    ssd_scan_fwd(x, dt, a, Bm, Cm, D, y, h, chunk=chunk)
-    ssd_scan.launches += 1
-    return y, h
+    _check(x, dt, a, Bm, Cm, D, min(BWD_CHUNK, L))
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or not (
+            dy.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}; got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    want_h = (Bsz, H, Bm.shape[3], P)
+    if dh_final is not None and (tuple(dh_final.shape) != want_h or dh_final.dtype
+                                 != torch.float32 or dh_final.device != x.device
+                                 or not dh_final.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: dh_final must be a contiguous float32 {want_h}; got "
+                         f"{dh_final.dtype} {tuple(dh_final.shape)}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+    ddt = torch.empty((Bsz, L, H), **f32)
+    da, dD = torch.empty((H,), **f32), torch.empty((H,), **f32)
+    ssd_scan_bwd_launch(x, dt, a, Bm, Cm, D, dy, dh_final, dx, ddt, da, dB, dC, dD)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da, dB, dC, dD
 
 
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0

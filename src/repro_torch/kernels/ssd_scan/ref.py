@@ -8,11 +8,12 @@ the final state here:
 Shapes: x (B, L, H, P), dt (B, L, H), a (H,), Bm/Cm (B, L, G, N) with G
 dividing H (G = H is the pre-expanded layout of the TPU kernel; head h reads
 group h // (H / G), as ``jnp.repeat`` expands them), D (H,).  Every product
-in f32; y in x's dtype, the final state (B, H, N, P) in f32.
+in f32 (in f64 for f64 inputs); y in x's dtype, the final state (B, H, N, P)
+in f32 (f64).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,19 +34,20 @@ def ssd_scan_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
-    xf = x.float()
-    dtf = dt.float()
-    Bf = expand_groups(Bm.float(), H)
-    Cf = expand_groups(Cm.float(), H)
-    af = a.float()
-    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
-    y = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ct)
+    dtf = dt.to(ct)
+    Bf = expand_groups(Bm.to(ct), H)
+    Cf = expand_groups(Cm.to(ct), H)
+    af = a.to(ct)
+    h = torch.zeros((Bsz, H, N, P), dtype=ct, device=x.device)
+    y = torch.empty((Bsz, L, H, P), dtype=ct, device=x.device)
     for t in range(L):
         decay = torch.exp(dtf[:, t] * af[None, :])  # (B, H)
         h = h * decay[..., None, None] + torch.einsum(
             "bhn,bh,bhp->bhnp", Bf[:, t], dtf[:, t], xf[:, t])
         y[:, t] = torch.einsum("bhn,bhnp->bhp", Cf[:, t], h)
-    y = y + xf * D.float()[None, None, :, None]
+    y = y + xf * D.to(ct)[None, None, :, None]
     return y.to(x.dtype), h
 
 
@@ -150,3 +152,115 @@ def ssd_scan_chunked_model(
     y = y + product("bchij,bcjhp->bcihp", W, xq, 3, 1)
     y = y.reshape(Bsz, nc * Q, H, P)[:, :L] + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), h
+
+
+def ssd_scan_bwd_ref(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    dy: torch.Tensor,
+    dh_final: Optional[torch.Tensor] = None,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradients (dx, ddt, da, dB, dC, dD) of ``ssd_scan_ref``'s (y, h)
+    for the cotangents dy (B, L, H, P) and dh_final (B, H, N, P) (None: 0),
+    by the explicit chunked backward that ``csrc/ssd_scan_bwd.cu`` computes.
+    Per (batch, head, chunk) with cum_i = a s_i, s_i = sum_{t<=i} dt_t within
+    the chunk, h_c the state entering it and R_c the gradient of the state
+    leaving it (R of the last chunk = dh_final):
+
+        reverse pass  R_{c-1} = exp(cum_last) R_c + sum_i exp(cum_i) C_i dy_i^T
+        G_ij = dy_i . x_j,  L_ij = exp(cum_i - cum_j) (j <= i),  W_ij = (C_i . B_j) L_ij dt_j
+        dx_j  = sum_i W_ij dy_i + exp(cum_last - cum_j) dt_j R_c^T B_j + D dy_j
+        dB_j  = dt_j sum_i G_ij L_ij C_i + exp(cum_last - cum_j) dt_j R_c x_j
+        dC_i  = sum_j G_ij L_ij dt_j B_j + exp(cum_i) h_c dy_i
+        ddt_j = sum_i G_ij L_ij (C_i . B_j) + exp(cum_last - cum_j) B_j . R_c x_j
+                + a sum_{i>=j} dcum_i
+        dcum_i = sum_j G_ij W_ij - sum_k G_ki W_ki + exp(cum_i) C_i . h_c dy_i
+                 - exp(cum_last - cum_i) dt_i B_i . R_c x_i
+                 (+ exp(cum_last) <h_c, R_c> + sum_j exp(cum_last - cum_j) dt_j B_j . R_c x_j
+                  at the chunk's last row)
+        da = sum dcum_i s_i,  dD_h = sum dy . x
+
+    dB and dC are summed over the heads of each group.  Rows past L (the
+    ragged last chunk) are zero with dt = 0, so the chunk's last row carries
+    the last real token's cum.  The in-chunk cumsum, its differences and the
+    reverse cumsum of dcum are f64.  Products in f32, or in f64 for f64
+    inputs (the card's reference).  dx, dB, dC in x's dtype; ddt, da, dD in
+    f32 (f64 for f64 inputs).  The result does not depend on ``chunk``
+    beyond rounding."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, L)
+    nc = -(-L // Q)
+    pad = nc * Q - L
+
+    def chunks(t):  # (B, L, H, ...) -> (B, nc, H, Q, ...), zero past L
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        t = t.reshape(Bsz, nc, Q, *t.shape[2:])
+        return t.transpose(2, 3)
+
+    xq, dyq = chunks(x.to(ct)), chunks(dy.to(ct))  # (B, nc, H, Q, P)
+    Bq = chunks(expand_groups(Bm.to(ct), H))  # (B, nc, H, Q, N)
+    Cq = chunks(expand_groups(Cm.to(ct), H))
+    dtq = chunks(dt.to(ct))  # (B, nc, H, Q)
+    s64 = torch.cumsum(dtq.double(), dim=-1)
+    cum64 = s64 * a.double()[None, None, :, None]
+    cum, last = cum64.to(ct), cum64[..., -1:]
+    e_in = torch.exp(cum)  # exp(cum_i)
+    e_out = torch.exp((last - cum64).to(ct))  # exp(cum_last - cum_j)
+    w_out = e_out * dtq
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    Lm = torch.exp(torch.where(tri, cum64[..., :, None] - cum64[..., None, :], -torch.inf).to(ct))
+
+    # states entering each chunk (forward), and the reverse pass
+    S = torch.einsum("bchj,bchjn,bchjp->bchnp", w_out, Bq, xq)
+    Sb = torch.einsum("bchi,bchin,bchip->bchnp", e_in, Cq, dyq)
+    decay = torch.exp(last[..., 0].to(ct))  # (B, nc, H)
+    h = torch.zeros((Bsz, H, N, P), dtype=ct, device=x.device)
+    R = (torch.zeros_like(h) if dh_final is None else dh_final.to(ct))
+    hin, Rout = [], [None] * nc
+    for c in range(nc):
+        hin.append(h)
+        h = decay[:, c, :, None, None] * h + S[:, c]
+    for c in reversed(range(nc)):
+        Rout[c] = R
+        R = decay[:, c, :, None, None] * R + Sb[:, c]
+    hin, Rc = torch.stack(hin, dim=1), torch.stack(Rout, dim=1)  # (B, nc, H, N, P)
+
+    CB = torch.einsum("bchin,bchjn->bchij", Cq, Bq)
+    Pm = torch.einsum("bchip,bchjp->bchij", dyq, xq) * Lm  # G o L
+    W = CB * Lm * dtq[..., None, :]
+    Rx = torch.einsum("bchnp,bchjp->bchjn", Rc, xq)
+    hdy = torch.einsum("bchnp,bchip->bchin", hin, dyq)
+    dx = (torch.einsum("bchij,bchip->bchjp", W, dyq)
+          + w_out[..., None] * torch.einsum("bchnp,bchjn->bchjp", Rc, Bq)
+          + D.to(ct)[None, None, :, None, None] * dyq)
+    dB = (dtq[..., None] * torch.einsum("bchij,bchin->bchjn", Pm, Cq) + w_out[..., None] * Rx)
+    dC = (torch.einsum("bchij,bchjn->bchin", Pm * dtq[..., None, :], Bq)
+          + e_in[..., None] * hdy)
+    v = (Bq * Rx).sum(-1)  # B_j . R_c x_j
+    Z = Pm * CB * dtq[..., None, :]  # G o W
+    dcum = (Z.sum(-1) - Z.sum(-2) + e_in * (Cq * hdy).sum(-1) - w_out * v).double()
+    dcum[..., -1] += (torch.exp(last[..., 0]) * (hin.double() * Rc.double()).sum((-2, -1))
+                      + (w_out * v).double().sum(-1))
+    rev = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = ((Pm * CB).sum(-2) + e_out * v).double() + a.double()[None, None, :, None] * rev
+    da = (dcum * s64).sum((0, 1, 3))
+    dD = (dyq * xq).sum((0, 1, 3, 4))
+
+    def unchunk(t):  # (B, nc, H, Q, ...) -> (B, L, H, ...)
+        t = t.transpose(2, 3)
+        return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :L]
+
+    def group_sum(t):  # (B, L, H, N) -> (B, L, G, N)
+        return t.reshape(Bsz, L, G, H // G, N).sum(3)
+
+    out_t = torch.float64 if ct == torch.float64 else torch.float32
+    return (unchunk(dx).to(x.dtype), unchunk(ddt).to(out_t), da.to(out_t),
+            group_sum(unchunk(dB)).to(Bm.dtype), group_sum(unchunk(dC)).to(Cm.dtype),
+            dD.to(out_t))

@@ -16,11 +16,13 @@ Conventions:
   * The JAX ``moe_ffn`` and ``mamba2_mixer`` call no Pallas kernel; the
     kernels compute the same functions (``tests/test_torch_models.py``
     holds both routes against JAX).
-  * Gradients: under autograd, ``flash_attention`` on a CUDA tensor runs its
-    forward and backward kernels (``FlashAttention``); ``decode_attention``,
-    ``ssd_scan`` and ``moe_router`` have no backward kernel and raise rather
-    than return a tensor that cuts the gradient off.  On the CPU every route
-    trains through autograd of the plain versions.
+  * Gradients: under autograd on a CUDA tensor, ``flash_attention``,
+    ``ssd_scan`` and ``moe_router`` run their forward and backward kernels
+    (``FlashAttention``, ``SSDScan``, ``MoERouter``), so the dense, MoE, SSM
+    and hybrid families train on the card; ``decode_attention`` (serving)
+    has no backward kernel and raises rather than return a tensor that cuts
+    the gradient off.  On the CPU every route trains through autograd of the
+    plain versions.
 """
 from __future__ import annotations
 

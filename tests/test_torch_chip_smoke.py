@@ -297,7 +297,7 @@ def _phase_kernels_draws(monkeypatch):
 
     monkeypatch.setattr(torch, "Generator", Gen)
     for kind in ("flash_case", "decode_case", "ssd_case", "router_case", "augment_case",
-                 "flash_bwd_case"):
+                 "flash_bwd_case", "ssd_bwd_case", "router_bwd_case"):
         monkeypatch.setattr(chip_smoke, kind, recorder(kind))
     monkeypatch.setattr(chip_smoke, "augment_flip_case", flip)
     monkeypatch.setattr(chip_smoke, "flash_bwd_cases", lambda main_S, g, g_edges: [])
@@ -410,9 +410,19 @@ def test_require_launches_fails_a_bypassed_kernel():
     ("starcoder2-3b", {}, {"flash_attention": 60, "flash_attention_bwd": 30}),
     ("starcoder2-3b", {"num_layers": 2}, {"flash_attention": 4, "flash_attention_bwd": 2}),
     ("starcoder2-3b", {"remat": "none"}, {"flash_attention": 30, "flash_attention_bwd": 30}),
+    ("mamba2-2.7b", {}, {"ssd_scan": 128, "ssd_scan_bwd": 64}),
+    ("mamba2-2.7b", {"num_layers": 2}, {"ssd_scan": 4, "ssd_scan_bwd": 2}),
+    # 1 dense layer (a group of its own, not recomputed) + 3 MoE layers
+    ("moonshot-v1-16b-a3b", {"num_layers": 4}, {"flash_attention": 7, "flash_attention_bwd": 4,
+                                                "moe_router": 6, "moe_router_bwd": 3}),
+    ("moonshot-v1-16b-a3b", {"num_layers": 2}, {"flash_attention": 2, "flash_attention_bwd": 2,
+                                                "moe_router": 1, "moe_router_bwd": 1}),
 ])
 def test_train_launches_per_step(arch, replace, want):
-    """30 forward + 30 recomputed under remat + 30 backward at full width."""
+    """A forward per layer that runs the kernel, one more for each such
+    layer of a repeated group under remat, and a backward per layer: at full
+    width 30 + 30 + 30 flash launches for starcoder2-3b, 64 + 64 + 64 SSD
+    launches for mamba2-2.7b."""
     from repro_torch.configs import get_config
 
     assert chip_smoke.train_launches_per_step(get_config(arch).replace(**replace)) == want
@@ -570,8 +580,8 @@ D112_REDESIGN_TABLES = ("FLASH_CASES_D112", "FLASH_BWD_CASES_D112", "DECODE_CASE
 
 def test_d112_and_redesign_cases_draw_from_their_own_generator(monkeypatch):
     """The head-dim-112, router and augment cases draw from the generator
-    seeded D112_REDESIGN_SEED, after every earlier case and before the split
-    sweep, so no earlier case's inputs move."""
+    seeded D112_REDESIGN_SEED, after every earlier case and before the
+    backward cases and the split sweep, so no earlier case's inputs move."""
     calls = _phase_kernels_draws(monkeypatch)
     names = {case[0] for table in D112_REDESIGN_TABLES for case in getattr(chip_smoke, table)}
     assert {name for _, name, seed in calls if seed == chip_smoke.D112_REDESIGN_SEED} == names
@@ -579,7 +589,7 @@ def test_d112_and_redesign_cases_draw_from_their_own_generator(monkeypatch):
                                           chip_smoke.SWEEP_SEED)
     seeds = [seed for _, _, seed in calls]
     first = seeds.index(chip_smoke.D112_REDESIGN_SEED)
-    assert set(seeds[first:-1]) == {chip_smoke.D112_REDESIGN_SEED}
+    assert set(seeds[first:seeds.index(chip_smoke.BWD_SEED)]) == {chip_smoke.D112_REDESIGN_SEED}
     assert calls[-1][0] == "decode_split_sweep"
     n_cases = sum(len(getattr(chip_smoke, table)) for table in D112_REDESIGN_TABLES)
     assert len(names) == n_cases == seeds.count(chip_smoke.D112_REDESIGN_SEED)  # names unique
@@ -623,15 +633,140 @@ def test_d112_and_redesign_cases_cover_the_new_routes():
 
 @pytest.mark.parametrize("kernel,want", [
     ("fwd_sm90<128,128,0>", True), ("route_blocks<12>", True), ("add_prefix", True),
+    ("route_bwd", True), ("ssd_bwd_chunk<64>", True), ("ssd_bwd_chunk_state<32>", True),
+    ("ssd_bwd_state_pass", True), ("ssd_bwd_group_sum", True), ("ssd_bwd_head_sum", True),
     ("augment_rows<0>", True), ("fa_fwd_kernel<112,64,64>", True),
     ("dkdv_kernel<112,64,32>", True), ("decode_kernel<112,16>", True),
     ("fa_fwd_kernel<64,128,64>", False), ("dq_kernel<128,64,32>", False),
     ("delta_kernel", False),
 ])
 def test_no_spill_rule(kernel, want):
-    """Every Hopper redesign's kernel and every head-dim-112 instantiation
-    must not spill; the first version's f32 kernels at other D may."""
+    """Every Hopper redesign's kernel, every backward kernel of the SSD scan
+    and the router, and every head-dim-112 instantiation must not spill; the
+    first version's f32 kernels at other D may."""
     assert chip_smoke.no_spill(kernel) is want
+
+
+def test_no_spill_kernels_name_every_kernel_of_the_new_sources():
+    """Every ``__global__`` kernel of the backward's source and the router's
+    backward is in NO_SPILL_KERNELS."""
+    import re
+
+    csrc = chip_smoke.ROOT / "src/repro_torch/kernels/csrc"
+    found = set(re.findall(r"__launch_bounds__\([^)]*\)\)?\s*(\w+)\(",
+                           (csrc / "ssd_scan_bwd.cu").read_text()))
+    assert found == {"ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk",
+                     "ssd_bwd_group_sum", "ssd_bwd_head_sum"}
+    assert found | {"route_bwd"} <= set(chip_smoke.NO_SPILL_KERNELS)
+    assert "route_bwd(" in (csrc / "moe_router.cu").read_text()
+
+
+def test_backward_cases_draw_from_their_own_generator(monkeypatch):
+    """The SSD and router backward cases draw from the generator seeded
+    BWD_SEED, after every earlier case and before the split sweep."""
+    calls = _phase_kernels_draws(monkeypatch)
+    names = [c[0] for c in chip_smoke.SSD_BWD_CASES + chip_smoke.ROUTER_BWD_CASES]
+    seeds = [seed for _, _, seed in calls]
+    assert [name for _, name, seed in calls if seed == chip_smoke.BWD_SEED] == names
+    assert chip_smoke.BWD_SEED not in (0, 14, chip_smoke.NEW_CASES_SEED, chip_smoke.SWEEP_SEED,
+                                       chip_smoke.D112_REDESIGN_SEED)
+    first = seeds.index(chip_smoke.BWD_SEED)
+    assert seeds[first:-1] == [chip_smoke.BWD_SEED] * len(names)
+    assert calls[-1][0] == "decode_split_sweep"
+    assert [name for _, name, seed in calls if seed == 0] == SEED0_CASES
+
+
+def test_backward_cases_cover_the_train_paths():
+    """SSD: mamba2-2.7b's mixer at the train shape (f32, the mixer's regime)
+    and in bf16, G < H, a ragged L (not a multiple of the backward's 64-token
+    chunk) and a non-zero dh_final; the main case is the f32 one.  Router:
+    moonshot's train shape, kimi's routing, T = 8 and ties."""
+    from repro_torch.kernels.ssd_scan.kernel import BWD_CHUNK
+
+    ssd = {name: (shape, kw) for name, *shape, kw in chip_smoke.SSD_BWD_CASES}
+    shape, kw = ssd[chip_smoke.MAIN_CASE["ssd_scan_bwd"]]
+    assert shape == [1, 8192, 80, 64, 128, "float32"]
+    assert kw == dict(groups=1, regime="mamba2")
+    assert any(s[5] == "bfloat16" and s[:5] == [1, 8192, 80, 64, 128] for s, _ in ssd.values())
+    assert any(1 < k.get("groups", s[2]) < s[2] for s, k in ssd.values())
+    assert any(s[1] % BWD_CHUNK for s, _ in ssd.values())
+    assert any(k.get("dh_final") for _, k in ssd.values())
+    assert {s[3] for s, _ in ssd.values()} == {32, 64}
+    router = {name: (T, E, k, kw) for name, T, E, k, kw in chip_smoke.ROUTER_BWD_CASES}
+    assert router[chip_smoke.MAIN_CASE["moe_router_bwd"]] == (4096, 64, 6, {})
+    assert (4096, 384, 8, {}) in router.values()
+    assert any(T == 8 for T, *_ in router.values())
+    assert any(kw.get("ties") for *_, kw in router.values())
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,G,want", [
+    # one chunk of 2 tokens: q(q+1) = 6; cb 6N, g and wdy 6P each a head,
+    # dbdc 12N a head, state 5 x 2NP a token and head
+    (1, 2, 1, 4, 3, 64, 1, 6 * 3 + 2 * 6 * 4 + 12 * 3 + 5 * 2 * 2 * 12),
+    # two chunks (3 + 1 tokens): q(q+1) = 12 + 2; groups: cb once per group
+    (1, 4, 2, 1, 1, 3, 1, 14 + 2 * 2 * 14 + 2 * 2 * 14 + 5 * 4 * 2 * 2),
+])
+def test_ssd_bwd_flops(B, L, H, P, N, chunk, G, want):
+    assert chip_smoke.ssd_bwd_flops(B, L, H, P, N, chunk, G) == want
+
+
+def test_ssd_bwd_bound_at_the_main_shape():
+    """mamba2-2.7b's mixer at S = 8192 in 64-token chunks: 70.1 GFLOP, three
+    quarters of it the per-token state terms; 1.046 ms at f32's 67 TFLOP/s."""
+    flops = chip_smoke.ssd_bwd_product_flops(1, 8192, 80, 64, 128, 64, 1)
+    assert flops["state"] == 5 * 80 * 8192 * 2 * 128 * 64
+    assert flops["cb"] == 128 * 64 * 65 * 128
+    total = sum(flops.values())
+    assert total == pytest.approx(70.113e9, rel=1e-4)
+    assert chip_smoke.bound(total, 1e9, "float32") == (pytest.approx(1.0465, rel=1e-3),
+                                                         "operations")
+
+
+def _ssd_grads(seed, dtype="float32"):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    shapes = ((1, 20, 2, 8), (1, 20, 2), (2,), (1, 20, 1, 4), (1, 20, 1, 4), (2,))
+    want = [torch.randn(s, generator=g, dtype=torch.float64) for s in shapes]
+    dt = getattr(torch, dtype)
+    got = [w.to(dt) if i in (0, 3, 4) else w.float() for i, w in enumerate(want)]
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_criteria_fail_one_entry_off(dtype):
+    """The rounding of a right gradient passes; one entry of any gradient
+    off by 1% of the tensor's RMS fails (f32: allclose at 5e-4; bf16: the
+    row rule at 3e-2 needs 10%, so bf16 gets that)."""
+    got, want = _ssd_grads(0, dtype)
+    assert chip_smoke.ssd_bwd_verdict(got, [t.clone() for t in got], want, dtype)["ok"]
+    off = 0.01 if dtype == "float32" else 0.1
+    for i in range(6):
+        bad = [t.clone() for t in got]
+        rms = float(want[i].pow(2).mean().sqrt())
+        bad[i].view(-1)[1] += off * rms + abs(float(want[i].view(-1)[1]))
+        v = chip_smoke.ssd_bwd_verdict(bad, [t.clone() for t in bad], want, dtype)
+        assert not v["ok"], chip_smoke.SSD_BWD_NAMES[i]
+
+
+def test_bwd_criteria_fail_a_bit_unequal_second_run():
+    """A second run one ulp off in one entry fails both backward verdicts."""
+    import torch
+
+    got, want = _ssd_grads(1)
+    again = [t.clone() for t in got]
+    again[2].view(-1)[0] = torch.nextafter(again[2].view(-1)[0], torch.tensor(1e9))
+    v = chip_smoke.ssd_bwd_verdict(got, again, want, "float32")
+    assert not v["bit_equal"] and not v["ok"]
+    d = torch.randn(8, 16)
+    assert chip_smoke.router_bwd_verdict(d, d.clone(), d)["ok"]
+    d2 = d.clone()
+    d2[0, 0] = torch.nextafter(d2[0, 0], torch.tensor(1e9))
+    assert not chip_smoke.router_bwd_verdict(d, d2, d)["ok"]
+    d3 = d.clone()
+    d3[1, 1] += 2e-6
+    v = chip_smoke.router_bwd_verdict(d3, d3.clone(), d)
+    assert v["bit_equal"] and not v["ok"]
 
 
 def test_kimi_cell_is_cut_to_fit_the_card():

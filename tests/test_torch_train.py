@@ -1,6 +1,6 @@
 """The port's training path (``repro_torch.train``, the flash backward's
-plain route, the guard of the kernels without a backward) against the JAX
-package, on the CPU.
+plain route, the guard of the kernel without a backward, the autograd
+routes of the kernels with one) against the JAX package, on the CPU.
 
 Inputs are made with numpy from fixed seeds; JAX parameters come from
 ``init_train_state(model, PRNGKey(0))`` and are carried across with
@@ -304,21 +304,21 @@ def test_softcap_and_offset_backward_math():
 # no silent loss of gradients on the card
 # ---------------------------------------------------------------------------
 def test_refuse_grad_raises_only_while_recording_a_gradient():
-    """The guard the CUDA routes of decode_attention, ssd_scan and
-    moe_router call (a CPU stand-in: the guard looks at autograd state only,
-    so CPU tensors exercise it as CUDA ones would)."""
+    """The guard the CUDA route of decode_attention calls (a CPU stand-in:
+    the guard looks at autograd state only, so CPU tensors exercise it as
+    CUDA ones would)."""
     x = torch.zeros(4, requires_grad=True)
     y = torch.zeros(4)
-    with pytest.raises(RuntimeError, match="no backward.*ROADMAP queue 1, item 1"):
-        _grad.refuse_grad("ssd_scan", y, x)
-    _grad.refuse_grad("ssd_scan", y, y)  # nothing needs a gradient
+    with pytest.raises(RuntimeError, match="no backward.*serving"):
+        _grad.refuse_grad("decode_attention", y, x)
+    _grad.refuse_grad("decode_attention", y, y)  # nothing needs a gradient
     with torch.no_grad():
-        _grad.refuse_grad("moe_router", x)  # serving: autograd is not recording
-    with pytest.raises(RuntimeError, match="moe_router"):
-        _grad.refuse_grad("moe_router", x * 2)  # an activation downstream of a parameter
+        _grad.refuse_grad("decode_attention", x)  # serving: autograd is not recording
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        _grad.refuse_grad("decode_attention", x * 2)  # an activation downstream of a parameter
 
 
-@pytest.mark.parametrize("module", ["decode_attention", "ssd_scan", "moe_router"])
+@pytest.mark.parametrize("module", ["decode_attention"])
 def test_kernels_without_backward_guard_their_cuda_route(module):
     """Each such wrapper calls the guard on its CUDA route, after the device
     dispatch and before the launch."""
@@ -329,6 +329,26 @@ def test_kernels_without_backward_guard_their_cuda_route(module):
     src = inspect.getsource(getattr(ops, module))
     cpu, guard = src.index('device.type == "cpu"'), src.index(f'refuse_grad("{module}"')
     assert cpu < guard < src.index("_fwd(")
+
+
+@pytest.mark.parametrize("module,function", [("ssd_scan", "SSDScan"),
+                                             ("moe_router", "MoERouter")])
+def test_kernels_with_backward_take_their_function_on_the_cuda_route(module, function):
+    """ssd_scan and moe_router have backward kernels: on the CUDA route,
+    after the device dispatch and before the launch, a call that autograd
+    records goes through their ``torch.autograd.Function``, whose backward
+    is the backward wrapper; no guard is left on them."""
+    import importlib
+    import inspect
+
+    ops = importlib.import_module(f"repro_torch.kernels.{module}.ops")
+    src = inspect.getsource(getattr(ops, module))
+    assert "refuse_grad" not in inspect.getsource(ops)
+    cpu, record = src.index('device.type == "cpu"'), src.index("torch.is_grad_enabled()")
+    assert cpu < record < src.index(f"{function}.apply(") < src.index("return _forward(")
+    fn = getattr(ops, function)
+    assert issubclass(fn, torch.autograd.Function)
+    assert f"{module}_bwd(" in inspect.getsource(fn.backward)
 
 
 # ---------------------------------------------------------------------------
