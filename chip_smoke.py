@@ -58,7 +58,14 @@ every phase passed):
               train shape, bf16, G < H, a ragged L and a non-zero dh_final,
               and ``moe_router_bwd`` within 1e-6 of its plain version at
               moonshot's and kimi's routing, T = 8 and ties; both bit-equal
-              across two runs.
+              across two runs; then, on a generator of its own
+              (``BWD_REDESIGN_SEED``), the SSD backward at a group of 12
+              heads (head blocks of 8 and 4).  Each SSD backward record has
+              its bounds at f32's FMA rate and at the tensor cores' with the
+              passes its kernels take, their shares of the device time, and
+              the scratch bytes it moves, and at L = 8192 a profile of one
+              call by kernel; the SM clock is sampled after the SSD backward
+              cases.
               Last, decode's device time at 1-128 splits beside the card
               plan's pick (``SPLIT_SWEEP``), from which the plan's constants
               were set.
@@ -89,7 +96,8 @@ every phase passed):
               idle and stall numbers and the launches per step of every
               kernel with a backward (a forward per layer, one more per
               layer of a repeated group under remat, a backward per layer;
-              fewer fails), then a profiled step.  Then each of the three
+              fewer fails), then a profiled step with the SM clock sampled
+              before and after it.  Then each of the three
               at 2 layers in f32 (B=1, S=256): one train step through the
               kernels on the card against the same step on CPU copies
               through the plain route (loss, gradient norm, updated
@@ -104,6 +112,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -222,6 +231,14 @@ SSD_BWD_CASES = (
      dict(groups=1, regime="mamba2")),
     ("P32_N16_L100_dh_bf16", 1, 100, 4, 32, 16, "bfloat16", dict(dh_final=True)),
 )
+# The SSD backward's redesign (head blocks of kernel.HEAD_BLOCK heads of one
+# group, summed on chip): a group of 12 heads (blocks of 8 and 4) over a
+# ragged L, f32, with dh_final, on a generator of its own after every earlier
+# case.
+BWD_REDESIGN_SEED = 19
+SSD_BWD_CASES_NEW = (
+    ("grouped_G2_hpg12_L500_dh", 1, 500, 24, 64, 128, "float32", dict(groups=2, dh_final=True)),
+)
 ROUTER_BWD_CASES = (
     ("moonshot_train_T4096", 4096, 64, 6, dict()),
     ("kimi_T4096", 4096, 384, 8, dict()),
@@ -282,6 +299,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def log_clocks(label: str) -> None:
+    """Prints the card's SM clock and its maximum as nvidia-smi reads them
+    (a card under sustained load may clock below its maximum)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        out = f"not read ({e.__class__.__name__})"
+    log(f"clocks {label}: {out}")
+
+
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` in ms (CUDA events around ``iters``
     calls, after ``warmup`` calls)."""
@@ -300,11 +329,16 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def device_ms(fn, iters: int = 20):
-    """Device time of one ``fn()`` call in ms: the kernels' time that
-    ``torch.profiler`` records over ``iters`` calls (after one warm-up
-    call), divided by ``iters``.  Unlike ``time_ms`` it does not count the
-    host's time between launches.  "not measured" when the profiler saw no
-    device time."""
+    """Device time of one ``fn()`` call in ms from ``torch.profiler`` over
+    ``iters`` calls (after one warm-up call).  Unlike ``time_ms`` it does not
+    count the host's time between launches.  The profiler can drop the
+    records of a session's first launches, so each kernel counts at its mean
+    time per recorded launch, times its launches per call (its records over
+    ``iters``, rounded up): right while fewer than ``iters`` of a kernel's
+    launches are dropped.  "not measured" when the profiler saw no device
+    time."""
+    import math
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -315,9 +349,36 @@ def device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / iters if total else "not measured"
+    total = per_call_us([(e.self_device_time_total, e.count) for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and e.count], iters)
+    return total / 1e3 if total else "not measured"
+
+
+def per_call_us(records, calls: int) -> float:
+    """Device time of one call from a profile of ``calls`` calls, given each
+    kernel's (recorded time, recorded launches): its mean time a launch
+    times its launches a call, the records over ``calls`` rounded up."""
+    return sum(t / n * math.ceil(n / calls) for t, n in records if n)
+
+
+def single_call_ms(fn, reps: int = 5) -> float:
+    """The least time of one ``fn()`` call in ms over ``reps`` calls, each
+    between CUDA events after a synchronisation: the device time of a call
+    that runs for milliseconds plus the few microseconds until its first
+    launch reaches the card."""
+    import torch
+
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
 
 
 def profile_device(label: str, fn) -> list:
@@ -341,7 +402,9 @@ def profile_device(label: str, fn) -> list:
     log(dict(profile=label, wall_s=wall, device_busy_s=busy,
              device_idle_share=(1 - busy / wall) if busy else "not measured",
              top_kernels=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
-                               calls=e.count) for e in top]))
+                               calls=e.count,
+                               ms_per_call=e.self_device_time_total / 1e3 / e.count)
+                          for e in top]))
     return [e.key for e in kernels]
 
 
@@ -844,6 +907,39 @@ def ssd_bwd_flops(B, L, H, P, N, chunk=64, groups=None) -> float:
     return sum(ssd_bwd_product_flops(B, L, H, P, N, chunk, groups).values())
 
 
+def ssd_bwd_tensor_core_bound(B, L, H, P, N, chunk, groups, dtype) -> float:
+    """ms for the products of an ssd_scan backward as the kernels take them
+    on the tensor cores.  f32 inputs: every product in three tf32 passes
+    (3xTF32) at 495 TFLOP/s.  bf16 inputs, exact in tf32, skip a pass per
+    exact operand: C.B^T and G one pass, the products with K and P (dx, dB,
+    dC) two, the state terms R^T B, R x and h dy three, the backward chunk
+    state two, all at tf32's rate; the recomputed forward chunk state runs
+    the forward's bf16 route, two passes at 989."""
+    fl = ssd_bwd_product_flops(B, L, H, P, N, chunk, groups)
+    tf32, bf = PEAK_FLOPS["tf32"], PEAK_FLOPS["bfloat16"]
+    if dtype == "float32":
+        return 3 * sum(fl.values()) / tf32 * 1e3
+    term = fl["state"] / 5  # each of the five state terms
+    tf_flops = fl["cb"] + fl["g"] + 2 * (fl["wdy"] + fl["dbdc"]) + (3 + 3 + 3 + 2) * term
+    return (tf_flops / tf32 + 2 * term / bf) * 1e3
+
+
+def ssd_bwd_scratch_bytes(B, L, H, P, N, groups, dtype) -> int:
+    """Bytes of scratch an ssd_scan backward moves through device memory at
+    least: the chunk states' buffer written and read by the forward's kernels
+    1-2 and then, holding R, written by the backward chunk states, read and
+    written by the reverse pass and read by the chunk kernel (6 times); the
+    entering states written and read; the head blocks' partials of dB and dC
+    written and read (kernel.bwd_scratch_bytes)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.kernel import bwd_scratch_bytes
+
+    by = bwd_scratch_bytes(B, L, H, groups or H, P, N, getattr(torch, dtype))
+    return (6 * by["rstate"] + 2 * by["hp"] + 2 * (by["dB_part"] + by["dC_part"])
+            + 2 * (by["cq"] + by["da_part"] + by["dD_part"]))
+
+
 def ssd_bwd_ratio(got, want) -> float:
     """Largest |got - want| over allclose's allowance with rtol = 5e-4 and
     atol = 5e-4 x the RMS of ``want`` (the forward's SSD_TOL); 1 or less
@@ -909,8 +1005,15 @@ def ssd_bwd_case(name, B, L, H, P, N, dtype, groups=None, regime="jax", dh_final
     v = ssd_bwd_verdict(got, again, want, dtype)
     del got, again, want
     torch.cuda.empty_cache()
-    kernel_ms = time_ms(lambda: ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh), iters, 1)
+    # at the main shapes 20 back-to-back calls: the host runs far ahead of
+    # the card, so the events time the card's work
+    kernel_ms = time_ms(lambda: ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh),
+                        20 if L >= 8192 else iters, 2)
     kernel_device_ms = device_ms(lambda: ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh), iters)
+    one_call_ms = single_call_ms(lambda: ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh))
+    if L >= 8192:  # the main shapes: where the backward's device time goes, by kernel
+        profile_device(f"ssd_scan_bwd/{name} x4",
+                       lambda: [ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh) for _ in range(4)])
     plain_ms = time_ms(lambda: ssd_scan_bwd_ref(x, dt, a, Bm, Cm, D, dy, dh), 1, 1)
     flops = ssd_bwd_flops(B, L, H, P, N, BWD_CHUNK, G)
     # x, dy, B, C read and dx, dB, dC written; dt read and ddt written; a, D,
@@ -918,15 +1021,23 @@ def ssd_bwd_case(name, B, L, H, P, N, dtype, groups=None, regime="jax", dh_final
     nbytes = (3 * x.numel() + 4 * Bm.numel()) * x.element_size() + 4 * (
         2 * dt.numel() + 4 * H + (0 if dh is None else dh.numel()))
     bound_ms, bound_by = bound(flops, nbytes, "float32")
+    tc_bound_ms = ssd_bwd_tensor_core_bound(B, L, H, P, N, BWD_CHUNK, G, dtype)
+    scratch = ssd_bwd_scratch_bytes(B, L, H, P, N, G, dtype)
+    measured = kernel_device_ms if isinstance(kernel_device_ms, float) else None
     rec = dict(kernel="ssd_scan_bwd", case=name,
                shape=dict(B=B, L=L, H=H, P=P, N=N, G=G, dh_final=dh_final), regime=regime,
                dtype=dtype, max_abs_err=max(v["errs"].values()), errs=v["errs"],
                criterion="allclose rtol=atol/rms=5e-4" if dtype == "float32" else "row rule",
                err_over_allowed=v["crit"], limit=v["lim"],
                bit_equal_across_runs=v["bit_equal"], kernel_ms=kernel_ms,
-               device_ms=kernel_device_ms, plain_ms=plain_ms, library_ms=None,
+               device_ms=kernel_device_ms, single_call_ms=one_call_ms, plain_ms=plain_ms,
+               library_ms=None,
                bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
-               ok=v["ok"])
+               device_bound_share=bound_ms / measured if measured else None,
+               tensor_core_bound_ms=tc_bound_ms,
+               device_tensor_core_share=tc_bound_ms / measured if measured else None,
+               scratch_bytes=scratch, scratch_ms=scratch / HBM_BYTES_PER_S * 1e3,
+               chunk=BWD_CHUNK, ok=v["ok"])
     log(rec)
     torch.cuda.empty_cache()
     return rec
@@ -964,13 +1075,18 @@ def router_bwd_case(name, T, E, k, ties=False, iters=20, gen=None):
 
 def backward_cases():
     """The cases of the SSD and router backward kernels, on their own
-    generator (``BWD_SEED``)."""
+    generator (``BWD_SEED``), then those of the SSD backward's redesign on
+    another (``BWD_REDESIGN_SEED``)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(BWD_SEED)
     recs = [ssd_bwd_case(name, *shape, gen=g, **kw) for name, *shape, kw in SSD_BWD_CASES]
+    log_clocks("after the ssd_scan_bwd parity cases")
     recs += [router_bwd_case(name, *shape, gen=g, **kw)
              for name, *shape, kw in ROUTER_BWD_CASES]
+    g_new = torch.Generator(device="cuda").manual_seed(BWD_REDESIGN_SEED)
+    recs += [ssd_bwd_case(name, *shape, gen=g_new, **kw)
+             for name, *shape, kw in SSD_BWD_CASES_NEW]
     return recs
 
 
@@ -1686,7 +1802,9 @@ def phase_train(arch, replace, S, steps):
 
         _, _, counts, peak = counted(f"train {arch} {steps} steps", run_steps)
         feed = feeder.metrics.summary()
+        log_clocks(f"before the {arch} train profile")
         profile_device(f"{arch}/train_step", lambda: step(state, feeder.next()))
+        log_clocks(f"after the {arch} train profile")
     steady = secs[1:] if len(secs) > 1 else secs
     sps = sum(steady) / len(steady)
     log(dict(phase="train", arch=arch, layers=cfg.num_layers, B=1, S=S, steps=steps,

@@ -4,7 +4,8 @@ library is built on its first launch."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -16,6 +17,7 @@ MAX_STATE = 128  # N: a multiple of 16 up to this
 MAX_CHUNK = 128
 STATE_PIECES = {torch.float32: 1, torch.bfloat16: 2}  # of each entering state (Route::KH)
 BWD_CHUNK = 64  # the backward's chunk (kQ in csrc/ssd_scan_bwd.cu)
+HEAD_BLOCK = 8  # heads of one group a block of the backward takes (kHeadBlock there)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -58,6 +60,39 @@ def ssd_scan_fwd(
     _build.check(lib, "ssd_scan", err)
 
 
+def bwd_scratch(Bsz: int, L: int, H: int, G: int, P: int, N: int,
+                dtype: torch.dtype) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Shape and dtype of each scratch tensor of one backward call, as
+    ``ssd_scan_bwd_launch`` allocates them: the forward's chunk states
+    ``rstate`` (B, H, nc, P, N) f32, which then hold the gradients of the
+    states leaving each chunk; the entering states' pieces ``hp`` in x's
+    type; their log-decays ``cq`` and the final state ``h_final`` that
+    ``ssd_scan_states`` also writes; the head blocks' partials of dB and dC
+    (B, L, G, head blocks, N) f32 (a block sums its ``HEAD_BLOCK`` heads on
+    chip); and the partials of da and dD (B, H, nc) f64."""
+    Q = min(BWD_CHUNK, L)
+    nc = -(-L // Q)
+    nhb = -(-(H // G) // HEAD_BLOCK)
+    f32, f64 = torch.float32, torch.float64
+    return {
+        "rstate": ((Bsz, H, nc, P, N), f32),
+        "hp": ((Bsz, H, nc, STATE_PIECES[dtype], P, N), dtype),
+        "cq": ((Bsz, H, nc), f32),
+        "h_final": ((Bsz, H, N, P), f32),
+        "dB_part": ((Bsz, L, G, nhb, N), f32),
+        "dC_part": ((Bsz, L, G, nhb, N), f32),
+        "da_part": ((Bsz, H, nc), f64),
+        "dD_part": ((Bsz, H, nc), f64),
+    }
+
+
+def bwd_scratch_bytes(Bsz: int, L: int, H: int, G: int, P: int, N: int,
+                      dtype: torch.dtype) -> Dict[str, int]:
+    """Bytes of each scratch tensor of ``bwd_scratch``."""
+    return {name: math.prod(shape) * torch.empty((), dtype=dt).element_size()
+            for name, (shape, dt) in bwd_scratch(Bsz, L, H, G, P, N, dtype).items()}
+
+
 def ssd_scan_bwd_launch(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     D: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor], dx: torch.Tensor,
@@ -66,39 +101,29 @@ def ssd_scan_bwd_launch(
     """Runs the backward on the current stream and writes dx, ddt, da, dB,
     dC and dD.  First the forward's chunk states and state passing
     (``ssd_scan_states``) recompute the states entering each chunk of
-    ``BWD_CHUNK`` tokens, then the backward's kernels run.  Scratch,
-    allocated here: the forward's chunk states (B, H, nc, P, N) f32, which
-    then hold the gradients of the states leaving each chunk, the entering
-    states' pieces in x's type, dB and dC per head (B, L, H, N) f32, and the
-    partials of da and dD (B, H, nc) f64.  Inputs are checked by the caller
-    (``ops.ssd_scan_bwd``)."""
+    ``BWD_CHUNK`` tokens, then the backward's kernels run.  Scratch as
+    ``bwd_scratch`` lists it, allocated here.  Inputs are checked by the
+    caller (``ops.ssd_scan_bwd``)."""
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q = min(BWD_CHUNK, L)
-    nc = -(-L // Q)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    states = torch.empty((Bsz, H, nc, P, N), **f32)
-    hp = torch.empty((Bsz, H, nc, STATE_PIECES[x.dtype], P, N), dtype=x.dtype, device=x.device)
-    cq = torch.empty((Bsz, H, nc), **f32)
-    h_final = torch.empty((Bsz, H, N, P), **f32)
+    w = {name: torch.empty(shape, dtype=dt, device=x.device)
+         for name, (shape, dt) in bwd_scratch(Bsz, L, H, G, P, N, x.dtype).items()}
     lib = _lib("ssd_scan", "ssd_scan_states", [_P] * 8 + [_I] * 8 + [_P])
     err = lib.ssd_scan_states(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(), h_final.data_ptr(),
-        states.data_ptr(), hp.data_ptr(), cq.data_ptr(), Bsz, L, H, G, P, N, Q,
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(), w["h_final"].data_ptr(),
+        w["rstate"].data_ptr(), w["hp"].data_ptr(), w["cq"].data_ptr(), Bsz, L, H, G, P, N, Q,
         DTYPES[x.dtype], _stream(x),
     )
     _build.check(lib, "ssd_scan", err)
-    rstate = states  # the forward's chunk states are spent: the backward's take their place
-    dB_h = torch.empty((Bsz, L, H, N), **f32)
-    dC_h = torch.empty((Bsz, L, H, N), **f32)
-    da_part = torch.empty((Bsz, H, nc), dtype=torch.float64, device=x.device)
-    dD_part = torch.empty((Bsz, H, nc), dtype=torch.float64, device=x.device)
+    # the forward's chunk states are spent: the backward's take their place
     lib = _lib("ssd_scan_bwd", "ssd_scan_bwd", [_P] * 21 + [_I] * 8 + [_P])
     err = lib.ssd_scan_bwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
-        dy.data_ptr(), None if dh is None else dh.data_ptr(), hp.data_ptr(), cq.data_ptr(),
-        dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dD.data_ptr(), rstate.data_ptr(), dB_h.data_ptr(), dC_h.data_ptr(), da_part.data_ptr(),
-        dD_part.data_ptr(), Bsz, L, H, G, P, N, Q, DTYPES[x.dtype], _stream(x),
+        dy.data_ptr(), None if dh is None else dh.data_ptr(), w["hp"].data_ptr(),
+        w["cq"].data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dD.data_ptr(), w["rstate"].data_ptr(), w["dB_part"].data_ptr(),
+        w["dC_part"].data_ptr(), w["da_part"].data_ptr(), w["dD_part"].data_ptr(), Bsz, L, H, G,
+        P, N, Q, DTYPES[x.dtype], _stream(x),
     )
     _build.check(lib, "ssd_scan_bwd", err)

@@ -144,9 +144,10 @@ def ssd_scan_bwd(
     Bsz, L, H, P = x.shape
     _check(x, dt, a, Bm, Cm, D, min(BWD_CHUNK, L))
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or not (
-            dy.is_contiguous()):
-        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous {x.dtype} {tuple(x.shape)} on "
-                         f"{x.device}; got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+            dy.is_contiguous()) or dy.data_ptr() % 16:
+        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous, 16-byte aligned {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}; got {dy.dtype} {tuple(dy.shape)} on "
+                         f"{dy.device}")
     want_h = (Bsz, H, Bm.shape[3], P)
     if dh_final is not None and (tuple(dh_final.shape) != want_h or dh_final.dtype
                                  != torch.float32 or dh_final.device != x.device

@@ -264,3 +264,149 @@ def ssd_scan_bwd_ref(
     return (unchunk(dx).to(x.dtype), unchunk(ddt).to(out_t), da.to(out_t),
             group_sum(unchunk(dB)).to(Bm.dtype), group_sum(unchunk(dC)).to(Cm.dtype),
             dD.to(out_t))
+
+
+def ssd_scan_bwd_chunked_model(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    dy: torch.Tensor,
+    dh_final: Optional[torch.Tensor] = None,
+    chunk: int = 64,
+    head_block: int = 8,
+) -> Tuple[torch.Tensor, ...]:
+    """A plain model of ``csrc/ssd_scan_bwd.cu``'s decomposition with the
+    kernels' precision split, for the CPU tests (nothing on the card calls
+    it).  Outputs as ``ssd_scan_bwd_ref``.  Per chunk of ``chunk`` tokens:
+
+    * the forward's chunk states and state passing recompute the entering
+      states h_c (as ``ssd_scan_chunked_model``; bf16 inputs keep them as
+      two bf16 pieces); the backward chunk states (exp(cum) o dy)^T C and the
+      reverse pass give R_c;
+    * per head: P^T = (x dy^T) o L^T on the causal entries only (i >= j; the
+      rest are zeros, which add nothing) and Z^T = P^T o B C^T, whose row sums
+      are vcol and whose dt-weighted column sums are rowz; dC = (exp(cum) o
+      dy) h_c^T + (P o dt) B in one sum, its first part dotted with C first
+      (exp(cum_i) u_i); dx = dt o (K^T dy + (e_out o B) R_c) + D dy with K^T =
+      B C^T o L^T; dB = dt o ((e_out o x) R_c^T + P^T C), its first part
+      dotted with B first (e_out_j v_j); dcum = rowz - dt vcol + exp(cum) u -
+      dt e_out v (f64), at the chunk's last row also exp(cum_last) <h_c, R_c>
+      + sum_j dt_j e_out_j v_j; ddt = vcol + e_out v + a revcumsum(dcum); dD
+      the sum of G's diagonal;
+    * dB and dC summed over each block of ``head_block`` heads of a group in
+      head order (the last block of a group takes what is left), then over
+      the group's blocks in order.
+
+    Every product of the backward's own kernels takes its f32 operands as
+    tf32 hi + lo, three passes (lo.hi, hi.lo, hi.hi): hi the value cut to
+    tf32, lo the remainder (exact in f32) cut to tf32 as the tensor cores read
+    it; a bf16 operand is exact in tf32, so its lo piece is 0, as the kernel
+    skips it.  The in-chunk cumsum is f64 and each exponent
+    its f64 difference rounded to f32."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    Q = min(chunk, L)
+    nc = -(-L // Q)
+    pad = nc * Q - L
+    group = torch.arange(H) // hpg
+
+    def chunks(t):  # (B, L, X, ...) -> (B, nc, X, Q, ...) f32, zero past L
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(Bsz, nc, Q, *t.shape[2:]).transpose(2, 3)
+
+    def trunc(t):  # t cut to tf32, as the tensor cores read an f32 operand
+        return (t.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+    def split(t):  # ssd_scan_bwd.cu's split: hi = x cut to tf32, lo = the rest, cut
+        hi = trunc(t)
+        return hi, trunc(t.float() - hi)
+
+    def tc(eq, a_, b_):
+        (ah, al), (bh, bl) = split(a_), split(b_)
+        return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+    xq, dyq = chunks(x), chunks(dy)  # (B, nc, H, Q, P)
+    Bg, Cg = chunks(Bm), chunks(Cm)  # (B, nc, G, Q, N)
+    Bq, Cq = Bg[:, :, group], Cg[:, :, group]  # (B, nc, H, Q, N)
+    dtq = chunks(dt)  # (B, nc, H, Q)
+    s64 = torch.cumsum(dtq.double(), dim=-1)
+    cum = s64 * a.double()[None, None, :, None]
+    last = cum[..., -1:]
+    e_in = torch.exp(cum.float())
+    e_out = torch.exp((last - cum).float())
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))  # [i, j]: j <= i
+    Lt = torch.where(tri.T, torch.exp((cum[..., None, :] - cum[..., :, None]).float()), 0.0)
+
+    # 0. the entering states, as the forward's kernels 1-2 compute them
+    if x.dtype == torch.float32:
+        S = tc("bchjn,bchjp->bchnp", Bq * (e_out * dtq)[..., None], xq)
+    else:
+        S = _split_product("bchjn,bchjp->bchnp", Bq * (e_out * dtq)[..., None], xq, 2, 1)
+    decay = torch.exp(last[..., 0].float())  # (B, nc, H)
+    h = torch.zeros((Bsz, H, N, P))
+    hin = []
+    for c in range(nc):
+        if x.dtype == torch.float32:
+            hin.append(h)
+        else:  # two bf16 pieces
+            hi = h.to(torch.bfloat16).float()
+            hin.append(hi + (h - hi).to(torch.bfloat16).float())
+        h = decay[:, c, :, None, None] * h + S[:, c]
+    hin = torch.stack(hin, dim=1)  # (B, nc, H, N, P)
+    # 1-2. the backward chunk states and the reverse pass
+    Sb = tc("bchin,bchip->bchnp", Cq, e_in[..., None] * dyq)
+    R = torch.zeros((Bsz, H, N, P)) if dh_final is None else dh_final.float()
+    Rout = [None] * nc
+    for c in reversed(range(nc)):
+        Rout[c] = R
+        R = decay[:, c, :, None, None] * R + Sb[:, c]
+    Rc = torch.stack(Rout, dim=1)  # (B, nc, H, N, P)
+
+    # 3. per chunk and head
+    BC = tc("bcgjn,bcgin->bcgji", Bg, Cg)[:, :, group]  # B.C^T (j, i), once per group
+    Gt = tc("bchjp,bchip->bchji", xq, dyq)
+    Pt = Gt * Lt
+    Zt = Pt * BC  # Z^T: G o L o C.B^T at (j, i)
+    vcol = Zt.sum(-1)
+    rowz = (Zt * dtq[..., :, None]).sum(-2)
+    acc = tc("bchip,bchnp->bchin", e_in[..., None] * dyq, hin)
+    eu = (Cq * acc).sum(-1)  # exp(cum_i) C_i . h_c dy_i
+    dC = acc + tc("bchji,bchjn->bchin", Pt * dtq[..., :, None], Bq)
+    dx = (dtq[..., None] * (tc("bchji,bchip->bchjp", BC * Lt, dyq)
+                            + tc("bchjn,bchnp->bchjp", e_out[..., None] * Bq, Rc))
+          + D.float()[None, None, :, None, None] * dyq)
+    acc = tc("bchjp,bchnp->bchjn", e_out[..., None] * xq, Rc)
+    ev = (Bq * acc).sum(-1)  # exp(cum_last - cum_j) B_j . R_c x_j
+    dB = dtq[..., None] * (acc + tc("bchji,bchin->bchjn", Pt, Cq))
+    dtd = dtq.double()
+    dcum = (rowz.double() - dtd * vcol.double() + eu.double() - dtd * ev.double())
+    dcum[..., -1] += (torch.exp(last[..., 0]) * (hin.double() * Rc.double()).sum((-2, -1))
+                      + (dtd * ev.double()).sum(-1))
+    rev = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = vcol.double() + ev.double() + a.double()[None, None, :, None] * rev
+    da = (dcum * s64).sum((0, 1, 3))
+    dD = torch.diagonal(Gt, dim1=-2, dim2=-1).double().sum((0, 1, 3))
+
+    def unchunk(t):  # (B, nc, X, Q, ...) -> (B, L, X, ...)
+        t = t.transpose(2, 3)
+        return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :L]
+
+    def group_sum(t):  # (B, L, H, N): head blocks in head order, then the blocks
+        out = []
+        for grp in range(G):
+            total = None
+            for h0 in range(grp * hpg, (grp + 1) * hpg, head_block):
+                part = t[:, :, h0]
+                for hh in range(h0 + 1, min(h0 + head_block, (grp + 1) * hpg)):
+                    part = part + t[:, :, hh]
+                total = part if total is None else total + part
+            out.append(total)
+        return torch.stack(out, dim=2)
+
+    return (unchunk(dx).to(x.dtype), unchunk(ddt).float(), da.float(),
+            group_sum(unchunk(dB)).to(Bm.dtype), group_sum(unchunk(dC)).to(Cm.dtype),
+            dD.float())

@@ -17,7 +17,11 @@ or smaller.  Tolerances:
   order);
 * ``moe_router_bwd_ref`` against ``jax.grad`` of the gates of ``repro.
   kernels.moe_router.ref.moe_router_ref``: 1e-6, the gates' tolerance of
-  ``TestMoERouter``.
+  ``TestMoERouter``;
+* ``ssd_scan_bwd_chunked_model`` (the plain model of the card kernel's
+  decomposition: causal tiles, head blocks summed on chip, 3xTF32 operand
+  splits) against ``jax.grad`` and against ``ssd_scan_bwd_ref`` in f64: the
+  same 5e-4, bf16's 2^-8 added to rtol.
 """
 import sys
 from pathlib import Path
@@ -37,7 +41,9 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.moe_router import moe_router_bwd, moe_router_bwd_ref, moe_router_ref
 from repro_torch.kernels.moe_router import ops as router_ops
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_chunked_model
 
 ROOT = Path(__file__).resolve().parent.parent
 SSD_TOL = 5e-4
@@ -124,6 +130,111 @@ def test_ssd_bwd_ref_matches_autograd_in_f64(G, L, chunk, dh_final):
     for name, g, w in zip(NAMES, got, want):
         assert g.dtype == torch.float64
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-8, rtol=1e-8, err_msg=name)
+
+
+# (B, L, H, P, N, G, regime, dtype, dh_final, head_block) of the chunked
+# model at the kernel's chunk (64): a group of 12 heads over blocks of 8 (8 +
+# 4) and of 6 over blocks of 4, ragged last chunks (150, 130, 100, 90 tokens),
+# L < chunk (40), the mixer's regime, non-zero dh_final, bf16
+MODEL_CASES = {
+    "hpg12_head_block8_ragged_L150": (1, 150, 12, 32, 16, 1, "jax", "float32", False, 8),
+    "G2_hpg6_head_block4_ragged_L100_dh": (2, 100, 12, 32, 16, 2, "jax", "float32", True, 4),
+    "L40_below_chunk_mamba2_regime_dh": (1, 40, 8, 32, 16, 1, "mamba2", "float32", True, 8),
+    "mamba2_regime_ragged_L130_hpg12": (1, 130, 12, 32, 16, 1, "mamba2", "float32", False, 8),
+    "bf16_G2_hpg12_ragged_L90_dh": (1, 90, 24, 32, 16, 2, "jax", "bfloat16", True, 8),
+    "bf16_mamba2_regime_L70_P64": (1, 70, 8, 64, 32, 1, "mamba2", "bfloat16", False, 8),
+}
+
+
+def _model_inputs(case):
+    B, L, H, P, N, G, regime, dtype, dh_final, head_block = MODEL_CASES[case]
+    x, dt, a, Bm, Cm, D, dy, dh = _ssd_inputs(13, B, L, H, P, N, G, regime, dh_final)
+    tdt = getattr(torch, dtype)
+    tx, tB, tC, tdy = (torch.from_numpy(t).to(tdt) for t in (x, Bm, Cm, dy))
+    tdh = None if dh is None else torch.from_numpy(dh)
+    ins = (tx, torch.from_numpy(dt), torch.from_numpy(a), tB, tC, torch.from_numpy(D), tdy)
+    got = ssd_scan_bwd_chunked_model(*ins, tdh, chunk=ssd_kernel.BWD_CHUNK,
+                                     head_block=head_block)
+    return ins, tdh, got
+
+
+def _assert_grads_close(got, want, what):
+    for name, g, w in zip(NAMES, got, want):
+        rtol = SSD_TOL + (BF16_STEP if g.dtype == torch.bfloat16 else 0.0)
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, dtype=np.float64),
+                                   atol=SSD_TOL, rtol=rtol, err_msg=f"{name} vs {what}")
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_ssd_bwd_chunked_model_matches_ref(case):
+    """The kernel's decomposition against the plain backward in f64 on the
+    same (rounded) inputs."""
+    ins, dh, got = _model_inputs(case)
+    want = ssd_scan_bwd_ref(*(t.double() for t in ins), None if dh is None else dh.double())
+    for g, t in zip(got, (ins[0], ins[1], ins[2], ins[3], ins[4], ins[5])):
+        assert g.shape == t.shape and g.dtype == t.dtype
+    _assert_grads_close(got, [w.numpy() for w in want], "ssd_scan_bwd_ref")
+
+
+@pytest.mark.parametrize("case", sorted(c for c, v in MODEL_CASES.items() if not v[8]))
+def test_ssd_bwd_chunked_model_matches_jax_grad(case):
+    """The kernel's decomposition against jax.grad of the JAX reference (the
+    token recurrence, which has no final-state output: the cases without
+    dh_final)."""
+    ins, _, got = _model_inputs(case)
+    x, dt, a, Bm, Cm, D, dy = (t.float().numpy() for t in ins)
+    _assert_grads_close(got, _jax_ssd_grads(x, dt, a, Bm, Cm, D, dy), "jax.grad")
+
+
+def test_ssd_bwd_scratch_reckoning_matches_the_launch(monkeypatch):
+    """``kernel.bwd_scratch`` at mamba2-2.7b's train shape (B 1, L 8192, H 80,
+    P 64, N 128, G 1, f32) is what ``ssd_scan_bwd_launch`` allocates: R and
+    the entering states 335.5 MB each in f32, the head blocks' partials of dB
+    and dC 41.9 MB each (10 blocks of 8 heads, where the per-head sums were
+    335.5 MB each)."""
+    seen = []
+    real_empty = torch.empty
+
+    def spy(shape, *args, **kw):
+        seen.append((tuple(shape), kw.get("dtype")))
+        return real_empty(shape, *args, **kw)
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = lambda *args: 0  # noqa: E731
+            fn.argtypes = fn.restype = None
+            return fn
+
+    monkeypatch.setattr(ssd_kernel, "_lib", lambda *args: Lib())
+    monkeypatch.setattr(ssd_kernel, "_stream", lambda t: 0)
+    monkeypatch.setattr(ssd_kernel.torch, "empty", spy)
+    B, L, H, P, N, G = 1, 8192, 80, 64, 128, 1
+    meta = dict(device="meta", dtype=torch.float32)
+    x, dy = real_empty((B, L, H, P), **meta), real_empty((B, L, H, P), **meta)
+    dt, Bm = real_empty((B, L, H), **meta), real_empty((B, L, G, N), **meta)
+    vec = real_empty((H,), **meta)
+    outs = [real_empty(t.shape, **meta) for t in (x, dt, vec, Bm, Bm, vec)]
+    ssd_kernel.ssd_scan_bwd_launch(x, dt, vec, Bm, Bm, vec, dy, None, *outs)
+    want = ssd_kernel.bwd_scratch(B, L, H, G, P, N, torch.float32)
+    assert seen == list(want.values())
+    mb = {k: v / 1e6 for k, v in ssd_kernel.bwd_scratch_bytes(B, L, H, G, P, N,
+                                                               torch.float32).items()}
+    assert mb["rstate"] == mb["hp"] == pytest.approx(335.5, abs=0.1)
+    assert mb["dB_part"] == mb["dC_part"] == pytest.approx(41.9, abs=0.1)
+    assert want["dB_part"][0] == (B, L, G, 10, N)
+    # bf16 keeps the entering states as two bf16 pieces: the same bytes
+    assert ssd_kernel.bwd_scratch_bytes(B, L, H, G, P, N, torch.bfloat16)["hp"] == (
+        ssd_kernel.bwd_scratch_bytes(B, L, H, G, P, N, torch.float32)["hp"])
+
+
+def test_ssd_bwd_head_block_matches_the_kernel_source():
+    """The wrapper's head block and chunk are the CUDA source's."""
+    import re
+
+    src = (ROOT / "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu").read_text()
+    assert int(re.search(r"constexpr int kHeadBlock = (\d+);", src).group(1)) == (
+        ssd_kernel.HEAD_BLOCK)
+    assert int(re.search(r"constexpr int kQ = (\d+);", src).group(1)) == ssd_kernel.BWD_CHUNK
 
 
 @pytest.mark.parametrize("T,E,k,ties", [(64, 8, 2, False), (100, 16, 4, True),

@@ -663,17 +663,37 @@ def test_no_spill_kernels_name_every_kernel_of_the_new_sources():
 
 def test_backward_cases_draw_from_their_own_generator(monkeypatch):
     """The SSD and router backward cases draw from the generator seeded
-    BWD_SEED, after every earlier case and before the split sweep."""
+    BWD_SEED, after every earlier case; then the SSD backward redesign's case
+    from one seeded BWD_REDESIGN_SEED; then the split sweep."""
     calls = _phase_kernels_draws(monkeypatch)
     names = [c[0] for c in chip_smoke.SSD_BWD_CASES + chip_smoke.ROUTER_BWD_CASES]
+    new = [c[0] for c in chip_smoke.SSD_BWD_CASES_NEW]
     seeds = [seed for _, _, seed in calls]
     assert [name for _, name, seed in calls if seed == chip_smoke.BWD_SEED] == names
-    assert chip_smoke.BWD_SEED not in (0, 14, chip_smoke.NEW_CASES_SEED, chip_smoke.SWEEP_SEED,
-                                       chip_smoke.D112_REDESIGN_SEED)
+    assert [name for _, name, seed in calls if seed == chip_smoke.BWD_REDESIGN_SEED] == new
+    earlier = (0, 14, chip_smoke.NEW_CASES_SEED, chip_smoke.SWEEP_SEED,
+               chip_smoke.D112_REDESIGN_SEED)
+    assert chip_smoke.BWD_SEED not in earlier
+    assert chip_smoke.BWD_REDESIGN_SEED not in earlier + (chip_smoke.BWD_SEED,)
     first = seeds.index(chip_smoke.BWD_SEED)
-    assert seeds[first:-1] == [chip_smoke.BWD_SEED] * len(names)
+    assert seeds[first:-1] == ([chip_smoke.BWD_SEED] * len(names)
+                               + [chip_smoke.BWD_REDESIGN_SEED] * len(new))
     assert calls[-1][0] == "decode_split_sweep"
     assert [name for _, name, seed in calls if seed == 0] == SEED0_CASES
+
+
+def test_new_ssd_bwd_case_splits_a_group_into_uneven_head_blocks():
+    """The redesign's case has a group whose head count is not a multiple of
+    the kernel's head block (12 heads: blocks of 8 and 4), in f32, with a
+    ragged L and a non-zero dh_final."""
+    from repro_torch.kernels.ssd_scan.kernel import BWD_CHUNK, HEAD_BLOCK
+
+    ((B, L, H, P, N, dtype), kw), = [(tuple(shape), kw)
+                                     for _, *shape, kw in chip_smoke.SSD_BWD_CASES_NEW]
+    hpg = H // kw["groups"]
+    assert hpg % HEAD_BLOCK and hpg > HEAD_BLOCK
+    assert dtype == "float32" and kw["dh_final"] and L % BWD_CHUNK
+    assert (P, N) == (64, 128)
 
 
 def test_backward_cases_cover_the_train_paths():
@@ -720,6 +740,47 @@ def test_ssd_bwd_bound_at_the_main_shape():
     assert total == pytest.approx(70.113e9, rel=1e-4)
     assert chip_smoke.bound(total, 1e9, "float32") == (pytest.approx(1.0465, rel=1e-3),
                                                          "operations")
+
+
+def test_ssd_bwd_tensor_core_bound_at_the_main_shape():
+    """f32: 3 tf32 passes of the 70.1 GFLOP at 495 TFLOP/s, 0.425 ms.  bf16:
+    one pass for C.B^T and G, two for the products with K and P and for the
+    backward chunk state, three for the other state terms, and the forward's
+    chunk state two bf16 passes at 989."""
+    f32 = chip_smoke.ssd_bwd_tensor_core_bound(1, 8192, 80, 64, 128, 64, 1, "float32")
+    assert f32 == pytest.approx(3 * 70.113e9 / 495e12 * 1e3, rel=1e-4)
+    fl = chip_smoke.ssd_bwd_product_flops(1, 8192, 80, 64, 128, 64, 1)
+    term = fl["state"] / 5
+    want = ((fl["cb"] + fl["g"] + 2 * (fl["wdy"] + fl["dbdc"]) + 11 * term) / 495e12
+            + 2 * term / 989e12) * 1e3
+    bf = chip_smoke.ssd_bwd_tensor_core_bound(1, 8192, 80, 64, 128, 64, 1, "bfloat16")
+    assert bf == pytest.approx(want, rel=1e-9) and bf < f32
+
+
+def test_ssd_bwd_scratch_bytes_at_the_main_shape():
+    """R and the chunk states' buffer (335.5 MB) six times, the entering
+    states twice, the head blocks' partials of dB and dC (41.9 MB each)
+    twice: about 2.85 GB, where the function's own inputs and outputs are
+    0.53 GB."""
+    by = chip_smoke.ssd_bwd_scratch_bytes(1, 8192, 80, 64, 128, 1, "float32")
+    mb = 335.544320
+    assert by / 1e6 == pytest.approx(6 * mb + 2 * mb + 4 * 41.94304, rel=1e-3)
+
+
+def test_per_call_time_survives_dropped_records():
+    """A profile of 4 calls of a backward (one launch of a kernel, two of
+    another a call) that lost one call's first records still gives one
+    call's device time: 1000 + 2 x 200 us."""
+    assert chip_smoke.per_call_us([(3000.0, 3), (1400.0, 7)], 4) == pytest.approx(1400.0)
+    assert chip_smoke.per_call_us([(4000.0, 4), (1600.0, 8)], 4) == pytest.approx(1400.0)
+    assert chip_smoke.per_call_us([], 4) == 0
+
+
+def test_log_clocks_survives_a_missing_nvidia_smi(monkeypatch, capsys):
+    """Off the card the clock line says the clocks were not read."""
+    monkeypatch.setenv("PATH", "/nonexistent")
+    chip_smoke.log_clocks("probe")
+    assert "clocks probe: not read" in capsys.readouterr().out
 
 
 def _ssd_grads(seed, dtype="float32"):
