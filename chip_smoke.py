@@ -60,7 +60,17 @@ every phase passed):
               moonshot's and kimi's routing, T = 8 and ties; both bit-equal
               across two runs; then, on a generator of its own
               (``BWD_REDESIGN_SEED``), the SSD backward at a group of 12
-              heads (head blocks of 8 and 4).  Each SSD backward record has
+              heads (head blocks of 8 and 4).  Right after the flash
+              backward cases, on a generator of their own
+              (``ENCDEC_VLM_SEED``), whisper-large-v3's and qwen2-vl-2b's
+              shapes: flash without the causal mask at B = 8, S = 1500
+              (every key tile live, the last ragged) and Sq = 448 != Sk =
+              1500, bf16 at both tiles and f32, qwen2-vl's causal prefill
+              at G = 6 and whisper's causal decoder self-attention (B = 8,
+              S = 448), each run twice for bit-equal outputs and timed on
+              the device beside SDPA; decode over the encoder's fixed
+              length (G = 1), at G = 6, and over whisper's 448-row self
+              cache at lengths up to 64, in bf16.  Each SSD backward record has
               its bounds at f32's FMA rate and at the tensor cores' with the
               passes its kernels take, their shares of the device time, and
               the scratch bytes it moves, and at L = 8192 a profile of one
@@ -71,11 +81,20 @@ every phase passed):
               were set.
 3. models   - at full width, random weights from a seeded generator, for
               starcoder2-3b (dense), mamba2-2.7b (SSM), moonshot-v1-16b-a3b
-              (MoE, bf16 parameters) and kimi-k2-1t-a32b (MoE, head dim 112,
-              bf16 parameters, its first 2 layers): (a) a prefill, (b) a
-              ServeEngine answering 8 requests, (c) teacher-forced decode
-              logits against forward logits in f32 (moonshot at 4 of its 48
-              layers, kimi at its dense first layer).  Launch counters are
+              (MoE, bf16 parameters), kimi-k2-1t-a32b (MoE, head dim 112,
+              bf16 parameters, its first 2 layers) and qwen2-vl-2b (VLM,
+              prefill from embeddings with Qwen2-VL's M-RoPE positions):
+              (a) a prefill, (b) a ServeEngine answering 8 requests, (c)
+              teacher-forced decode logits against forward logits in f32
+              (moonshot at 4 of its 48 layers, kimi at its dense first
+              layer, qwen2-vl at 2 layers).  Then whisper-large-v3
+              (enc-dec, not cut; ``phase_encdec``): (a) a prefill of 8 clips
+              (1500 frames, 448 tokens), (b) the encoder once and 64 greedy
+              decode steps (``greedy_decode``: ServeEngine drives
+              decoder-only models), (c) its forward and 8 decode steps in
+              f32 at 2 + 2 layers on the card against the CPU plain route
+              (the reference's decode applies rope and its forward does
+              not, so decode is not held against forward).  Launch counters are
               reset just before and read just after each of (a)-(c), and a
               run with fewer launches than the model's layers need fails;
               each phase logs its peak device memory and (a), (b) a profile
@@ -211,6 +230,43 @@ AUGMENT_CASES_NEW = (
     ("odd_W_B16_67x131x3_45x99", 16, 67, 131, 3, 45, 99),
     ("wide_row_B2_40x1500x3_33x1111", 2, 40, 1500, 3, 33, 1111),
     ("C7_B4_33x35x7_20x21", 4, 33, 35, 7, 20, 21),
+)
+# Cases of the enc-dec (whisper-large-v3) and VLM (qwen2-vl-2b) slice, at
+# routes no earlier case ran at these sizes.  They draw from a generator of
+# their own (ENCDEC_VLM_SEED), after the flash backward cases.  Flash (name,
+# B, Sq, Sk, Hq, Hkv, D, dtype, options):
+# whisper's encoder (non-causal, S = 1500 = 11 x 128 + 92, so every key
+# tile is live and the last one ragged, and B = 8, so the TMA map's batch
+# boundary is live) and its cross-attention (448 decoder rows, 3.5 query
+# tiles, over 1500 encoder rows, non-causal), bf16 and f32; qwen2-vl's
+# prefill (12/2 heads, G = 6, causal); whisper's decoder self-attention
+# (causal, S = 448, 3.5 query tiles, B = 8).  Decode (name, B, S, Hq, Hkv,
+# D, dtype, lengths, options): whisper's cross decode (every row's length the
+# encoder's 1500, G = 1: the CUDA-core route), qwen2-vl's serve shape (G =
+# 6, rounded up to 8 rows on the CUDA-core route) at ragged lengths, and
+# whisper's self decode (a 448-row cache, G = 1, lengths up to the 64
+# serving steps: one split of the card's plan).  Each
+# flash case also runs twice for bit-equal outputs and is timed on the device;
+# all_tiles: every forward tile of the dtype.
+ENCDEC_VLM_SEED = 20
+FLASH_CASES_ENCDEC_VLM = (
+    ("whisper_encoder_S1500", 8, 1500, 1500, 20, 20, 64, "bfloat16",
+     dict(causal=False, all_tiles=True)),
+    ("whisper_encoder_S1500_f32", 8, 1500, 1500, 20, 20, 64, "float32",
+     dict(causal=False, all_tiles=True, iters=5)),
+    ("whisper_cross_Sq448_Sk1500", 8, 448, 1500, 20, 20, 64, "bfloat16",
+     dict(causal=False, all_tiles=True)),
+    ("whisper_cross_Sq448_Sk1500_f32", 8, 448, 1500, 20, 20, 64, "float32",
+     dict(causal=False, all_tiles=True, iters=5)),
+    ("qwen2vl_prefill_S4096", 1, 4096, 4096, 12, 2, 128, "bfloat16", dict(iters=5)),
+    ("whisper_decoder_self_S448", 8, 448, 448, 20, 20, 64, "bfloat16", dict(all_tiles=True)),
+)
+DECODE_CASES_ENCDEC_VLM = (
+    ("whisper_cross_L1500", 8, 1500, 20, 20, 64, "bfloat16", [1500] * 8, dict()),
+    ("qwen2vl_serve_G6", 8, 256, 12, 2, 128, "bfloat16", [1, 17, 64, 65, 100, 128, 200, 256],
+     dict()),
+    ("whisper_self_B8_S448", 8, 448, 20, 20, 64, "bfloat16", [1, 4, 33, 64, 64, 64, 64, 64],
+     dict()),
 )
 # Cases of the backward kernels.  They draw from a generator of their own
 # (BWD_SEED), after every earlier case and before the split sweep.  SSD
@@ -545,9 +601,12 @@ def _visible_pairs(Sq, Sk, causal, window, q_offset=0) -> int:
 
 
 def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softcap=0.0,
-               q_offset=0, blocks=None, iters=10, library=True, gen=None):
+               q_offset=0, blocks=None, iters=10, library=True, twice=False, gen=None):
     """The forward kernel at each tile of ``blocks`` (default: the dtype's
-    default tile) against its plain version in f32 on the same inputs."""
+    default tile) against its plain version in f32 on the same inputs.
+    ``twice``: the first tile also runs a second time and must give a
+    bit-equal output, and the kernel and SDPA are also timed on the device
+    (``device_ms``, ``library_device_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -573,7 +632,16 @@ def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softca
     ok = (err <= tol and spread <= tol and (rel_tol is None or rel <= rel_tol)
           and all(bool(torch.isfinite(o).all()) for o in outs))
     bq, bk = blocks[0]
-    kernel_ms = time_ms(lambda: flash_attention(q, k, v, block_q=bq, block_k=bk, **kw), iters)
+
+    def kernel():
+        return flash_attention(q, k, v, block_q=bq, block_k=bk, **kw)
+
+    extra = {}
+    if twice:
+        extra["bit_equal_across_runs"] = torch.equal(kernel(), outs[0])
+        ok = ok and extra["bit_equal_across_runs"]
+        extra["device_ms"] = device_ms(kernel, iters)
+    kernel_ms = time_ms(kernel, iters)
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), max(2, iters // 5), 1)
     library_ms = None
     if library and softcap == 0.0:
@@ -593,6 +661,8 @@ def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softca
                 qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
 
         library_ms = time_ms(sdpa, iters)
+        if twice:
+            extra["library_device_ms"] = device_ms(sdpa, iters)
     flops = flash_flops(B, Sq, Sk, Hq, D, causal, window, q_offset)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, bound_by = bound(flops, nbytes, dtype)
@@ -604,7 +674,7 @@ def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softca
                row_rel_err=rel, rel_tol=rel_tol,
                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by, tflops=achieved_tflops(flops, kernel_ms),
-               bound_share=bound_ms / kernel_ms, ok=ok)
+               bound_share=bound_ms / kernel_ms, **extra, ok=ok)
     log(rec)
     del want32, want, outs
     torch.cuda.empty_cache()
@@ -1399,6 +1469,7 @@ def phase_kernels(main_S: int):
         augment_case("imagenet_B256", 256, 256, 256, 3, 224, 224, gen=g),
     ]
     recs += flash_bwd_cases(main_S, g, g_edges)
+    recs += encdec_vlm_cases()
     recs += d112_and_redesign_cases()
     recs += backward_cases()
     decode_split_sweep()
@@ -1408,6 +1479,25 @@ def phase_kernels(main_S: int):
     log(f"kernel parity: {len(recs)} cases passed; launches while comparing "
         f"(not counted as main path): {launch_counts()}")
     reset_launch_counts()
+    return recs
+
+
+def encdec_vlm_cases():
+    """The flash and decode cases of whisper-large-v3 and qwen2-vl-2b, on
+    their own generator (``ENCDEC_VLM_SEED``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import TILES
+
+    g = torch.Generator(device="cuda").manual_seed(ENCDEC_VLM_SEED)
+    recs = []
+    for name, *shape, dtype, kw in FLASH_CASES_ENCDEC_VLM:
+        kw = dict(kw)
+        if kw.pop("all_tiles", False):
+            kw["blocks"] = TILES[getattr(torch, dtype)]
+        recs.append(flash_case(name, *shape, dtype, twice=True, gen=g, **kw))
+    recs += [decode_case(name, *shape, gen=g, **kw)
+             for name, *shape, kw in DECODE_CASES_ENCDEC_VLM]
     return recs
 
 
@@ -1478,7 +1568,9 @@ def flash_bwd_cases(main_S: int, g, g_edges):
 # (head dim 112, 384 experts top-8) is cut to its first 2 layers (1 dense +
 # 1 MoE: 17.2 B parameters in the layers, 39.1 GB in bf16 with the embedding
 # and the head; the whole model has 1 T), and its f32 check to the dense
-# layer (the f32 MoE layer alone would be 67.6 GB).
+# layer (the f32 MoE layer alone would be 67.6 GB).  qwen2-vl-2b (VLM, 12/2
+# heads, M-RoPE) is not cut: it prefills from embeddings with Qwen2-VL's
+# position layout (``prefill_batch``); its f32 check runs at 2 layers.
 MODELS = (
     ("starcoder2-3b", {}, PREFILL_S, {}, (32,)),
     ("mamba2-2.7b", {}, 8192, {}, (32, 40)),
@@ -1486,7 +1578,26 @@ MODELS = (
      {"param_dtype": "float32", "num_layers": 4, "capacity_factor": 64.0}, (32,)),
     ("kimi-k2-1t-a32b", {"num_layers": 2, "param_dtype": "bfloat16"}, 4096,
      {"param_dtype": "float32", "num_layers": 1}, (32,)),
+    ("qwen2-vl-2b", {}, 4096, {"num_layers": 2}, (32,)),
 )
+# Qwen2-VL's text-image-text prompt of the VLM prefill: 256 text tokens, a
+# 60 x 60 grid of merged patches (a 1680 x 1680 image at patch 14, merge 2),
+# then text to 4096 tokens.
+VLM_TEXT, VLM_GRID = 256, 60
+# whisper-large-v3 (enc-dec) is not cut.  Prefill: B = 8 clips of 1500
+# encoder frames and 448 decoder tokens (max_target_positions of the
+# published openai/whisper-large-v3 config).  Serving: the encoder once
+# (init_cache), then WHISPER_STEPS greedy decode steps, the first
+# WHISPER_PROMPT teacher-forced.  Its f32 check (WHISPER_CHECK layers, B = 2,
+# S = 32, 8 decode steps) holds the card against the port's CPU plain route
+# at atol = rtol = 1e-4, the gradient-norm tolerance of the train checks:
+# the reference applies rope in its decode and not in its forward, so decode
+# is not held against forward.
+WHISPER = "whisper-large-v3"
+WHISPER_B, WHISPER_S = 8, 448
+WHISPER_STEPS, WHISPER_PROMPT = 64, 4
+WHISPER_CHECK = {"encoder_layers": 2, "num_layers": 2}
+WHISPER_CHECK_TOL = 1e-4
 # A kernel of PyTorch's sort-based scatter-add (index_put_ with accumulate):
 # the MoE dispatch is a plain assignment, so no prefill profile may hold it.
 SORT_SCATTER_KERNEL = "indexing_backward_kernel"
@@ -1495,9 +1606,15 @@ SORT_SCATTER_KERNEL = "indexing_backward_kernel"
 def expected_launches(cfg):
     """Kernel launches of one forward and of one decode step: one per
     attention layer (flash / decode), per mamba2 layer (ssd_scan, forward
-    only: decode runs the recurrence) and per MoE layer (moe_router)."""
+    only: decode runs the recurrence) and per MoE layer (moe_router).  An
+    enc-dec forward runs flash in each encoder layer and twice (self and
+    cross) in each decoder layer; its decode step runs decode twice a
+    decoder layer."""
     from repro_torch.models.lm import layer_pattern
 
+    if cfg.family == "encdec":
+        return ({"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers},
+                {"decode_attention": 2 * cfg.num_layers})
     pattern = layer_pattern(cfg)
     attn = sum(m == "attn" for m, _ in pattern)
     ssm = sum(m == "ssm" for m, _ in pattern)
@@ -1536,6 +1653,36 @@ def counted(label, fn):
     return out, dt_s, counts, torch.cuda.max_memory_allocated() / 1e9
 
 
+def qwen2vl_positions(S: int, device=None):
+    """(1, S, 3) M-RoPE positions (t, h, w) as Qwen2-VL lays out a
+    text-image-text prompt: ``VLM_TEXT`` text tokens at (i, i, i), a
+    ``VLM_GRID`` x ``VLM_GRID`` image at (p, p + row, p + col) with p =
+    ``VLM_TEXT``, then text from the image's largest position + 1."""
+    import torch
+
+    n_img = VLM_GRID * VLM_GRID
+    row, col = torch.arange(n_img) // VLM_GRID, torch.arange(n_img) % VLM_GRID
+    image = torch.stack([torch.full_like(row, VLM_TEXT), VLM_TEXT + row, VLM_TEXT + col], -1)
+    tail = VLM_TEXT + VLM_GRID + torch.arange(S - VLM_TEXT - n_img)
+    pos = torch.cat([torch.arange(VLM_TEXT)[:, None].expand(-1, 3), image,
+                     tail[:, None].expand(-1, 3)])
+    return pos[None].to(device=device, dtype=torch.int32)
+
+
+def prefill_batch(cfg, S: int, gen):
+    """One prefill sequence of S tokens drawn from ``gen``: token ids, or for
+    the VLM family embeddings (the vision stub's input) with Qwen2-VL's
+    M-RoPE positions."""
+    import torch
+
+    from repro_torch.models.layers import cdt
+
+    if cfg.family == "vlm":
+        embeds = torch.randn((1, S, cfg.d_model), generator=gen, device=gen.device)
+        return {"embeds": embeds.to(cdt(cfg)), "positions": qwen2vl_positions(S, gen.device)}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device=gen.device)}
+
+
 def phase_model(arch, replace, prefill_S, check_replace, check_lengths):
     """One model at full width (random weights from a seeded generator):
     (a) prefill of ``prefill_S`` tokens, (b) a ServeEngine answering 8
@@ -1571,16 +1718,16 @@ def phase_model(arch, replace, prefill_S, check_replace, check_lengths):
     # (a) prefill; a short warm-up first
     model.forward(cparams, {"tokens": torch.randint(0, cfg.vocab_size, (1, 256), device="cuda")},
                   last_token_only=True)
-    toks = torch.randint(0, cfg.vocab_size, (1, prefill_S), generator=gen, device="cuda")
+    batch = prefill_batch(cfg, prefill_S, gen)
     logits, secs, counts, peak = counted(
-        f"{arch} prefill", lambda: model.forward(cparams, {"tokens": toks}, last_token_only=True))
+        f"{arch} prefill", lambda: model.forward(cparams, batch, last_token_only=True))
     if logits.shape != (1, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         raise SystemExit(f"{arch} prefill logits bad: shape {tuple(logits.shape)}")
     require_launches(f"{arch} prefill", counts, per_forward, 1)
     totals = dict(counts)
     log(dict(phase=f"{arch}/prefill", B=1, S=prefill_S, seconds=secs,
              tokens_per_s=prefill_S / secs, max_memory_allocated_gb=peak))
-    ran = profile_device(f"{arch}/prefill", lambda: model.forward(cparams, {"tokens": toks},
+    ran = profile_device(f"{arch}/prefill", lambda: model.forward(cparams, batch,
                                                                   last_token_only=True))
     if any(SORT_SCATTER_KERNEL in name for name in ran):
         raise SystemExit(f"{arch} prefill ran the sort-based scatter {SORT_SCATTER_KERNEL}")
@@ -1650,6 +1797,140 @@ def phase_model(arch, replace, prefill_S, check_replace, check_lengths):
     torch.cuda.empty_cache()
     return totals
 
+
+def greedy_decode(model, params, enc_embeds, prompt, steps: int, max_seq: int):
+    """An enc-dec model's serving loop (``ServeEngine`` drives decoder-only
+    models): the encoder once (``init_cache``), then ``steps`` decode steps,
+    the prompt's tokens (B, P) teacher-forced, then greedy.  Returns the
+    tokens it generated (B, steps - P + 1) and the cache."""
+    import torch
+
+    cache = model.init_cache(params, prompt.shape[0], max_seq, enc_embeds=enc_embeds)
+    out, nxt = [], None
+    for t in range(steps):
+        feed = prompt[:, t] if t < prompt.shape[1] else nxt
+        logits, cache = model.decode_step(params, cache, feed)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if t >= prompt.shape[1] - 1:
+            out.append(nxt)
+    return torch.stack(out, dim=1), cache
+
+
+def phase_encdec(arch=WHISPER):
+    """whisper-large-v3 at its published config (random weights from a
+    seeded generator): (a) a prefill of ``WHISPER_B`` clips (the encoder over
+    their frame embeddings, then ``WHISPER_S`` decoder tokens), (b) serving
+    the same clips through ``greedy_decode``, (c) the f32 check, the card's
+    kernels against the CPU plain route at ``WHISPER_CHECK`` layers.
+    Returns the launches of (a) and (b), the main path."""
+    import gc
+
+    import torch
+
+    from repro_torch.bridge import map_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import cdt
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    per_forward, per_step = expected_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    cparams = model.cast_for_compute(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{arch}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, params {cfg.param_dtype}, compute {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; launches per forward "
+        f"{per_forward}, per decode step {per_step}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, S, Senc = WHISPER_B, WHISPER_S, cfg.encoder_seq
+    enc = torch.randn((B, Senc, cfg.d_model), generator=gen, device="cuda").to(cdt(cfg))
+    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    batch = {"enc_embeds": enc, "tokens": toks}
+
+    # (a) prefill; a short warm-up first
+    model.forward(cparams, {"enc_embeds": enc[:1], "tokens": toks[:1, :16]}, last_token_only=True)
+    logits, secs, counts, peak = counted(
+        f"{arch} prefill", lambda: model.forward(cparams, batch, last_token_only=True))
+    if logits.shape != (B, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{arch} prefill logits bad: shape {tuple(logits.shape)}")
+    require_launches(f"{arch} prefill", counts, per_forward, 1)
+    totals = dict(counts)
+    log(dict(phase=f"{arch}/prefill", B=B, encoder_S=Senc, S=S, seconds=secs,
+             encoder_frames_per_s=B * Senc / secs, decoder_tokens_per_s=B * S / secs,
+             max_memory_allocated_gb=peak))
+    profile_device(f"{arch}/prefill", lambda: model.forward(cparams, batch, last_token_only=True))
+
+    # (b) serving: the encoder once, then WHISPER_STEPS decode steps
+    prompt = toks[:, :WHISPER_PROMPT].to(torch.int32)
+    (generated, cache), secs, counts, peak = counted(
+        f"{arch} serve", lambda: greedy_decode(model, cparams, enc, prompt, WHISPER_STEPS, S))
+    totals = {k: totals.get(k, 0) + counts.get(k, 0) for k in set(totals) | set(counts)}
+    if (cache["pos"] != WHISPER_STEPS or generated.shape != (B, WHISPER_STEPS - WHISPER_PROMPT + 1)
+            or not bool(((generated >= 0) & (generated < cfg.vocab_size)).all())):
+        raise SystemExit(f"{arch}: serving went wrong: pos {cache['pos']}, tokens "
+                         f"{tuple(generated.shape)}")
+    require_launches(f"{arch} serve", counts, {"flash_attention": cfg.encoder_layers}, 1)
+    require_launches(f"{arch} serve", counts, per_step, WHISPER_STEPS)
+    log(dict(phase=f"{arch}/serve", B=B, decode_steps=WHISPER_STEPS, seconds=secs,
+             steps_per_s=WHISPER_STEPS / secs, batch_tokens_per_s=WHISPER_STEPS * B / secs,
+             max_memory_allocated_gb=peak))
+    feed = torch.ones((B,), dtype=torch.int32, device="cuda")
+
+    def eight_steps():
+        for _ in range(8):
+            model.decode_step(cparams, cache, feed)
+
+    profile_device(f"{arch}/serve_8_decode_steps", eight_steps)
+    del cparams, params, cache, logits, batch, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) f32: the card's kernels against the CPU plain route, same parameters
+    cfg32 = cfg.replace(dtype="float32", **WHISPER_CHECK)
+    model32 = build_model(cfg32)
+    p_card = model32.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    p_cpu = map_with_paths(p_card, lambda _, t: t.cpu())
+    enc32 = torch.randn((2, Senc, cfg.d_model), generator=gen, device="cuda")
+    toks32 = torch.randint(1, cfg.vocab_size, (2, 32), generator=gen, device="cuda")
+
+    def run(params, enc_embeds, tokens):
+        full = model32.forward(params, {"enc_embeds": enc_embeds, "tokens": tokens})
+        cache = model32.init_cache(params, 2, 32, enc_embeds=enc_embeds)
+        dec = torch.stack([model32.decode_step(params, cache, tokens[:, t])[0]
+                           for t in range(8)], dim=1)
+        return full, dec
+
+    (full, dec), _, counts, peak = counted(f"{arch} f32_card_vs_cpu",
+                                           lambda: run(p_card, enc32, toks32))
+    per_forward32, per_step32 = expected_launches(cfg32)
+    require_launches(f"{arch} f32_card_vs_cpu", counts,
+                     {"flash_attention": per_forward32["flash_attention"] + cfg32.encoder_layers},
+                     1)
+    require_launches(f"{arch} f32_card_vs_cpu", counts, per_step32, 8)
+    t0 = time.perf_counter()
+    full_cpu, dec_cpu = run(p_cpu, enc32.cpu(), toks32.cpu())
+    cpu_s = time.perf_counter() - t0
+    tol = WHISPER_CHECK_TOL
+    errs = {name: (float((got.cpu() - want).abs().max()),
+                   bool(torch.allclose(got.cpu(), want, atol=tol, rtol=tol)))
+            for name, got, want in (("forward", full, full_cpu), ("decode", dec, dec_cpu))}
+    log(dict(phase=f"{arch}/f32_card_vs_cpu", encoder_layers=cfg32.encoder_layers,
+             decoder_layers=cfg32.num_layers, B=2, encoder_S=Senc, S=32, decode_steps=8,
+             max_abs_err={k: e for k, (e, _) in errs.items()}, atol=tol, rtol=tol,
+             cpu_seconds=cpu_s, ok=all(ok for _, ok in errs.values()),
+             max_memory_allocated_gb=peak))
+    if not all(ok for _, ok in errs.values()):
+        raise SystemExit(f"{arch}: card and CPU disagree in f32: {errs}")
+    del p_card, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 # ---------------------------------------------------------------------------
 # phase 4
@@ -1953,6 +2234,7 @@ def main() -> int:
 
     for spec in MODELS:
         add(phase_model(*spec))
+    add(phase_encdec())
     add(phase_augment(torch.Generator(device="cuda").manual_seed(2)))
     for run in TRAIN_RUNS:
         add(phase_train(*run))

@@ -2,8 +2,9 @@
 repo, beside the JAX package ``repro`` (the reference).  It imports neither
 ``jax`` nor anything of ``repro``.
 
-It serves and trains decoder-only LMs of the dense, MoE, SSM (mamba2) and
-hybrid (jamba) families on one NVIDIA H100: configs (``repro_torch.configs``),
+It serves and trains the models of every family - decoder-only LMs (dense,
+MoE, SSM (mamba2), hybrid (jamba), the VLM backbone (qwen2-vl)) and the
+encoder-decoder (whisper) - on one NVIDIA H100: configs (``repro_torch.configs``),
 the model (``repro_torch.models``), the serving engine
 (``repro_torch.serve``), the feed from the data service
 (``repro_torch.feed``), training (``repro_torch.train``) and the

@@ -1,13 +1,15 @@
 """Carries parameter trees between the JAX model and the port, through numpy.
 
 ``params_from_jax(tree)`` turns a numpy pytree from the JAX
-``LanguageModel.init`` (``jax.device_get`` of it) into the port's parameters;
+``LanguageModel.init`` or ``EncDecModel.init`` (``jax.device_get`` of it)
+into the port's parameters;
 ``params_to_numpy(params)`` goes the other way.  Both keep the tree as it is
 (nested dicts and lists, stacked groups with their leading repeats dim), so
 every leaf maps to exactly one tensor under the same key.  Keys are those of
 the JAX checkpoint format: path components joined by "/", dict keys sorted,
 list items by index (``group0/0/attn/wq``, ``group1/0/moe/router``,
-``group0/0/ssm/conv_w``): every family's leaves carry across the same way,
+``group0/0/ssm/conv_w``, and the enc-dec's ``dec/xattn/wk``, stacked over
+its layers): every family's leaves carry across the same way,
 and ``like`` checks them against the port's own layout (a mamba2 block
 without an FFN has no ``ln2`` on either side).  Nothing here imports JAX.
 """
@@ -76,7 +78,7 @@ def params_from_jax(
     """The port's parameters from a numpy pytree of the JAX model.
 
     ``device`` defaults to the CPU (the tree comes from host memory).  With
-    ``like`` (e.g. ``LanguageModel(cfg).init(device="cpu")``), the result must
+    ``like`` (e.g. ``build_model(cfg).init(device="cpu")``), the result must
     have exactly its keys, shapes and dtypes, or this raises.
     """
     dev = None if device is None else torch.device(device)

@@ -1,14 +1,19 @@
-"""repro_torch.models - decoder-only LMs in PyTorch (dense, MoE, SSM and
-hybrid families; enc-dec and VLM raise until their slice lands)."""
-from .config import SHAPES, ModelConfig, ShapeConfig
-from .lm import LanguageModel, require_ported
+"""repro_torch.models - the model zoo in PyTorch: decoder-only LMs (dense,
+MoE, SSM, hybrid, VLM backbone) and the encoder-decoder (whisper)."""
+from typing import Union
 
-Model = LanguageModel
+from .config import SHAPES, ModelConfig, ShapeConfig
+from .encdec import EncDecModel
+from .lm import LanguageModel
+
+Model = Union[LanguageModel, EncDecModel]
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    require_ported(cfg)
+    if cfg.family == "encdec":
+        return EncDecModel(cfg)
     return LanguageModel(cfg)
 
 
-__all__ = ["LanguageModel", "Model", "ModelConfig", "SHAPES", "ShapeConfig", "build_model"]
+__all__ = ["EncDecModel", "LanguageModel", "Model", "ModelConfig", "SHAPES", "ShapeConfig",
+           "build_model"]

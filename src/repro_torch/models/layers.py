@@ -1,12 +1,14 @@
-"""PyTorch model layers of the dense, MoE and mamba2 (SSD) families (twins
-of the JAX package's ``repro/models/layers.py``).
+"""PyTorch model layers of every family (twins of the JAX package's
+``repro/models/layers.py``, and of ``EncDecModel._cross_decode`` as
+``cross_attention_decode``).
 
 Conventions:
   * params are (nested) dicts of tensors; apply fns are plain functions.
   * compute dtype = cfg.dtype (bf16 on the card); accumulations in f32.
   * Route rule, the same for every layer that has a kernel: on a CUDA tensor
     the layer always runs the hand-written Hopper kernel (``flash_attention``
-    for prefill/forward attention, ``decode_attention`` for each decode step,
+    for prefill/forward attention, self and cross, ``decode_attention`` for
+    each decode step and each cross-attention decode step,
     ``ssd_scan`` in ``mamba2_mixer``, ``moe_router`` in ``moe_ffn``): the
     port has no XLA, so ``attn_impl`` "xla" and "pallas" name the same thing
     on the card.  On a CPU tensor, "xla" runs the twin of the JAX
@@ -27,7 +29,7 @@ Conventions:
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,16 +73,22 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(
     x: torch.Tensor,  # (B, S, H, D)
-    positions: torch.Tensor,  # (B, S) integer
+    positions: torch.Tensor,  # (B, S) integer, or (B, S, 3) for M-RoPE
     theta: float,
     mrope: bool = False,
 ) -> torch.Tensor:
-    if mrope and positions.dim() == 3:
-        raise NotImplementedError("M-RoPE (3-stream positions) comes with the VLM slice "
-                                  "(ROADMAP queue 1, item 3)")
     D = x.shape[-1]
     freqs = rope_freqs(D, theta, x.device)  # (D/2,)
-    angles = positions.float()[:, :, None] * freqs[None, None, :]
+    if mrope and positions.dim() == 3:
+        # M-RoPE (qwen2-vl): the rotary channels split into 3 sections,
+        # D//2//3, D//2//3 and the rest, driven by the (temporal, height,
+        # width) position streams.
+        sec = D // 2 // 3
+        bounds = (0, sec, 2 * sec, D // 2)
+        angles = torch.cat([positions[..., i].float()[:, :, None]
+                            * freqs[None, None, bounds[i]:bounds[i + 1]] for i in range(3)], -1)
+    else:
+        angles = positions.float()[:, :, None] * freqs[None, None, :]
     cos = torch.cos(angles)[:, :, None, :]  # (B, S, 1, D/2)
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -141,11 +149,16 @@ def _attn_chunked(
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
+         src: Optional[torch.Tensor] = None):
+    """q from ``x``; k and v from ``src`` (the cross-attention source), or
+    from ``x`` when it is None."""
+    src = x if src is None else src
     B, S, _ = x.shape
+    Sk = src.shape[1]
     q = (x @ params["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = (src @ params["wk"].to(x.dtype)).reshape(B, Sk, cfg.num_kv_heads, cfg.head_dim)
+    v = (src @ params["wv"].to(x.dtype)).reshape(B, Sk, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -156,17 +169,23 @@ def attention(
     params: Params,
     x: torch.Tensor,  # (B, S, d)
     cfg: ModelConfig,
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S), or (B, S, 3) for M-RoPE
     causal: bool = True,
+    kv_x: Optional[torch.Tensor] = None,  # (B, Sk, d): the cross-attention source
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Self-attention over the whole sequence (train / prefill)."""
+    """Attention over the whole sequence (train / prefill): self-attention,
+    or cross-attention over ``kv_x`` (no rope, no causal mask, Sq != Sk)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(params, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    q, k, v = _qkv(params, x, cfg, kv_x)
+    if use_rope and kv_x is None:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    causal = causal and kv_x is None
     if x.device.type == "cpu" and cfg.attn_impl == "xla":
         out = _attn_chunked(q, k, v, q_offset=0, causal=causal, window=cfg.attn_window,
-                            chunk=min(cfg.attn_chunk, S), softcap=cfg.attn_logit_softcap)
+                            chunk=min(cfg.attn_chunk, k.shape[1]),
+                            softcap=cfg.attn_logit_softcap)
     else:
         # The JAX Pallas branch drops cfg.attn_logit_softcap (layers.py:190-195)
         # while its XLA branch applies it; the port passes it on both, which
@@ -175,6 +194,21 @@ def attention(
         out = flash_attention(q, k, v, causal=causal, window=cfg.attn_window,
                               softcap=cfg.attn_logit_softcap)
     return out.reshape(B, S, cfg.q_dim) @ params["wo"].to(x.dtype)
+
+
+def _decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX's einsum decode of q (B, Hq, D) over k, v (B, S, Hkv, D): q scaled
+    in f32 and rounded to the cache's dtype, f32 scores (keys outside the (S,)
+    ``mask`` dropped, if given), an f32 softmax.  Returns (B, Hkv, G, D) f32."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qf = (q.float() * (1.0 / math.sqrt(D))).to(k.dtype).reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf.float(), k.float())
+    if mask is not None:
+        s = torch.where(mask[None, None, None, :], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
 
 
 def attention_decode(
@@ -201,25 +235,40 @@ def attention_decode(
     k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
 
-    Hkv, G, D = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
     if x_t.device.type == "cpu" and cfg.attn_impl == "xla":
-        scale = 1.0 / math.sqrt(D)
-        qf = (q.float() * scale).to(k_cache.dtype).reshape(B, Hkv, G, D)
-        s = torch.einsum("bhgd,bkhd->bhgk", qf.float(), k_cache.float())
         kv_pos = torch.arange(k_cache.shape[1], device=x_t.device)
         mask = kv_pos <= pos
         if cfg.attn_window > 0:
             mask &= kv_pos > pos - cfg.attn_window
-        s = torch.where(mask[None, None, None, :], s, -torch.inf)
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
-        out = out.to(x_t.dtype)
+        out = _decode_plain(q[:, 0], k_cache, v_cache, mask).to(x_t.dtype)
     else:
         lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x_t.device)
         out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths,
                                window=cfg.attn_window)
     out = out.reshape(B, 1, cfg.q_dim) @ params["wo"].to(x_t.dtype)
     return out, cache
+
+
+def cross_attention_decode(
+    params: Params,
+    x_t: torch.Tensor,  # (B, 1, d)
+    xk: torch.Tensor,  # (B, Senc, Hkv, D): the layer's precomputed cross K
+    xv: torch.Tensor,  # (B, Senc, Hkv, D)
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """One decoder token's cross-attention over the whole encoder output
+    (twin of JAX ``EncDecModel._cross_decode``): no rope, no q norm, no
+    mask, no cache write.  On a CUDA tensor it runs the decode kernel with
+    ``lengths = Senc`` for every sequence; on the CPU ("xla") JAX's einsums,
+    q scaled in f32 and rounded to the cache's dtype, an f32 softmax."""
+    B = x_t.shape[0]
+    q = (x_t @ params["wq"].to(x_t.dtype)).reshape(B, cfg.num_heads, cfg.head_dim)
+    if x_t.device.type == "cpu" and cfg.attn_impl == "xla":
+        out = _decode_plain(q, xk, xv).to(x_t.dtype)
+    else:
+        lengths = torch.full((B,), xk.shape[1], dtype=torch.int32, device=x_t.device)
+        out = decode_attention(q.contiguous(), xk, xv, lengths)
+    return out.reshape(B, 1, cfg.q_dim) @ params["wo"].to(x_t.dtype)
 
 
 # ---------------------------------------------------------------------------

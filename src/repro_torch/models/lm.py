@@ -1,5 +1,6 @@
-"""Decoder-only language model: dense, MoE, SSM (mamba2) and hybrid (jamba)
-families (twin of the JAX package's ``repro/models/lm.py``).
+"""Decoder-only language model: dense, MoE, SSM (mamba2), hybrid (jamba) and
+VLM-backbone (qwen2-vl) families (twin of the JAX package's
+``repro/models/lm.py``).
 
 Layers are organised into *groups* (sub-pattern, repeats) exactly as in the
 JAX model, and the parameters keep that layout: ``params["group<i>"]`` is a
@@ -12,7 +13,8 @@ the scanned body: its activations are recomputed in the backward.  Serving
 (no grad) is unaffected.
 
 Forward signature is batch-dict based: ``{"tokens": (B, S) integer}``, with
-optional ``"positions"`` (B, S).
+optional ``"positions"`` (B, S).  A VLM batch may hold ``"embeds"`` (B, S,
+d_model) in place of tokens, with (B, S, 3) M-RoPE ``"positions"``.
 """
 from __future__ import annotations
 
@@ -35,20 +37,6 @@ LayerSpec = Tuple[str, str]  # (mixer: attn|ssm, ffn: dense|moe|none)
 # B and C to f32 in both frameworks.
 MATMUL_LEAVES = ("embed", "lm_head", "wq", "wk", "wv", "wo", "w1", "w2", "w3",
                  "router", "in_proj", "out_proj")
-
-UNPORTED_FAMILIES = {
-    "encdec": "ROADMAP queue 1, item 3 (enc-dec and VLM)",
-    "vlm": "ROADMAP queue 1, item 3 (enc-dec and VLM)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; "
-            f"see {UNPORTED_FAMILIES[cfg.family]}"
-        )
-
 
 # ---------------------------------------------------------------------------
 # Layer grouping
@@ -157,11 +145,32 @@ def _map_leaves(tree: Any, fn, key: str = "") -> Any:
     return fn(key, tree)
 
 
+def cast_for_compute(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """The same tree with every matmul weight cast once to the compute
+    dtype.  Gives the numbers of the JAX model's per-use ``.astype``; norm
+    scales keep their dtype (the JAX norms read them in f32)."""
+    dt = L.cdt(cfg)
+    return _map_leaves(params, lambda k, t: t.to(dt) if k in MATMUL_LEAVES else t)
+
+
+def init_generator(generator: Union[torch.Generator, int], device) -> Tuple[torch.Generator,
+                                                                             torch.device]:
+    """(generator, device) of a model's ``init``: ``device`` resolved (CUDA
+    unless the caller asks for "cpu"), an int seeding a generator there."""
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, parameters on {dev}")
+    return generator, dev
+
+
 class LanguageModel:
     def __init__(self, cfg: ModelConfig):
-        require_ported(cfg)
         self.cfg = cfg
         self.groups = compute_groups(cfg)
+        # top-level leaves stacked over repeats, and their repeat counts
+        self.repeats = {f"group{gi}": g.repeats for gi, g in enumerate(self.groups)}
 
     # -- params ---------------------------------------------------------
     def init(
@@ -172,11 +181,7 @@ class LanguageModel:
         caller asks for ``"cpu"``).  The JAX model draws other numbers from
         its keys; tests carry JAX's weights across with ``bridge``."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        if isinstance(generator, int):
-            generator = torch.Generator(device=dev).manual_seed(generator)
-        if generator.device.type != dev.type:
-            raise ValueError(f"generator on {generator.device}, parameters on {dev}")
+        generator, dev = init_generator(generator, device)
         pd = L.pdt(cfg)
         params: Dict[str, Any] = {
             "embed": L._init(generator, (cfg.vocab_size, cfg.d_model), 0.02, pd),
@@ -210,11 +215,7 @@ class LanguageModel:
         return p
 
     def cast_for_compute(self, params: Dict[str, Any]) -> Dict[str, Any]:
-        """The same tree with every matmul weight cast once to the compute
-        dtype.  Gives the numbers of the JAX model's per-use ``.astype``;
-        norm scales keep their dtype (the JAX norms read them in f32)."""
-        dt = L.cdt(self.cfg)
-        return _map_leaves(params, lambda k, t: t.to(dt) if k in MATMUL_LEAVES else t)
+        return cast_for_compute(self.cfg, params)
 
     def _layers(self, params: Dict[str, Any]) -> Iterator[Tuple[int, int, int, LayerSpec, Any]]:
         for gi, g in enumerate(self.groups):
@@ -235,9 +236,14 @@ class LanguageModel:
         self, params: Dict[str, Any], batch: Dict[str, Any], last_token_only: bool = False,
     ) -> torch.Tensor:
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = params["embed"].to(L.cdt(cfg))[tokens.long()]
+        if cfg.family == "vlm" and "embeds" in batch:
+            # the vision stub: precomputed patch and text embeddings
+            x = batch["embeds"].to(L.cdt(cfg))
+            B, S, _ = x.shape
+        else:
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            x = params["embed"].to(L.cdt(cfg))[tokens.long()]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)

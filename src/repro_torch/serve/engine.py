@@ -38,7 +38,8 @@ class Request:
 
 
 class ServeEngine:
-    """Minimal batched decoder with static slots.
+    """Minimal batched decoder with static slots, for decoder-only models
+    (an enc-dec model raises, as in JAX).
 
     ``params`` must lie on ``device`` (CUDA unless the caller passes
     ``device="cpu"``); the engine keeps a copy with the matmul weights cast
@@ -47,6 +48,8 @@ class ServeEngine:
 
     def __init__(self, model: Model, params: Any, batch_size: int, max_seq: int,
                  device: DeviceLike = None):
+        if model.cfg.family == "encdec":
+            raise NotImplementedError("ServeEngine drives decoder-only models")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine on {self.device}")

@@ -4,9 +4,9 @@ the JAX package's ``repro.train``).
 Training loops consume batches through ``DeviceFeeder`` (re-exported from
 ``repro_torch.feed``): service fetch and the host→device copy run on a
 background thread behind a double buffer, so the step never blocks on input.
-On the card the dense family trains through the flash-attention forward and
-backward kernels; the kernels of the MoE and SSM families have no backward
-yet and raise when a gradient would pass through them.
+On the card the flash-attention, ``ssd_scan`` and ``moe_router`` kernels
+train through their backward kernels; ``decode_attention`` (serving) raises
+when a gradient would pass through it.
 """
 from ..feed import DeviceFeeder, FeedMetrics
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint

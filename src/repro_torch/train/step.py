@@ -63,10 +63,6 @@ def make_loss_fn(model: Model) -> Callable:
     return loss_fn
 
 
-def _groups(model: Model) -> Dict[str, int]:
-    return {f"group{gi}": g.repeats for gi, g in enumerate(model.groups)}
-
-
 def _graph_leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     leaf = p.detach().requires_grad_(True)
     leaf.grad = g
@@ -112,7 +108,7 @@ def make_train_step(
     ``train_state`` in place."""
     opt_cfg = opt_cfg or opt.AdamWConfig()
     loss_fn = make_loss_fn(model)
-    repeats = _groups(model)
+    repeats = model.repeats
     buffers: Dict[str, Any] = {}
 
     def grad_buffers(params: Any) -> Any:

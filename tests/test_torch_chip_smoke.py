@@ -391,6 +391,12 @@ def test_split_invariance_checks_the_card_plan():
         ("kimi-k2-1t-a32b", {"num_layers": 2}, {"flash_attention": 2, "moe_router": 1},
          {"decode_attention": 2, "moe_router": 1}),
         ("kimi-k2-1t-a32b", {"num_layers": 1}, {"flash_attention": 1}, {"decode_attention": 1}),
+        ("qwen2-vl-2b", {}, {"flash_attention": 28}, {"decode_attention": 28}),
+        # whisper: flash in each encoder layer, self and cross in each decoder
+        # layer; decode self and cross in each decoder layer
+        ("whisper-large-v3", {}, {"flash_attention": 96}, {"decode_attention": 64}),
+        ("whisper-large-v3", {"encoder_layers": 2, "num_layers": 2}, {"flash_attention": 6},
+         {"decode_attention": 4}),
     ],
 )
 def test_expected_launches_follow_the_layers(arch, replace, forward, step):
@@ -404,6 +410,133 @@ def test_require_launches_fails_a_bypassed_kernel():
                                 {"moe_router": 47}, 2)
     with pytest.raises(SystemExit, match="moe_router"):
         chip_smoke.require_launches("bypass", {"moe_router": 93}, {"moe_router": 47}, 2)
+
+
+def test_require_launches_fails_a_whisper_step_without_its_cross_decode():
+    """A whisper decode step that ran only its 32 self-attention decodes (the
+    cross-attention bypassed) fails; one that ran all 64 passes."""
+    from repro_torch.configs import get_config
+
+    _, per_step = chip_smoke.expected_launches(get_config(chip_smoke.WHISPER))
+    steps = chip_smoke.WHISPER_STEPS
+    chip_smoke.require_launches("ok", {"decode_attention": 64 * steps}, per_step, steps)
+    with pytest.raises(SystemExit, match="decode_attention"):
+        chip_smoke.require_launches("no cross", {"decode_attention": 32 * steps}, per_step, steps)
+
+
+def test_whisper_cell_is_the_published_config():
+    """whisper-large-v3 uncut (32 + 32 layers, 1500 frames, 1.53 B
+    parameters), 448 decoder tokens (max_target_positions), a cache deep
+    enough for the serve steps, and the f32 check at 2 + 2 layers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(chip_smoke.WHISPER)
+    assert (cfg.encoder_layers, cfg.num_layers, cfg.encoder_seq, cfg.d_model) == (32, 32, 1500,
+                                                                                 1280)
+    assert cfg.param_counts()["total"] / 1e9 == pytest.approx(1.53, abs=0.01)
+    assert chip_smoke.WHISPER_S == 448 and chip_smoke.WHISPER_B == 8
+    assert chip_smoke.WHISPER_PROMPT < chip_smoke.WHISPER_STEPS <= chip_smoke.WHISPER_S
+    assert chip_smoke.WHISPER_CHECK == {"encoder_layers": 2, "num_layers": 2}
+    assert chip_smoke.WHISPER_CHECK_TOL == chip_smoke.CHECK_TOL["grad_norm"]
+    (arch, replace, prefill_S, check, lengths), = [
+        m for m in chip_smoke.MODELS if m[0] == "qwen2-vl-2b"]
+    assert replace == {} and prefill_S == 4096 and check == {"num_layers": 2}
+
+
+def test_vlm_prefill_batch_is_seeded_with_qwen2vl_positions():
+    """The VLM prefill batch: seeded embeddings and (1, 4096, 3) positions,
+    256 text tokens at (i, i, i), a 60 x 60 grid at (256, 256 + row, 256 +
+    col), then text from 316 on, each text run rising by 1 a token."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-vl-2b").scaled_down()
+    a, b = (chip_smoke.prefill_batch(cfg, 4096, torch.Generator().manual_seed(1))
+            for _ in range(2))
+    c = chip_smoke.prefill_batch(cfg, 4096, torch.Generator().manual_seed(2))
+    assert a.keys() == {"embeds", "positions"} and a["embeds"].shape == (1, 4096, cfg.d_model)
+    assert torch.equal(a["embeds"], b["embeds"]) and not torch.equal(a["embeds"], c["embeds"])
+    pos = a["positions"]
+    assert pos.shape == (1, 4096, 3) and pos.dtype == torch.int32
+    assert torch.equal(pos, c["positions"])
+    text = torch.cat([pos[0, :256], pos[0, 256 + 3600:]])
+    assert bool((text[:, 0] == text[:, 1]).all() and (text[:, 1] == text[:, 2]).all())
+    assert bool((text[1:256, 0] - text[:255, 0] == 1).all())
+    assert bool((text[257:, 0] - text[256:-1, 0] == 1).all())
+    image = pos[0, 256:256 + 3600]
+    assert bool((image[:, 0] == 256).all())
+    assert image[:, 1].min() == 256 and image[:, 1].max() == 256 + 59
+    assert torch.equal(image[61], torch.tensor([256, 257, 257], dtype=torch.int32))
+    assert pos[0, 256 + 3600].tolist() == [316] * 3 and pos[0, -1, 0] == 316 + 239
+    assert chip_smoke.prefill_batch(get_config("starcoder2-3b").scaled_down(), 8,
+                                    torch.Generator()).keys() == {"tokens"}
+
+
+def test_encdec_vlm_cases_draw_from_their_own_generator(monkeypatch):
+    """The whisper and qwen2-vl cases draw from the generator seeded
+    ENCDEC_VLM_SEED, one after another, and no earlier case's inputs move."""
+    calls = _phase_kernels_draws(monkeypatch)
+    names = [c[0] for c in chip_smoke.FLASH_CASES_ENCDEC_VLM + chip_smoke.DECODE_CASES_ENCDEC_VLM]
+    seeds = [seed for _, _, seed in calls]
+    assert [name for _, name, seed in calls if seed == chip_smoke.ENCDEC_VLM_SEED] == names
+    first = seeds.index(chip_smoke.ENCDEC_VLM_SEED)
+    assert seeds[first:first + len(names)] == [chip_smoke.ENCDEC_VLM_SEED] * len(names)
+    assert chip_smoke.ENCDEC_VLM_SEED not in (
+        0, 14, chip_smoke.NEW_CASES_SEED, chip_smoke.SWEEP_SEED, chip_smoke.D112_REDESIGN_SEED,
+        chip_smoke.BWD_SEED, chip_smoke.BWD_REDESIGN_SEED)
+    assert [name for _, name, seed in calls if seed == 0] == SEED0_CASES
+
+
+def test_encdec_vlm_cases_cover_the_new_routes(monkeypatch):
+    """bf16 flash without the causal mask at whisper's encoder (S = 1500, a
+    ragged last key tile at both tiles, B = 8) and cross-attention (Sq = 448
+    != Sk = 1500), each also in f32; qwen2-vl's causal prefill at G = 6;
+    whisper's causal decoder self-attention in bf16 at both tiles (B = 8, S
+    = 448: 3.5 query tiles); decode over the encoder's fixed length (G = 1),
+    at G = 6 in bf16 with ragged lengths, and over whisper's 448-row self
+    cache in bf16 at the serving lengths (one split of the card's plan).
+    Every flash case runs twice and is timed on the device."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import TILE, rows_per_block, split_count
+
+    flash = {name: (shape, kw) for name, *shape, kw in chip_smoke.FLASH_CASES_ENCDEC_VLM}
+    for name in ("whisper_encoder_S1500", "whisper_cross_Sq448_Sk1500"):
+        for suffix, dtype in (("", "bfloat16"), ("_f32", "float32")):
+            shape, kw = flash[name + suffix]
+            assert shape[0] == 8 and shape[3:7] == [20, 20, 64, dtype]
+            assert kw["causal"] is False and kw["all_tiles"]
+            assert shape[2] == 1500 and shape[2] % 128 and shape[2] % 64
+    assert flash["whisper_cross_Sq448_Sk1500"][0][1:3] == [448, 1500]
+    shape, kw = flash["qwen2vl_prefill_S4096"]
+    assert shape == [1, 4096, 4096, 12, 2, 128, "bfloat16"] and kw.get("causal", True)
+    whisper = get_config("whisper-large-v3")
+    heads = [whisper.num_heads, whisper.num_kv_heads, whisper.head_dim, "bfloat16"]
+    S_dec = chip_smoke.WHISPER_S  # max_target_positions of openai/whisper-large-v3
+    shape, kw = flash["whisper_decoder_self_S448"]
+    assert shape == [chip_smoke.WHISPER_B, S_dec, S_dec, *heads] and S_dec % 128
+    assert kw.get("causal", True) and kw["all_tiles"]
+    decode = {name: (shape, kw) for name, *shape, kw in chip_smoke.DECODE_CASES_ENCDEC_VLM}
+    (B, S, Hq, Hkv, D, dtype, lengths), _ = decode["whisper_self_B8_S448"]
+    assert [B, S, Hq, Hkv, D, dtype] == [chip_smoke.WHISPER_B, S_dec, *heads]
+    assert min(lengths) == 1 and max(lengths) == chip_smoke.WHISPER_STEPS <= TILE
+    assert split_count(S, B * Hkv, 132) == 1
+    (B, S, Hq, Hkv, D, dtype, lengths), _ = decode["whisper_cross_L1500"]
+    assert (B, S, Hq, Hkv, D, dtype) == (8, 1500, 20, 20, 64, "bfloat16")
+    assert lengths == [S] * B
+    (B, S, Hq, Hkv, D, dtype, lengths), _ = decode["qwen2vl_serve_G6"]
+    assert (Hq // Hkv, D, dtype) == (6, 128, "bfloat16") and len(set(lengths)) == B
+    assert rows_per_block(torch.bfloat16, Hq // Hkv) == 8  # rounded up, CUDA-core route
+    seen = []
+    monkeypatch.setattr(chip_smoke, "flash_case", lambda name, *a, **kw: seen.append(kw) or
+                        dict(kernel="flash_attention", case=name, ok=True))
+    monkeypatch.setattr(chip_smoke, "decode_case", lambda name, *a, **kw: dict(case=name, ok=True))
+    monkeypatch.setattr(torch, "Generator", lambda device=None: type(
+        "G", (), {"manual_seed": lambda self, s: self})())
+    chip_smoke.encdec_vlm_cases()
+    assert len(seen) == len(flash) and all(kw["twice"] for kw in seen)
 
 
 @pytest.mark.parametrize("arch,replace,want", [

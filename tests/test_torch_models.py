@@ -39,7 +39,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro.models import layers as JL
 from repro_torch.bridge import flatten_with_paths, params_from_jax, params_to_numpy
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import get_config
 from repro_torch.models import build_model
 from repro_torch.models import layers as TL
 
@@ -444,11 +444,3 @@ def test_bridge_checks_new_families_against_the_port_layout(arch):
     with pytest.raises(AssertionError, match="only in the port"):
         params_from_jax(tree, like=like)
 
-
-UNPORTED = [a for a in ARCH_IDS if get_config(a).family not in ("dense", "moe", "ssm", "hybrid")]
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch).scaled_down())

@@ -54,6 +54,7 @@ def _forbidden(name: str) -> bool:
 def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for want in ("chip_smoke.py", "src/repro_torch/models/lm.py",
+                 "src/repro_torch/models/encdec.py",
                  "src/repro_torch/kernels/flash_attention/ops.py",
                  "src/repro_torch/serve/engine.py", "src/repro_torch/bridge.py",
                  "src/repro_torch/feed/feeder.py", "src/repro_torch/train/step.py",
