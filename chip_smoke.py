@@ -38,11 +38,13 @@ every phase passed):
               bit-identical across two runs, and every flash record carries
               its achieved TFLOP/s and share of its bound.  decode_attention
               (also on the card's split plan, ``num_splits=None``) and
-              ssd_scan must be bit-identical across two runs; decode and
-              moe_router records carry ``device_ms``, the profiler's kernel
-              time per call beside the back-to-back ``kernel_ms``, and decode
-              records SDPA's too; ssd_scan records the bound at the tensor
-              cores' rate with the passes its kernels take.  The cases of
+              ssd_scan must be bit-identical across two runs; decode,
+              moe_router, ssd_scan and backward records carry ``device_ms``,
+              the profiler's kernel time per call beside the back-to-back
+              ``kernel_ms``, and decode and flash backward records SDPA's
+              too; ssd_scan is held against its plain version in f64 and
+              records the bound at the tensor cores' rate with the passes
+              its kernels take.  The cases of
               ``DECODE_CASES_NEW`` and ``SSD_CASES_NEW`` draw from their own
               generator, after every earlier case.  Then, on a generator of
               their own (``D112_REDESIGN_SEED``), kimi-k2's head dim 112 (flash
@@ -75,19 +77,33 @@ every phase passed):
               passes its kernels take, their shares of the device time, and
               the scratch bytes it moves, and at L = 8192 a profile of one
               call by kernel; the SM clock is sampled after the SSD backward
-              cases.
+              cases.  Then, on a generator of their own (``SLICE10_SEED``),
+              the routes of the slice that trains whisper-large-v3 and
+              qwen2-vl-2b and serves and trains jamba-v0.1-52b: the bf16
+              flash backward at their train shapes (whisper's encoder,
+              non-causal at B = 8, S = 1500; its cross-attention, Sq = 448
+              over Sk = 1500; its decoder self-attention; qwen2-vl's G = 6
+              and jamba's G = 4 at S = 4096), the f32 backward non-causal at
+              Sq != Sk and at G = 6, jamba's flash prefill (S = 8192, 32/8)
+              and decode (G = 4, the CUDA-core route), its SSD scan (128
+              heads, N = 16: L = 8192 in bf16, L = 4096 in f32) and
+              backward (L = 4096, f32) and its router forward and backward
+              at E = 16, k = 2 (T = 8, 4096, 4097, 8192); each timed on the
+              device (SDPA's beside attention).
               Last, decode's device time at 1-128 splits beside the card
               plan's pick (``SPLIT_SWEEP``), from which the plan's constants
               were set.
 3. models   - at full width, random weights from a seeded generator, for
               starcoder2-3b (dense), mamba2-2.7b (SSM), moonshot-v1-16b-a3b
               (MoE, bf16 parameters), kimi-k2-1t-a32b (MoE, head dim 112,
-              bf16 parameters, its first 2 layers) and qwen2-vl-2b (VLM,
-              prefill from embeddings with Qwen2-VL's M-RoPE positions):
-              (a) a prefill, (b) a ServeEngine answering 8 requests, (c)
-              teacher-forced decode logits against forward logits in f32
-              (moonshot at 4 of its 48 layers, kimi at its dense first
-              layer, qwen2-vl at 2 layers).  Then whisper-large-v3
+              bf16 parameters, its first 2 layers), qwen2-vl-2b (VLM,
+              prefill from embeddings with Qwen2-VL's M-RoPE positions) and
+              jamba-v0.1-52b (hybrid, bf16 parameters, one 7:1 period of 8
+              layers, prefill S = 8192): (a) a prefill, (b) a ServeEngine
+              answering 8 requests, (c) teacher-forced decode logits
+              against forward logits in f32 (moonshot at 4 of its 48
+              layers, kimi at its dense first layer, qwen2-vl at 2 layers,
+              jamba at the 2-layer cut of its train run, dropless).  Then whisper-large-v3
               (enc-dec, not cut; ``phase_encdec``): (a) a prefill of 8 clips
               (1500 frames, 448 tokens), (b) the encoder once and 64 greedy
               decode steps (``greedy_decode``: ServeEngine drives
@@ -106,18 +122,30 @@ every phase passed):
               corners and flips) on 8 batches; no model path calls it in
               either package, so this op phase is its main path.
 5. train    - ``TRAIN_RUNS``, each fed by a ``repro_torch.feed.DeviceFeeder``
-              over packed zipf token batches (B=1), f32 parameters and
-              AdamW state, bf16 compute, ``remat="block"``: starcoder2-3b at
-              full width (S=8192, 6 steps), mamba2-2.7b at full width (64
-              layers, S=8192, 4 steps) and moonshot-v1-16b-a3b at full width
-              cut to 4 of its 48 layers (S=4096, 4 steps).  Each logs the
+              over packed zipf token batches in the family's layout of the
+              JAX package's ``train_input_specs`` (``FamilyBatches``: f32
+              ``enc_embeds`` for whisper, f32 ``embeds`` and M-RoPE
+              positions in place of tokens for qwen2-vl; their random
+              floats cycle through a pool drawn before the timed steps),
+              f32 parameters
+              and AdamW state, bf16 compute, ``remat="block"``:
+              starcoder2-3b at full width (S=8192, 6 steps), mamba2-2.7b at
+              full width (64 layers, S=8192, 4 steps), moonshot-v1-16b-a3b
+              at full width cut to 4 of its 48 layers (S=4096, 4 steps),
+              whisper-large-v3 not cut (B=8 clips of 1500 frames and 448
+              tokens, 4 steps), qwen2-vl-2b not cut (S=4096 from
+              embeddings, 4 steps) and jamba-v0.1-52b at full width cut to
+              2 layers at period 2 (mamba2 + dense, attention + MoE;
+              S=4096, 4 steps).  Each logs the
               loss, seconds and tokens per step, peak memory, the feed's
               idle and stall numbers and the launches per step of every
               kernel with a backward (a forward per layer, one more per
               layer of a repeated group under remat, a backward per layer;
-              fewer fails), then a profiled step with the SM clock sampled
-              before and after it.  Then each of the three
-              at 2 layers in f32 (B=1, S=256): one train step through the
+              an enc-dec's flash in every encoder layer and twice in every
+              decoder layer, each recomputed; fewer fails), then a profiled
+              step with the SM clock sampled before and after it.  Then each
+              at 2 layers in f32 (whisper 2 + 2, jamba at its cut and
+              dropless; B=1, S=256): one train step through the
               kernels on the card against the same step on CPU copies
               through the plain route (loss, gradient norm, updated
               parameters, each against a stated tolerance).
@@ -301,6 +329,57 @@ ROUTER_BWD_CASES = (
     ("serve_T8", 8, 64, 6, dict()),
     ("ties_T1000", 1000, 64, 6, dict(ties=True)),
 )
+# Cases of the slice that trains whisper-large-v3 and qwen2-vl-2b and serves
+# and trains jamba-v0.1-52b, at routes no earlier case ran at these shapes.
+# They draw from a generator of their own (SLICE10_SEED), after every earlier
+# case and before the split sweep.  Flash backward (name, B, Sq, Sk, Hq, Hkv,
+# D, dtype, options), bf16 at the train shapes: whisper's encoder
+# (non-causal, B = 8, S = 1500: a ragged last dQ tile of BWD_Q_PAD rows and
+# a ragged key tail at every batch boundary), its cross-attention (448 query
+# rows, 3.5 tiles, over 1500 keys, non-causal) and its decoder
+# self-attention (causal), qwen2-vl's attention (12/2: G = 6) and jamba's
+# (32/8: G = 4); f32 on the scalar route, non-causal Sq = 100 over Sk = 300
+# and G = 6.  Each records its device time beside SDPA's backward.
+SLICE10_SEED = 21
+FLASH_BWD_CASES_SLICE10 = (
+    ("whisper_encoder_bwd_S1500", 8, 1500, 1500, 20, 20, 64, "bfloat16", dict(causal=False)),
+    ("whisper_cross_bwd_Sq448_Sk1500", 8, 448, 1500, 20, 20, 64, "bfloat16",
+     dict(causal=False)),
+    ("whisper_decoder_self_bwd_S448", 8, 448, 448, 20, 20, 64, "bfloat16", dict()),
+    ("qwen2vl_bwd_S4096", 1, 4096, 4096, 12, 2, 128, "bfloat16", dict()),
+    ("jamba_bwd_S4096", 1, 4096, 4096, 32, 8, 128, "bfloat16", dict()),
+    ("f32_noncausal_Sq100_Sk300", 2, 100, 300, 4, 4, 64, "float32", dict(causal=False)),
+    ("f32_G6_S200", 1, 200, 200, 12, 2, 64, "float32", dict()),
+)
+# jamba's attention served: the prefill (S = 8192, 32/8, causal; run twice and
+# timed on the device beside SDPA) and decode at the serve batch (B = 8, G =
+# 4: ``rows_per_block`` sends it to the CUDA-core route with 4 rows) at
+# lengths up to ServeEngine's 96 (a 64-token prompt and 32 new tokens).
+FLASH_CASES_SLICE10 = (
+    ("jamba_prefill_S8192", 1, 8192, 8192, 32, 8, 128, "bfloat16", dict(iters=5)),
+)
+DECODE_CASES_SLICE10 = (
+    ("jamba_serve_G4", 8, 256, 32, 8, 128, "bfloat16", [9, 20, 33, 47, 64, 72, 88, 96], dict()),
+)
+# jamba's mixer (128 heads of P = 64, N = 16, one group, chunk 128, in the
+# mixer's regime): the scan at the prefill's L = 8192 in bf16 (served with
+# bf16 parameters, the mixer hands the scan bf16 x, B and C), and the scan
+# and its backward at the train shape L = 4096 in f32 (trained with f32
+# parameters: the train step's forward runs ssd_chunk_out on the f32 route).
+SSD_CASES_SLICE10 = (
+    ("jamba_prefill_L8192_bf16", 1, 8192, 128, 64, 16, "bfloat16",
+     dict(groups=1, regime="mamba2")),
+    ("jamba_train_L4096_f32", 1, 4096, 128, 64, 16, "float32",
+     dict(groups=1, regime="mamba2")),
+)
+SSD_BWD_CASES_SLICE10 = (
+    ("jamba_train_L4096", 1, 4096, 128, 64, 16, "float32", dict(groups=1, regime="mamba2")),
+)
+# jamba's routing (16 experts, top-2; no earlier case has E < 64 beside the
+# JAX suite's small T): a serve batch, the train shape, a T past it that is
+# not a multiple of the router's 32-token blocks and the prefill's T = 8192;
+# forward and backward.
+ROUTER_CASES_SLICE10 = tuple((f"jamba_T{T}_E16_k2", T, 16, 2) for T in (8, 4096, 4097, 8192))
 # Kernels of the Hopper redesigns and of the backwards of the SSD scan and
 # the router: ptxas must report no spill for any of them, nor for any
 # instantiation at head dim 112 (``no_spill``).
@@ -321,15 +400,32 @@ GATE_TOL = 1e-6  # tests/test_kernels.py::TestMoERouter
 AUG_TOL = 1e-5  # tests/test_kernels.py::TestFusedAugment (atol and rtol)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-# The train runs of phase 5: (arch, config changes, S, steps).  moonshot is
+# The train runs of phase 5: (arch, config changes, B, S, steps).  moonshot is
 # cut to 4 of its 48 layers (1 dense + 3 MoE): 2.41 B parameters, 38.5 GB of
 # f32 parameters, gradients and AdamW state; the whole model's 27.5 B would
-# need 440 GB.
+# need 440 GB.  whisper-large-v3 is not cut: B = 8 clips of 1500 encoder
+# frames (f32 ``enc_embeds``, 61.4 MB a batch) and 448 decoder tokens, 1.535 B
+# parameters, 24.6 GB.  qwen2-vl-2b is not cut: S = 4096 from ``embeds`` at
+# Qwen2-VL's text-image-text positions, 1.544 B parameters, 24.7 GB.
+# jamba-v0.1-52b is cut to 2 layers at period 2 (attn_offset 1): layer 0
+# mamba2 with the dense SwiGLU, layer 1 attention with the MoE (16 experts,
+# top-2), every width the published one: 3.675 B parameters, 58.8 GB.  One
+# whole 7:1 period (8 layers) is 13.27 B parameters, 212 GB to train in f32;
+# 4 layers at period 4 would need 110 GB.
 TRAIN_RUNS = (
-    ("starcoder2-3b", {}, 8192, 6),
-    ("mamba2-2.7b", {}, 8192, 4),
-    ("moonshot-v1-16b-a3b", {"num_layers": 4}, 4096, 4),
+    ("starcoder2-3b", {}, 1, 8192, 6),
+    ("mamba2-2.7b", {}, 1, 8192, 4),
+    ("moonshot-v1-16b-a3b", {"num_layers": 4}, 1, 4096, 4),
+    ("whisper-large-v3", {}, 8, 448, 4),
+    ("qwen2-vl-2b", {}, 1, 4096, 4),
+    ("jamba-v0.1-52b", {"num_layers": 2, "attn_period": 2, "attn_offset": 1}, 1, 4096, 4),
 )
+# The f32 train checks' changes beyond 2 layers (``phase_train_check``):
+# whisper's encoder at 2 layers too; jamba dropless (moonshot's serving
+# check's capacity factor), so that no near-tie of the router's logits
+# between the card and the CPU decides which tokens drop.
+TRAIN_CHECK = {"whisper-large-v3": {"encoder_layers": 2},
+               "jamba-v0.1-52b": {"capacity_factor": 64.0}}
 # The f32 train-step check (2 layers, card kernels against the CPU plain
 # route): the loss and the gradient norm within a relative 1e-5 and 1e-4
 # (f32 sums in another order through two layers and a 49152-wide head), the
@@ -865,24 +961,27 @@ def ssd_inputs(B, L, H, P, N, G, dtype, regime, gen):
 
 def ssd_case(name, B, L, H, P, N, dtype, chunks=(128,), groups=None, regime="jax", iters=5,
              gen=None):
-    """ssd_scan against its plain version (the token recurrence) on the same
-    inputs (``ssd_inputs``) for y and the final state; the first chunk is
-    run twice and must give bit-equal outputs."""
+    """ssd_scan against its plain version (the token recurrence) in f64 on
+    the same (rounded) inputs (``ssd_inputs``) for y and the final state;
+    the first chunk is run twice and must give bit-equal outputs.  f64: in
+    a row where C_i.B_i dt_i cancels D to about 1e-6 of itself (jamba's N =
+    16 has some at L = 8192) the f32 recurrence errs by some percent of the
+    row.  Timed back to back (``kernel_ms``) and on the device
+    (``device_ms``)."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
     G = groups or H
     x, dt, a, Bm, Cm, D = ssd_inputs(B, L, H, P, N, G, dtype, regime, gen)
-    # the plain version computes in f32 from the same (rounded) inputs
-    want32, h32 = ssd_scan_ref(x.float(), dt, a, Bm.float(), Cm.float(), D)
+    want, h_want = ssd_scan_ref(*(t.double() for t in (x, dt, a, Bm, Cm, D)))
     outs = [ssd_scan(x, dt, a, Bm, Cm, D, chunk=c) for c in chunks]
     torch.cuda.synchronize()
-    err = max(float((y.float() - want32).abs().max()) for y, _ in outs)
-    ratio = max(ssd_ratio(y, want32, dtype) for y, _ in outs)
-    state_ratio = max(ssd_ratio(h, h32, "float32") for _, h in outs)
+    err = max(float((y.double() - want).abs().max()) for y, _ in outs)
+    ratio = max(ssd_ratio(y, want, dtype) for y, _ in outs)
+    state_ratio = max(ssd_ratio(h, h_want, "float32") for _, h in outs)
     spread = max(float((y.float() - outs[0][0].float()).abs().max()) for y, _ in outs)
-    rel = row_rel_err(outs[0][0], want32) if dtype == "bfloat16" else None
+    rel = row_rel_err(outs[0][0], want) if dtype == "bfloat16" else None
     ok = (ratio <= 1.0 and state_ratio <= 1.0 and spread <= SSD_CHUNK_TOL
           and (rel is None or rel <= REL_TOL)
           and all(bool(torch.isfinite(y).all()) for y, _ in outs))
@@ -892,6 +991,7 @@ def ssd_case(name, B, L, H, P, N, dtype, chunks=(128,), groups=None, regime="jax
     del again
     ok = ok and bit_equal
     kernel_ms = time_ms(lambda: ssd_scan(x, dt, a, Bm, Cm, D, chunk=c0), iters)
+    kernel_device_ms = device_ms(lambda: ssd_scan(x, dt, a, Bm, Cm, D, chunk=c0), iters)
     plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, a, Bm, Cm, D), 1, 1)
     flops = ssd_flops(B, L, H, P, N, c0, G)
     nbytes = ((2 * x.numel() + Bm.numel() + Cm.numel()) * x.element_size()
@@ -904,11 +1004,11 @@ def ssd_case(name, B, L, H, P, N, dtype, chunks=(128,), groups=None, regime="jax
                max_abs_err=err, err_over_allowed=ratio, state_err_over_allowed=state_ratio,
                chunk_spread=spread, tol=SSD_TOL, chunk_tol=SSD_CHUNK_TOL, row_rel_err=rel,
                rel_tol=REL_TOL if rel is not None else None, bit_equal_across_runs=bit_equal,
-               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-               bound_by=bound_by, bound_share=bound_ms / kernel_ms,
-               tensor_core_bound_ms=tc_bound_ms, ok=ok)
+               kernel_ms=kernel_ms, device_ms=kernel_device_ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / kernel_ms, tensor_core_bound_ms=tc_bound_ms, ok=ok)
     log(rec)
-    del want32, h32, outs
+    del want, h_want, outs
     torch.cuda.empty_cache()
     return rec
 
@@ -1297,7 +1397,8 @@ def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, so
     FlashAttention-2 takes Δ = rowsum(dO ∘ O) from the rounded output, which
     moves a row whose exact dq nearly cancels (a query that sees two keys)
     by more than bf16 rounding, and that difference is the algorithm's, not
-    the kernel's."""
+    the kernel's.  The kernel and SDPA's backward are timed back to back
+    and on the device (``device_ms``, ``library_device_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1331,7 +1432,8 @@ def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, so
           and all(bool(torch.isfinite(g).all()) for g in got))
     del got
     kernel_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), iters, 1)
-    library_ms = None
+    kernel_device_ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), iters)
+    library_ms = library_device_ms = None
     if library and softcap == 0.0:
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         mask = None
@@ -1346,8 +1448,11 @@ def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, so
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                              is_causal=causal and mask is None, enable_gqa=True)
         dot = do.transpose(1, 2)
-        library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                         retain_graph=True), iters, 1)
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+        library_ms = time_ms(sdpa_bwd, iters, 1)
+        library_device_ms = device_ms(sdpa_bwd, iters)
         del out, qt, kt, vt
     flops = flash_flops(B, Sq, Sk, Hq, D, causal, window, q_offset, backward=True)
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4.0 * B * Hq * Sq
@@ -1357,9 +1462,10 @@ def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, so
                           softcap=softcap, q_offset=q_offset),
                dtype=dtype, max_abs_err=max(errs), errs_dq_dk_dv=errs, tol=TOL[dtype],
                err_over_allowed=ratios, grad_row_rel_err=rels, rel_tol=rel_tol,
-               bit_equal_across_runs=bit_equal, kernel_ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               tflops=achieved_tflops(flops, kernel_ms), bound_share=bound_ms / kernel_ms, ok=ok)
+               bit_equal_across_runs=bit_equal, kernel_ms=kernel_ms, device_ms=kernel_device_ms,
+               plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms,
+               bound_ms=bound_ms, bound_by=bound_by, tflops=achieved_tflops(flops, kernel_ms),
+               bound_share=bound_ms / kernel_ms, ok=ok)
     log(rec)
     del o, lse
     torch.cuda.empty_cache()
@@ -1472,6 +1578,7 @@ def phase_kernels(main_S: int):
     recs += encdec_vlm_cases()
     recs += d112_and_redesign_cases()
     recs += backward_cases()
+    recs += slice10_cases()
     decode_split_sweep()
     bad = [r["case"] for r in recs if not r["ok"]]
     if bad:
@@ -1498,6 +1605,27 @@ def encdec_vlm_cases():
         recs.append(flash_case(name, *shape, dtype, twice=True, gen=g, **kw))
     recs += [decode_case(name, *shape, gen=g, **kw)
              for name, *shape, kw in DECODE_CASES_ENCDEC_VLM]
+    return recs
+
+
+def slice10_cases():
+    """The cases of the slice that trains whisper-large-v3 and qwen2-vl-2b
+    and serves and trains jamba-v0.1-52b, on their own generator
+    (``SLICE10_SEED``): the flash backward at the train shapes, jamba's flash
+    prefill and decode, its SSD scan and backward, its router forward and
+    backward; every one timed on the device."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SLICE10_SEED)
+    recs = [flash_bwd_case(name, *shape, gen=g, **kw)
+            for name, *shape, kw in FLASH_BWD_CASES_SLICE10]
+    recs += [flash_case(name, *shape, twice=True, gen=g, **kw)
+             for name, *shape, kw in FLASH_CASES_SLICE10]
+    recs += [decode_case(name, *shape, gen=g, **kw) for name, *shape, kw in DECODE_CASES_SLICE10]
+    recs += [ssd_case(name, *shape, gen=g, **kw) for name, *shape, kw in SSD_CASES_SLICE10]
+    recs += [ssd_bwd_case(name, *shape, gen=g, **kw) for name, *shape, kw in SSD_BWD_CASES_SLICE10]
+    recs += [router_case(name, *shape, gen=g) for name, *shape in ROUTER_CASES_SLICE10]
+    recs += [router_bwd_case(name, *shape, gen=g) for name, *shape in ROUTER_CASES_SLICE10]
     return recs
 
 
@@ -1571,6 +1699,13 @@ def flash_bwd_cases(main_S: int, g, g_edges):
 # layer (the f32 MoE layer alone would be 67.6 GB).  qwen2-vl-2b (VLM, 12/2
 # heads, M-RoPE) is not cut: it prefills from embeddings with Qwen2-VL's
 # position layout (``prefill_batch``); its f32 check runs at 2 layers.
+# jamba-v0.1-52b (hybrid: mamba2 mixers with N = 16 and 128 heads, attention
+# 32/8 on every 8th layer, MoE of 16 experts top-2 on every 2nd) is cut to
+# one whole 7:1 period, 8 of its 32 layers (7 mamba2 + 1 attention, 4 MoE):
+# 13.27 B parameters, 26.5 GB in bf16; the whole model's 51.5 B would need
+# 103 GB.  Its f32 check runs at the 2-layer cut of its train run (period 2:
+# a mamba2 layer with the dense SwiGLU, an attention layer with the MoE),
+# dropless as decode is.
 MODELS = (
     ("starcoder2-3b", {}, PREFILL_S, {}, (32,)),
     ("mamba2-2.7b", {}, 8192, {}, (32, 40)),
@@ -1579,11 +1714,25 @@ MODELS = (
     ("kimi-k2-1t-a32b", {"num_layers": 2, "param_dtype": "bfloat16"}, 4096,
      {"param_dtype": "float32", "num_layers": 1}, (32,)),
     ("qwen2-vl-2b", {}, 4096, {"num_layers": 2}, (32,)),
+    ("jamba-v0.1-52b", {"num_layers": 8, "param_dtype": "bfloat16"}, 8192,
+     {"param_dtype": "float32", "num_layers": 2, "attn_period": 2, "attn_offset": 1,
+      "capacity_factor": 64.0}, (32, 40)),
 )
 # Qwen2-VL's text-image-text prompt of the VLM prefill: 256 text tokens, a
 # 60 x 60 grid of merged patches (a 1680 x 1680 image at patch 14, merge 2),
 # then text to 4096 tokens.
 VLM_TEXT, VLM_GRID = 256, 60
+# The VLM train batches' embeddings (``FamilyBatches``): the scale of the
+# model's embedding table at init (``layers._init``), and the seed of the
+# frozen text embeddings.
+EMBED_SCALE = 0.02
+TEXT_EMBED_SEED = 7
+# The train feed's float payloads (``FamilyBatches``: whisper's
+# ``enc_embeds``, 61.4 MB a batch, and qwen2-vl's image-patch embeddings):
+# FEED_POOL of them are drawn, from a generator seeded (FEED_POOL_SEED,
+# seed), when the source is built, before the timed steps, and the batches
+# cycle through them, so that a step's time is the port's and not numpy's.
+FEED_POOL, FEED_POOL_SEED = 2, 8
 # whisper-large-v3 (enc-dec) is not cut.  Prefill: B = 8 clips of 1500
 # encoder frames and 448 decoder tokens (max_target_positions of the
 # published openai/whisper-large-v3 config).  Serving: the encoder once
@@ -1653,18 +1802,29 @@ def counted(label, fn):
     return out, dt_s, counts, torch.cuda.max_memory_allocated() / 1e9
 
 
+def qwen2vl_layout(S: int) -> tuple:
+    """(text, grid) of the text-image-text prompt in S tokens: the
+    prefill's VLM_TEXT text tokens and VLM_GRID x VLM_GRID image where S
+    holds them, else S // 4 text tokens and the largest square image in
+    S // 2 tokens."""
+    if S >= VLM_TEXT + VLM_GRID ** 2:
+        return VLM_TEXT, VLM_GRID
+    return S // 4, math.isqrt(S // 2)
+
+
 def qwen2vl_positions(S: int, device=None):
     """(1, S, 3) M-RoPE positions (t, h, w) as Qwen2-VL lays out a
-    text-image-text prompt: ``VLM_TEXT`` text tokens at (i, i, i), a
-    ``VLM_GRID`` x ``VLM_GRID`` image at (p, p + row, p + col) with p =
-    ``VLM_TEXT``, then text from the image's largest position + 1."""
+    text-image-text prompt (``qwen2vl_layout``): ``text`` text tokens at (i,
+    i, i), a ``grid`` x ``grid`` image at (p, p + row, p + col) with p =
+    ``text``, then text from the image's largest position + 1."""
     import torch
 
-    n_img = VLM_GRID * VLM_GRID
-    row, col = torch.arange(n_img) // VLM_GRID, torch.arange(n_img) % VLM_GRID
-    image = torch.stack([torch.full_like(row, VLM_TEXT), VLM_TEXT + row, VLM_TEXT + col], -1)
-    tail = VLM_TEXT + VLM_GRID + torch.arange(S - VLM_TEXT - n_img)
-    pos = torch.cat([torch.arange(VLM_TEXT)[:, None].expand(-1, 3), image,
+    text, grid = qwen2vl_layout(S)
+    n_img = grid * grid
+    row, col = torch.arange(n_img) // grid, torch.arange(n_img) % grid
+    image = torch.stack([torch.full_like(row, text), text + row, text + col], -1)
+    tail = text + grid + torch.arange(S - text - n_img)
+    pos = torch.cat([torch.arange(text)[:, None].expand(-1, 3), image,
                      tail[:, None].expand(-1, 3)])
     return pos[None].to(device=device, dtype=torch.int32)
 
@@ -1978,6 +2138,11 @@ class ZipfTokens:
     def session(self, **overrides):
         return _ZipfSession(self)
 
+    def finish(self, batch: dict, i: int) -> dict:
+        """Batch ``i`` as the session yields it (``FamilyBatches`` adds the
+        family's inputs)."""
+        return batch
+
 
 class _ZipfSession:
     def __init__(self, src: ZipfTokens):
@@ -1989,7 +2154,7 @@ class _ZipfSession:
 
         src = self.src
         rng = np.random.default_rng(src.seed)
-        for _ in range(src.steps):
+        for i in range(src.steps):
             if self.closed:
                 return
             rows = []
@@ -2001,10 +2166,74 @@ class _ZipfSession:
                     n += len(doc)
                 rows.append(np.concatenate(docs)[: src.seq + 1])
             arr = np.stack(rows).astype(np.int64)
-            yield {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
+            yield src.finish({"tokens": arr[:, :-1], "labels": arr[:, 1:]}, i)
 
     def close(self):
         self.closed = True
+
+
+class FamilyBatches(ZipfTokens):
+    """``ZipfTokens`` in the layout of the JAX package's ``train_input_specs``
+    (``launch/specs.py``) for ``cfg``'s family.  The enc-dec family adds
+    ``enc_embeds`` (B, encoder_seq, d_model), standard normal (the mel/conv
+    stub's frames).  The VLM family takes ``embeds`` (B, S, d_model) and (B,
+    S, 3) M-RoPE ``positions`` in place of tokens, for a text-image-text
+    prompt (``qwen2vl_layout``), as the vision stub hands them over: at a
+    text position the frozen text embedding of its token (``text_row``), at
+    an image position a patch embedding drawn at random, both at the scale
+    of the model's embedding table at init (``EMBED_SCALE``); an image
+    position's label is padding, since Qwen2-VL takes no loss on image
+    tokens.  The random frames and patch embeddings come from a pool of
+    ``FEED_POOL`` drawn when the source is built (``FEED_POOL_SEED``), which
+    the batches cycle through; the tokens are ``ZipfTokens``' own.  The
+    card's machine has no ml_dtypes, so the embeddings travel as f32 and the
+    model casts them on the card."""
+
+    def __init__(self, cfg, batch: int, seq: int, steps: int, seed: int):
+        import numpy as np
+
+        super().__init__(cfg.vocab_size, batch, seq, steps, seed)
+        self.cfg = cfg
+        self.rows = {}
+        width = {"encdec": cfg.encoder_seq, "vlm": seq}.get(cfg.family)
+        rng = np.random.default_rng((FEED_POOL_SEED, seed))
+        self.pool = [] if width is None else [
+            rng.standard_normal((batch, width, cfg.d_model), dtype=np.float32)
+            for _ in range(min(FEED_POOL, steps))]
+        if cfg.family == "vlm":
+            for x in self.pool:
+                x *= EMBED_SCALE
+
+    def text_row(self, token: int):
+        """The frozen text embedding of ``token``: a seeded draw of its own,
+        so that a token's row does not depend on the batches before it."""
+        import numpy as np
+
+        if token not in self.rows:
+            rng = np.random.default_rng((TEXT_EMBED_SEED, token))
+            self.rows[token] = EMBED_SCALE * rng.standard_normal(self.cfg.d_model,
+                                                                 dtype=np.float32)
+        return self.rows[token]
+
+    def finish(self, batch: dict, i: int) -> dict:
+        import numpy as np
+
+        cfg, B, S = self.cfg, self.batch, self.seq
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = self.pool[i % len(self.pool)]
+        elif cfg.family == "vlm":
+            text, grid = qwen2vl_layout(S)
+            image = np.zeros(S, dtype=bool)
+            image[text:text + grid * grid] = True
+            tokens = batch.pop("tokens")
+            embeds = self.pool[i % len(self.pool)].copy()
+            for b, j in zip(*np.nonzero(~image[None].repeat(B, 0))):
+                embeds[b, j] = self.text_row(int(tokens[b, j]))
+            batch["labels"][:, image] = 0  # the loss's padding id
+            batch["embeds"] = embeds
+            pos = qwen2vl_positions(S).numpy()
+            batch["positions"] = np.ascontiguousarray(np.broadcast_to(pos, (B, S, 3)))
+        return batch
 
 
 # the kernels with a backward: forward, its backward, and the layers that run it
@@ -2017,9 +2246,16 @@ def train_launches_per_step(cfg):
     """Launches of one train step of each kernel with a backward under
     ``remat="block"``: a forward per layer that runs it (attention, mamba2,
     MoE), one more for each such layer of a repeated group (the
-    recomputation), and a backward per layer."""
+    recomputation), and a backward per layer.  An enc-dec runs flash once in
+    each encoder layer and twice (self and cross) in each decoder layer, and
+    under remat every one of its layers is recomputed
+    (``EncDecModel._run``)."""
     from repro_torch.models.lm import compute_groups
 
+    if cfg.family == "encdec":
+        n = cfg.encoder_layers + 2 * cfg.num_layers
+        return {"flash_attention": 2 * n if cfg.remat == "block" else n,
+                "flash_attention_bwd": n}
     out = {}
     for fwd_name, bwd_name, runs in BACKWARD_OF:
         fwd = recompute = 0
@@ -2033,10 +2269,10 @@ def train_launches_per_step(cfg):
     return out
 
 
-def phase_train(arch, replace, S, steps):
-    """One model of ``TRAIN_RUNS``, fed by a DeviceFeeder: ``steps`` steps,
-    then a profiled one.  Returns the launches of the ``steps`` steps (the
-    main path)."""
+def phase_train(arch, replace, B, S, steps):
+    """One model of ``TRAIN_RUNS``, fed by a DeviceFeeder over
+    ``FamilyBatches`` (B x S tokens a step): ``steps`` steps, then a profiled
+    one.  Returns the launches of the ``steps`` steps (the main path)."""
     import gc
     import math
 
@@ -2061,13 +2297,15 @@ def phase_train(arch, replace, S, steps):
                              device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(state["params"]))
-    log(f"train {arch}: {cfg.num_layers} layers {[g.subpattern for g in model.groups]}, params "
+    layers = (f"{cfg.encoder_layers} + {cfg.num_layers}" if cfg.family == "encdec"
+              else f"{cfg.num_layers} {[g.subpattern for g in model.groups]}")
+    log(f"train {arch}: {layers} layers, params "
         f"{cfg.param_dtype}, compute {cfg.dtype}, remat {cfg.remat}, {n_params / 1e9:.3f} B "
         f"params, AdamW state {opt.state_dtype}; init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     step = make_train_step(model, opt)
     per_step = train_launches_per_step(cfg)
-    src = ZipfTokens(cfg.vocab_size, 1, S, steps + 1, seed=0)
+    src = FamilyBatches(cfg, B, S, steps + 1, seed=0)
     losses, secs = [], []
     with DeviceFeeder(src, device="cuda", depth=2) as feeder:
         def run_steps():
@@ -2088,9 +2326,9 @@ def phase_train(arch, replace, S, steps):
         log_clocks(f"after the {arch} train profile")
     steady = secs[1:] if len(secs) > 1 else secs
     sps = sum(steady) / len(steady)
-    log(dict(phase="train", arch=arch, layers=cfg.num_layers, B=1, S=S, steps=steps,
+    log(dict(phase="train", arch=arch, layers=cfg.num_layers, B=B, S=S, steps=steps,
              losses=losses, seconds_per_step=secs, steady_seconds_per_step=sps,
-             tokens_per_s=S / sps, max_memory_allocated_gb=peak,
+             tokens_per_s=B * S / sps, max_memory_allocated_gb=peak,
              feed_idle_s_per_step=feed["idle_s_per_step"],
              feed_stall_fraction=feed["stall_frac"], feed_breakdown=feed["breakdown"],
              feed_transfer_s=feed["transfer_s"], feed_bytes=feed["bytes_to_device"],
@@ -2111,11 +2349,13 @@ def _max_leaf_err(a, b) -> float:
                for x, y in zip(_leaves(a), _leaves(b)))
 
 
-def phase_train_check(arch):
-    """One f32 train step of ``arch`` at 2 layers (B=1, S=256) through the
-    kernels on the card against the same step through the plain route
-    (``_attn_chunked``, the chunked SSD einsums, ``top_k`` plus cumsum, and
-    autograd) on CPU copies of the same parameters and batch."""
+def phase_train_check(arch, replace):
+    """One f32 train step of ``arch`` (its train run's changes ``replace``)
+    at 2 layers with ``TRAIN_CHECK``'s changes (B=1, S=256, a
+    ``FamilyBatches`` batch) through the kernels on the card against the
+    same step through the plain route (``_attn_chunked``, the chunked SSD
+    einsums, ``top_k`` plus cumsum, and autograd) on CPU copies of the same
+    parameters and batch."""
     import gc
 
     import torch
@@ -2125,14 +2365,15 @@ def phase_train_check(arch):
     from repro_torch.models import build_model
     from repro_torch.train import AdamWConfig, init_state, make_train_step
 
-    cfg = get_config(arch).replace(num_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(**{**replace, "num_layers": 2, "dtype": "float32",
+                                      **TRAIN_CHECK.get(arch, {})})
     model = build_model(cfg)
     opt = AdamWConfig(lr=CHECK_LR, eps=CHECK_EPS, warmup_steps=1)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     cpu_params = map_with_paths(params, lambda _, t: t.cpu().clone())
     gpu = {"params": params, "opt": init_state(params, opt)}
     cpu = {"params": cpu_params, "opt": init_state(cpu_params, opt)}
-    batch = next(iter(ZipfTokens(cfg.vocab_size, 1, 256, 1, seed=1).session()))
+    batch = next(iter(FamilyBatches(cfg, 1, 256, 1, seed=1).session()))
     batch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
     (_, mg), _, counts, peak = counted(
         f"train_check_f32 {arch}", lambda: make_train_step(model, opt)(
@@ -2144,7 +2385,8 @@ def phase_train_check(arch):
     p_err = _max_leaf_err(gpu["params"], cpu["params"])
     ok = (loss_err <= CHECK_TOL["loss"] and gn_err <= CHECK_TOL["grad_norm"]
           and p_err <= CHECK_TOL["params"])
-    log(dict(phase="train_check_f32", arch=arch, layers=2, B=1, S=256, lr=CHECK_LR,
+    log(dict(phase="train_check_f32", arch=arch, layers=2, batch=sorted(batch), B=1, S=256,
+             lr=CHECK_LR,
              eps=CHECK_EPS, loss_card=float(mg["total_loss"]), loss_cpu=float(mc["total_loss"]),
              loss_rel_err=loss_err, grad_norm_rel_err=gn_err, params_max_abs_err=p_err,
              tol=CHECK_TOL, ok=ok, launches=counts, max_memory_allocated_gb=peak))
@@ -2238,8 +2480,8 @@ def main() -> int:
     add(phase_augment(torch.Generator(device="cuda").manual_seed(2)))
     for run in TRAIN_RUNS:
         add(phase_train(*run))
-    for arch, *_ in TRAIN_RUNS:
-        phase_train_check(arch)
+    for arch, replace, *_ in TRAIN_RUNS:
+        phase_train_check(arch, replace)
 
     kernels = []
     for name, meta in KERNEL_META.items():

@@ -42,8 +42,13 @@
 //     registers and three passes a product (3xTF32, warp_mma.cuh:
 //     mma_3xtf32), each product to about 2^-21 of itself.  x, B, C and the
 //     entering states stay f32 in shared memory.
-// The in-chunk cumsum of dt * a is taken in f64.  The D * x term is added in
-// f32 from x itself.  No atomics: two runs are bit-equal.
+// The in-chunk cumsum of dt * a is taken in f64.  The diagonal of W joins the
+// D term: y_i gets (C_i . B_i dt_i + D) x_i with the coefficient in f64 (C_i
+// . B_i summed in f64 from the inputs), added in f32 from x itself, and W x
+// runs over j < i.  Where C_i . B_i dt_i nearly cancels D (with N = 16, as
+// jamba's mixer has, in about 1 row of 1e5 at the mixer's inputs), y_i is
+// about 1e-6 of its two terms, and an f32 sum of them would err by f32's
+// ulp of D, some percent of that row.  No atomics: two runs are bit-equal.
 //
 // Bound on the card: operations.  Per chunk of q tokens: q(q+1)/2 causal
 // entries of C.B^T (2N FLOPs each) once per group, and per head q(q+1)/2
@@ -389,6 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_chunk_out(
   double* cum = reinterpret_cast<double*>(region + region_len);  // (HB, Qp)
   float* dts = reinterpret_cast<float*>(cum + d.HB * Qp);         // (HB, Qp)
   float* fcol = dts + d.HB * Qp;                                  // (HB, Qp)
+  double* cbd = reinterpret_cast<double*>(fcol + d.HB * Qp);      // (Qp): C_i . B_i
 
   auto crow = [&](int j) { return token_row(j, b, t0, grp, d.G, N, d); };
   copy_rows(cs, Cm, Qp, N, pN, crow);
@@ -437,6 +443,12 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_chunk_out(
         }
       }
     }
+  }
+  for (int i = tid; i < Qp; i += kThreads) {  // the diagonal in f64: exact products
+    double dot = 0.0;
+    for (int n = 0; n < N; ++n)
+      dot = fma(double(to_f(cs[i * pN + n])), double(to_f(bs[i * pN + n])), dot);
+    cbd[i] = dot;
   }
   __syncthreads();  // B is done: the region takes the heads' stages; cum is written
   // Column factors of the decay off the diagonal blocks of 16 tokens:
@@ -524,10 +536,10 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_chunk_out(
             if (kk < s) {
               wv[q][0] = c0 * er[q & 1] * fc_h[col];
               wv[q][1] = c1 * er[q & 1] * fc_h[col + 1];
-            } else {
-              wv[q][0] = col <= row ? c0 * expf(float(cr - cum_h[col])) * dt_h[col] : 0.f;
+            } else {  // the diagonal joins the D term
+              wv[q][0] = col < row ? c0 * expf(float(cr - cum_h[col])) * dt_h[col] : 0.f;
               wv[q][1] =
-                  col + 1 <= row ? c1 * expf(float(cr - cum_h[col + 1])) * dt_h[col + 1] : 0.f;
+                  col + 1 < row ? c1 * expf(float(cr - cum_h[col + 1])) * dt_h[col + 1] : 0.f;
             }
           }
           if constexpr (F32) {
@@ -563,20 +575,21 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_chunk_out(
           }
         }
       }
-      // + D x, in f32 from x itself
-      const float dh = Dv[h];
+      // + (C_i . B_i dt_i + D) x_i, the coefficient in f64, in f32 from x itself
+      const double dh = Dv[h];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = i0 + 8 * half;
         const int t = t0 + i;
         if (i >= d.Q || t >= d.L) continue;
+        const float coef = float(fma(cbd[i], double(dt_h[i]), dh));
         const long row = ((long(b) * d.L + t) * d.H + h) * P;
 #pragma unroll
         for (int nt = 0; nt < P / 8; ++nt) {
           const int p = 8 * nt + 2 * t4;
           const float2 xv = load2(x + row + p);
-          store2(y + row + p, fmaf(dh, xv.x, acc[nt][2 * half]),
-                 fmaf(dh, xv.y, acc[nt][2 * half + 1]));
+          store2(y + row + p, fmaf(coef, xv.x, acc[nt][2 * half]),
+                 fmaf(coef, xv.y, acc[nt][2 * half + 1]));
         }
       }
     }
@@ -596,7 +609,7 @@ size_t out_smem(int N, int Qp, int HB) {
   const size_t plane = size_t(Qp) * (N + pad);
   const size_t stage = size_t(Qp) * (P + pad) + size_t(Route<T>::KH) * P * (N + pad);
   return (plane + std::max(plane, kStages * stage)) * sizeof(T) +
-         size_t(HB) * Qp * (sizeof(double) + 2 * sizeof(float));
+         size_t(HB) * Qp * (sizeof(double) + 2 * sizeof(float)) + size_t(Qp) * sizeof(double);
 }
 
 template <typename T, int P>

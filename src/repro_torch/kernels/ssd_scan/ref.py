@@ -100,8 +100,10 @@ def ssd_scan_chunked_model(
     kernels' precision split, for the CPU tests (nothing on the card calls
     it).  Stage 1: each chunk's state S_c = (B o w)^T x with w_j =
     exp(cum_Q - cum_j) dt_j; stage 2: h_{c+1} = exp(cum_Q) h_c + S_c over the
-    chunks; stage 3: y = exp(cum) (C h_c) + W x + D x with W = C.B^T (once
-    per group) o exp(cum_i - cum_j) o dt_j for j <= i.  The in-chunk cumsum
+    chunks; stage 3: y = exp(cum) (C h_c) + W x + (C_i.B_i dt_i + D) x_i with
+    W = C.B^T (once per group) o exp(cum_i - cum_j) o dt_j for j < i, the
+    diagonal's coefficient in f64 (where C_i.B_i dt_i nearly cancels D, an
+    f32 sum would err by some percent of the row).  The in-chunk cumsum
     is f64 and each exponent its f64 difference rounded to f32 (off the
     diagonal blocks of 16 tokens the kernel takes the decay as the product
     of two such exponentials, through the block's last token: f32 rounding
@@ -144,13 +146,15 @@ def ssd_scan_chunked_model(
     # 3. chunk output
     CB = product("bcign,bcjgn->bcgij", Cq, Bq, 1, 1)[:, :, group]  # (B,nc,H,Q,Q)
     ci = cum.permute(0, 1, 3, 2)  # (B, nc, H, Q)
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool), diagonal=-1)
     W = torch.where(tri, CB * torch.exp((ci[..., :, None] - ci[..., None, :]).float()), 0.0)
     W = W * dtc.permute(0, 1, 3, 2)[..., None, :]
     y = (product("bcihn,bchnp->bcihp", Cq[:, :, :, group], hin, 1, 2)
          * torch.exp(cum.float())[..., None])
     y = y + product("bchij,bcjhp->bcihp", W, xq, 3, 1)
-    y = y.reshape(Bsz, nc * Q, H, P)[:, :L] + x.float() * D.float()[None, None, :, None]
+    cbd = (Cq.double() * Bq.double()).sum(-1)[:, :, :, group]  # (B, nc, Q, H): C_i.B_i
+    coef = (cbd * dtc.double() + D.double()).float().reshape(Bsz, nc * Q, H)[:, :L]
+    y = y.reshape(Bsz, nc * Q, H, P)[:, :L] + x.float() * coef[..., None]
     return y.to(x.dtype), h
 
 

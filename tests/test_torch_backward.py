@@ -347,22 +347,47 @@ def test_train_runs_fit_the_card():
     B parameters, 43.2 GB; moonshot cut to 4 of its 48 layers (1 dense + 3
     MoE) 2.41 B, 38.5 GB, where the whole model's 27.5 B would need 440 GB.
     Both hold less than starcoder2-3b's 50.9 GB, which trains at S = 8192
-    within the 80 GB card."""
+    within the 80 GB card; so do whisper-large-v3 (1.535 B, 24.6 GB, not
+    cut: B = 8 clips of 1500 frames and 448 tokens) and qwen2-vl-2b (1.544 B,
+    24.7 GB, not cut: S = 4096).  jamba-v0.1-52b is cut to 2 layers at
+    period 2 (a mamba2 layer with the dense SwiGLU, an attention layer with
+    the MoE of 16 experts), every width the published one: 3.675 B, 58.8 GB,
+    which leaves 21 GB of the card for a step at S = 4096; one whole 7:1
+    period (8 layers) would need 212 GB and 4 layers at period 4 110 GB."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
+    from repro_torch.models.lm import compute_groups, layer_pattern
 
-    runs = {arch: (replace, S, steps) for arch, replace, S, steps in chip_smoke.TRAIN_RUNS}
-    assert runs["mamba2-2.7b"] == ({}, 8192, 4)
-    assert runs["moonshot-v1-16b-a3b"] == ({"num_layers": 4}, 4096, 4)
-    want_gb = {"mamba2-2.7b": 43.2, "moonshot-v1-16b-a3b": 38.5, "starcoder2-3b": 50.9}
-    for arch, (replace, _, _) in runs.items():
+    runs = {arch: (replace, B, S, steps)
+            for arch, replace, B, S, steps in chip_smoke.TRAIN_RUNS}
+    assert runs["mamba2-2.7b"] == ({}, 1, 8192, 4)
+    assert runs["moonshot-v1-16b-a3b"] == ({"num_layers": 4}, 1, 4096, 4)
+    assert runs["whisper-large-v3"] == ({}, 8, 448, 4)
+    assert runs["qwen2-vl-2b"] == ({}, 1, 4096, 4)
+    jamba_cut = {"num_layers": 2, "attn_period": 2, "attn_offset": 1}
+    assert runs["jamba-v0.1-52b"] == (jamba_cut, 1, 4096, 4)
+    want_gb = {"mamba2-2.7b": 43.2, "moonshot-v1-16b-a3b": 38.5, "starcoder2-3b": 50.9,
+               "whisper-large-v3": 24.6, "qwen2-vl-2b": 24.7, "jamba-v0.1-52b": 58.8}
+    for arch, (replace, _, _, _) in runs.items():
         cfg = get_config(arch).replace(**replace)
         gb = 16 * cfg.param_counts()["total"] / 1e9
         assert gb == pytest.approx(want_gb[arch], abs=0.1), arch
-        assert gb <= want_gb["starcoder2-3b"] < 80
+        if arch != "jamba-v0.1-52b":
+            assert gb <= want_gb["starcoder2-3b"] < 80
     moonshot = get_config("moonshot-v1-16b-a3b")
     assert 16 * moonshot.param_counts()["total"] / 1e9 == pytest.approx(440, abs=1)
     cut = moonshot.replace(num_layers=4)
-    from repro_torch.models.lm import layer_pattern
-
     assert [f for _, f in layer_pattern(cut)] == ["dense", "moe", "moe", "moe"]
+    jamba = get_config("jamba-v0.1-52b")
+    cfg = jamba.replace(**jamba_cut)
+    assert (cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (
+        jamba.d_model, jamba.d_ff, 32, 8, 128)
+    assert (cfg.num_experts, cfg.experts_per_token, cfg.ssm_heads, cfg.ssm_state) == (
+        16, 2, 128, 16)
+    assert layer_pattern(cfg) == [("ssm", "dense"), ("attn", "moe")]
+    assert [g.repeats for g in compute_groups(cfg)] == [1]
+    assert cfg.param_counts()["total"] / 1e9 == pytest.approx(3.675, abs=0.001)
+    assert 16 * jamba.replace(num_layers=8).param_counts()["total"] / 1e9 == pytest.approx(
+        212, abs=1)
+    assert 16 * jamba.replace(num_layers=4, attn_period=4, attn_offset=3).param_counts()[
+        "total"] / 1e9 == pytest.approx(110, abs=1)

@@ -270,6 +270,12 @@ SEED0_CASES = [
 ]
 
 
+SLICE10_NAMES = [c[0] for c in chip_smoke.FLASH_BWD_CASES_SLICE10 + chip_smoke.FLASH_CASES_SLICE10
+                 + chip_smoke.DECODE_CASES_SLICE10 + chip_smoke.SSD_CASES_SLICE10
+                 + chip_smoke.SSD_BWD_CASES_SLICE10] + [
+    c[0] for c in chip_smoke.ROUTER_CASES_SLICE10 * 2]
+
+
 def _phase_kernels_draws(monkeypatch):
     """(kind, case name, generator seed) of every case phase 2 runs, with the
     case functions replaced by recorders and a stand-in generator."""
@@ -397,6 +403,14 @@ def test_split_invariance_checks_the_card_plan():
         ("whisper-large-v3", {}, {"flash_attention": 96}, {"decode_attention": 64}),
         ("whisper-large-v3", {"encoder_layers": 2, "num_layers": 2}, {"flash_attention": 6},
          {"decode_attention": 4}),
+        # jamba served at one 7:1 period: 7 mamba2 layers, 1 attention, MoE
+        # on every 2nd layer; its f32 check at the 2-layer cut
+        ("jamba-v0.1-52b", {"num_layers": 8},
+         {"flash_attention": 1, "ssd_scan": 7, "moe_router": 4},
+         {"decode_attention": 1, "moe_router": 4}),
+        ("jamba-v0.1-52b", {"num_layers": 2, "attn_period": 2, "attn_offset": 1},
+         {"flash_attention": 1, "ssd_scan": 1, "moe_router": 1},
+         {"decode_attention": 1, "moe_router": 1}),
     ],
 )
 def test_expected_launches_follow_the_layers(arch, replace, forward, step):
@@ -550,12 +564,25 @@ def test_encdec_vlm_cases_cover_the_new_routes(monkeypatch):
                                                 "moe_router": 6, "moe_router_bwd": 3}),
     ("moonshot-v1-16b-a3b", {"num_layers": 2}, {"flash_attention": 2, "flash_attention_bwd": 2,
                                                 "moe_router": 1, "moe_router_bwd": 1}),
+    # whisper: 32 encoder layers + 2 x 32 decoder layers (self and cross) =
+    # 96 flash forwards, the same again recomputed (every layer is
+    # checkpointed), 96 backwards; at the check's 2 + 2 layers 6, 6, 6
+    ("whisper-large-v3", {}, {"flash_attention": 192, "flash_attention_bwd": 96}),
+    ("whisper-large-v3", {"remat": "none"}, {"flash_attention": 96, "flash_attention_bwd": 96}),
+    ("whisper-large-v3", {"encoder_layers": 2, "num_layers": 2},
+     {"flash_attention": 12, "flash_attention_bwd": 6}),
+    ("qwen2-vl-2b", {}, {"flash_attention": 56, "flash_attention_bwd": 28}),
+    # jamba's cut: one group of 2 layers, not repeated, so nothing recomputed
+    ("jamba-v0.1-52b", {"num_layers": 2, "attn_period": 2, "attn_offset": 1},
+     {"flash_attention": 1, "flash_attention_bwd": 1, "ssd_scan": 1, "ssd_scan_bwd": 1,
+      "moe_router": 1, "moe_router_bwd": 1}),
 ])
 def test_train_launches_per_step(arch, replace, want):
     """A forward per layer that runs the kernel, one more for each such
     layer of a repeated group under remat, and a backward per layer: at full
     width 30 + 30 + 30 flash launches for starcoder2-3b, 64 + 64 + 64 SSD
-    launches for mamba2-2.7b."""
+    launches for mamba2-2.7b; counted by hand for whisper (an enc-dec
+    recomputes every layer) and jamba's cut."""
     from repro_torch.configs import get_config
 
     assert chip_smoke.train_launches_per_step(get_config(arch).replace(**replace)) == want
@@ -797,7 +824,9 @@ def test_no_spill_kernels_name_every_kernel_of_the_new_sources():
 def test_backward_cases_draw_from_their_own_generator(monkeypatch):
     """The SSD and router backward cases draw from the generator seeded
     BWD_SEED, after every earlier case; then the SSD backward redesign's case
-    from one seeded BWD_REDESIGN_SEED; then the split sweep."""
+    from one seeded BWD_REDESIGN_SEED; then the cases of the slice that
+    trains the enc-dec, VLM and hybrid families from one seeded
+    SLICE10_SEED; then the split sweep."""
     calls = _phase_kernels_draws(monkeypatch)
     names = [c[0] for c in chip_smoke.SSD_BWD_CASES + chip_smoke.ROUTER_BWD_CASES]
     new = [c[0] for c in chip_smoke.SSD_BWD_CASES_NEW]
@@ -810,7 +839,8 @@ def test_backward_cases_draw_from_their_own_generator(monkeypatch):
     assert chip_smoke.BWD_REDESIGN_SEED not in earlier + (chip_smoke.BWD_SEED,)
     first = seeds.index(chip_smoke.BWD_SEED)
     assert seeds[first:-1] == ([chip_smoke.BWD_SEED] * len(names)
-                               + [chip_smoke.BWD_REDESIGN_SEED] * len(new))
+                               + [chip_smoke.BWD_REDESIGN_SEED] * len(new)
+                               + [chip_smoke.SLICE10_SEED] * len(SLICE10_NAMES))
     assert calls[-1][0] == "decode_split_sweep"
     assert [name for _, name, seed in calls if seed == 0] == SEED0_CASES
 
@@ -987,3 +1017,232 @@ def test_kimi_cell_is_cut_to_fit_the_card():
     assert 4 * cfg32.param_counts()["total"] / 1e9 < 11
     assert 4 * 384 * 3 * 7168 * 2048 / 1e9 == pytest.approx(67.6, abs=0.1)
     assert prefill_S == 4096 and lengths == (32,)
+
+
+def test_slice10_cases_draw_from_their_own_generator(monkeypatch):
+    """The cases of the enc-dec, VLM and hybrid train slice draw from the
+    generator seeded SLICE10_SEED, one after another, after every earlier
+    case and before the split sweep; no earlier case's inputs move."""
+    calls = _phase_kernels_draws(monkeypatch)
+    seeds = [seed for _, _, seed in calls]
+    assert [name for _, name, seed in calls if seed == chip_smoke.SLICE10_SEED] == SLICE10_NAMES
+    first = seeds.index(chip_smoke.SLICE10_SEED)
+    assert seeds[first:-1] == [chip_smoke.SLICE10_SEED] * len(SLICE10_NAMES)
+    assert calls[-1][0] == "decode_split_sweep"
+    assert chip_smoke.BWD_REDESIGN_SEED in seeds[:first]
+    assert chip_smoke.SLICE10_SEED not in (
+        0, 14, chip_smoke.NEW_CASES_SEED, chip_smoke.SWEEP_SEED, chip_smoke.D112_REDESIGN_SEED,
+        chip_smoke.BWD_SEED, chip_smoke.BWD_REDESIGN_SEED, chip_smoke.ENCDEC_VLM_SEED)
+    assert [name for _, name, seed in calls if seed == 0] == SEED0_CASES
+    kinds = [kind for kind, _, seed in calls if seed == chip_smoke.SLICE10_SEED]
+    assert kinds.count("router_case") == kinds.count("router_bwd_case") == 4
+
+
+def test_slice10_cases_cover_the_train_shapes(monkeypatch):
+    """The flash backward in bf16 at whisper's encoder (B = 8, S = 1500,
+    non-causal: a ragged last dQ tile of BWD_Q_PAD rows), cross-attention
+    (Sq = 448 over Sk = 1500, non-causal) and decoder self-attention
+    (causal), qwen2-vl's G = 6 and jamba's G = 4 at S = 4096; in f32 a
+    non-causal Sq = 100 over Sk = 300 and G = 6; jamba's prefill (S = 8192,
+    32/8) and serve decode (B = 8, G = 4: the CUDA-core route with 4 rows),
+    its SSD scan in the mixer's bf16 at L = 8192 and in f32 at the train
+    shape L = 4096 (the train step's forward: ``ssd_chunk_out`` on the f32
+    route), its backward in f32 at L = 4096 (128 heads, P = 64, N = 16, one
+    group, chunk 128), its router at E = 16, k = 2 for T = 8, 4096, 4097 and
+    the prefill's 8192.  Every case is timed on the device (the flash
+    forward's with ``twice``, the others always)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import rows_per_block
+    from repro_torch.kernels.flash_attention.kernel import BWD_Q_PAD
+
+    whisper, qwen, jamba = (get_config(a) for a in ("whisper-large-v3", "qwen2-vl-2b",
+                                                     "jamba-v0.1-52b"))
+    bwd = {name: (shape, kw) for name, *shape, kw in chip_smoke.FLASH_BWD_CASES_SLICE10}
+    wh = [whisper.num_heads, whisper.num_kv_heads, whisper.head_dim, "bfloat16"]
+    assert bwd["whisper_encoder_bwd_S1500"] == ([8, 1500, 1500, *wh], dict(causal=False))
+    assert bwd["whisper_cross_bwd_Sq448_Sk1500"] == ([8, 448, 1500, *wh], dict(causal=False))
+    assert bwd["whisper_decoder_self_bwd_S448"] == ([8, 448, 448, *wh], dict())
+    assert 1500 % BWD_Q_PAD and 448 % BWD_Q_PAD
+    for name, cfg in (("qwen2vl_bwd_S4096", qwen), ("jamba_bwd_S4096", jamba)):
+        assert bwd[name] == ([1, 4096, 4096, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                              "bfloat16"], dict())
+    assert (qwen.num_heads // qwen.num_kv_heads, jamba.num_heads // jamba.num_kv_heads) == (6, 4)
+    (B, Sq, Sk, Hq, Hkv, D, dtype), kw = bwd["f32_noncausal_Sq100_Sk300"]
+    assert (Sq, Sk, dtype, kw) == (100, 300, "float32", dict(causal=False))
+    (B, Sq, Sk, Hq, Hkv, D, dtype), kw = bwd["f32_G6_S200"]
+    assert (Hq // Hkv, dtype) == (6, "float32")
+    (name, *shape, kw), = chip_smoke.FLASH_CASES_SLICE10
+    assert shape == [1, 8192, 8192, 32, 8, 128, "bfloat16"] and kw.get("causal", True)
+    (name, B, S, Hq, Hkv, D, dtype, lengths, kw), = chip_smoke.DECODE_CASES_SLICE10
+    assert (B, Hq, Hkv, D, dtype) == (8, 32, 8, 128, "bfloat16") and max(lengths) <= S
+    assert rows_per_block(torch.bfloat16, Hq // Hkv) == 4
+    mixer = [1, jamba.ssm_heads, jamba.ssm_head_dim, jamba.ssm_state]
+    prefill, train = chip_smoke.SSD_CASES_SLICE10
+    for (name, B, L, *heads, dtype, kw), want in ((prefill, (8192, "bfloat16")),
+                                                  (train, (4096, "float32"))):
+        assert [B, *heads] == mixer and (L, dtype) == want
+        assert kw == dict(groups=jamba.ssm_groups, regime="mamba2") and jamba.ssm_chunk == 128
+    runs = {a: (r, B, S) for a, r, B, S, _ in chip_smoke.TRAIN_RUNS}
+    models = {a: S for a, _, S, *_ in chip_smoke.MODELS}
+    assert runs["jamba-v0.1-52b"][1:] == (1, train[2]) and models["jamba-v0.1-52b"] == prefill[2]
+    (name, B, L, *heads, dtype, kw), = chip_smoke.SSD_BWD_CASES_SLICE10
+    assert [B, *heads] == mixer and (L, dtype) == (4096, "float32")
+    assert kw == dict(groups=1, regime="mamba2")
+    assert [(T, E, k) for _, T, E, k in chip_smoke.ROUTER_CASES_SLICE10] == [
+        (8, 16, 2), (4096, 16, 2), (4097, 16, 2), (8192, 16, 2)]
+    assert {train[2], prefill[2]} <= {T for _, T, _, _ in chip_smoke.ROUTER_CASES_SLICE10}
+    assert (jamba.num_experts, jamba.experts_per_token) == (16, 2)
+    for case in (chip_smoke.flash_bwd_case, chip_smoke.ssd_case, chip_smoke.decode_case,
+                 chip_smoke.router_case, chip_smoke.ssd_bwd_case, chip_smoke.router_bwd_case):
+        assert "device_ms(" in inspect.getsource(case)
+    seen = {}
+
+    def record(kind):
+        def case(name, *args, **kw):
+            seen[(kind, name)] = kw
+            return dict(kernel=kind, case=name, ok=True)
+        return case
+
+    for kind in ("flash_case", "decode_case", "ssd_case", "router_case", "flash_bwd_case",
+                 "ssd_bwd_case", "router_bwd_case"):
+        monkeypatch.setattr(chip_smoke, kind, record(kind))
+    monkeypatch.setattr(torch, "Generator", lambda device=None: type(
+        "G", (), {"manual_seed": lambda self, s: self})())
+    chip_smoke.slice10_cases()
+    assert len(seen) == len(SLICE10_NAMES)
+    assert all(kw["twice"] for (kind, _), kw in seen.items() if kind == "flash_case")
+
+
+def test_jamba_cell_is_one_period_at_full_width():
+    """jamba-v0.1-52b served at every published width, cut to one whole 7:1
+    period (8 of its 32 layers: 7 mamba2 and 1 attention, MoE on every 2nd),
+    13.27 B parameters, 26.5 GB in bf16 (the whole 51.5 B would need 103
+    GB), prefill at S = 8192; its f32 decode-vs-forward check at the 2-layer
+    cut of its train run, dropless as decode is, at two lengths (one with a
+    ragged SSD chunk)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import layer_pattern
+
+    (arch, replace, prefill_S, check, lengths), = [
+        m for m in chip_smoke.MODELS if m[0] == "jamba-v0.1-52b"]
+    cfg = get_config(arch).replace(**replace)
+    assert cfg.param_dtype == "bfloat16" and cfg.num_layers == cfg.attn_period == 8
+    assert layer_pattern(cfg) == [("ssm", "dense"), ("ssm", "moe")] * 3 + [
+        ("ssm", "dense"), ("attn", "moe")]
+    assert 2 * cfg.param_counts()["total"] / 1e9 == pytest.approx(26.5, abs=0.1)
+    assert 2 * get_config(arch).param_counts()["total"] / 1e9 == pytest.approx(103, abs=1)
+    assert prefill_S == 8192
+    cfg32 = cfg.replace(dtype="float32", **check)
+    runs = {a: r for a, r, *_ in chip_smoke.TRAIN_RUNS}
+    assert {k: v for k, v in check.items() if k in runs[arch]} == runs[arch]
+    assert layer_pattern(cfg32) == [("ssm", "dense"), ("attn", "moe")]
+    assert cfg32.param_dtype == "float32" and cfg32.capacity_factor == 64.0
+    assert 4 * cfg32.param_counts()["total"] / 1e9 < 15
+    assert any(L % 32 for L in lengths) and all(L <= 64 for L in lengths)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "whisper-large-v3", "qwen2-vl-2b"])
+def test_family_batches_follow_the_train_specs(arch):
+    """``FamilyBatches`` yields JAX's ``train_input_specs`` layout: tokens and
+    labels (the token families: ``ZipfTokens``' very batches); the enc-dec
+    family adds f32 ``enc_embeds`` (B, encoder_seq, d_model); the VLM family
+    takes f32 ``embeds`` (B, S, d_model) and int32 (B, S, 3) positions in
+    Qwen2-VL's layout in place of tokens, a text position's embedding the
+    frozen row of its token and an image position's label padding.  Every
+    batch holds ``ZipfTokens``' tokens; the random frames and patch
+    embeddings are a pool of ``FEED_POOL`` drawn when the source is built,
+    which the batches cycle through.  Seeded: the same batches from the same
+    seed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).scaled_down()
+    B, S, n = 2, 256, 3
+    src = chip_smoke.FamilyBatches(cfg, B, S, n, seed=3)
+    assert chip_smoke.FEED_POOL == 2
+    assert len(src.pool) == (0 if cfg.family == "dense" else 2)
+    assert len(chip_smoke.FamilyBatches(cfg, B, S, 1, seed=3).pool) == len(src.pool[:1])
+    a = list(src.session())
+    b = list(chip_smoke.FamilyBatches(cfg, B, S, n, seed=3).session())
+    zipf = list(chip_smoke.ZipfTokens(cfg.vocab_size, B, S, n, seed=3).session())
+    assert len(a) == n
+    for x, y in zip(a, b):
+        assert x.keys() == y.keys()
+        for key in x:
+            np.testing.assert_array_equal(x[key], y[key])
+    if cfg.family == "vlm":
+        image = np.zeros(S, dtype=bool)
+        image[64:64 + 121] = True
+        for x, want in zip(a, zipf):
+            assert x.keys() == {"embeds", "positions", "labels"}
+            emb, pos = x["embeds"], x["positions"]
+            assert emb.shape == (B, S, cfg.d_model) and emb.dtype == np.float32
+            assert pos.shape == (B, S, 3) and pos.dtype == np.int32
+            assert (pos[:, :64] == np.arange(64)[None, :, None]).all()  # S / 4 text tokens
+            assert (pos[:, 64:64 + 121, 0] == 64).all()  # an 11 x 11 image at t = 64
+            assert pos[0, 64 + 12].tolist() == [64, 65, 65]
+            assert (x["labels"][:, image] == 0).all()
+            np.testing.assert_array_equal(x["labels"][:, ~image], want["labels"][:, ~image])
+            for bi, i in ((0, 0), (1, 63), (0, 64 + 121), (1, S - 1)):
+                np.testing.assert_array_equal(emb[bi, i],
+                                              src.text_row(int(want["tokens"][bi, i])))
+            assert 0.015 < emb.std() < 0.025  # EMBED_SCALE
+        patches = [x["embeds"][:, image] for x in a]
+        np.testing.assert_array_equal(patches[2], patches[0])  # the pool, cycled
+        assert not np.array_equal(patches[1], patches[0])
+        np.testing.assert_array_equal(patches[0], src.pool[0][:, image])
+        full = get_config(arch)  # the train run's S holds the prefill's prompt layout
+        (batch,) = chip_smoke.FamilyBatches(full, 1, 4096, 1, seed=0).session()
+        np.testing.assert_array_equal(batch["positions"],
+                                      chip_smoke.qwen2vl_positions(4096).numpy())
+        assert chip_smoke.qwen2vl_layout(4096) == (chip_smoke.VLM_TEXT, chip_smoke.VLM_GRID)
+        return
+    for x, z in zip(a, zipf):
+        np.testing.assert_array_equal(x["tokens"], z["tokens"])
+        np.testing.assert_array_equal(x["labels"], z["labels"])
+    if cfg.family == "encdec":
+        for x in a:
+            assert x.keys() == {"tokens", "labels", "enc_embeds"}
+            assert x["enc_embeds"].shape == (B, cfg.encoder_seq, cfg.d_model)
+            assert x["enc_embeds"].dtype == np.float32
+        np.testing.assert_array_equal(a[2]["enc_embeds"], a[0]["enc_embeds"])
+        assert not np.array_equal(a[1]["enc_embeds"], a[0]["enc_embeds"])
+    else:
+        assert all(x.keys() == {"tokens", "labels"} for x in a)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-2b", "jamba-v0.1-52b"])
+def test_train_check_configs(arch, monkeypatch):
+    """The f32 train checks of the new runs: 2 layers of the run's config
+    (whisper's encoder at 2 layers too, jamba at its period-2 cut and
+    dropless), f32 compute; the earlier runs' checks are as they were (2
+    layers, f32, nothing else changed)."""
+    from repro_torch.configs import get_config
+
+    import repro_torch.models as models
+
+    runs = {a: r for a, r, *_ in chip_smoke.TRAIN_RUNS}
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_build(cfg):
+        built.append(cfg)
+        raise Stop
+
+    monkeypatch.setattr(models, "build_model", fake_build)
+    for a in (arch, "starcoder2-3b", "moonshot-v1-16b-a3b"):
+        with pytest.raises(Stop):
+            chip_smoke.phase_train_check(a, runs[a])
+    cfg, star, moon = built
+    assert (cfg.num_layers, cfg.dtype) == (2, "float32")
+    if arch == "whisper-large-v3":
+        assert cfg.encoder_layers == 2
+    if arch == "jamba-v0.1-52b":
+        assert (cfg.attn_period, cfg.attn_offset, cfg.capacity_factor) == (2, 1, 64.0)
+    assert star == get_config("starcoder2-3b").replace(num_layers=2, dtype="float32")
+    assert moon == get_config("moonshot-v1-16b-a3b").replace(num_layers=2, dtype="float32")

@@ -496,6 +496,40 @@ class TestSSDScanPlain:
             np.testing.assert_allclose(_np(got), ref_y, atol=SSD_TOL, rtol=rtol)
             np.testing.assert_allclose(_np(got_h), ref_h, atol=SSD_TOL, rtol=SSD_TOL)
 
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_chunked_model_keeps_a_cancelling_row(self, dtype):
+        """A row where C_i.B_i dt_i cancels D (jamba's N = 16, fast decay: y_i
+        is then about 1e-8 of its terms) against the f64 token recurrence:
+        the model (the kernels' f64 coefficient of x_i) keeps it within
+        bf16's rounding of the row (chip_smoke's row rule, 3e-2 of the row's
+        RMS); an f32 sum of the two terms, as the kernels took it before,
+        errs by several times the row."""
+        rng = np.random.default_rng(25)
+        B, L, H, P, N, t, chunk = 1, 64, 2, 64, 16, 40, 64
+
+        def silu(v):
+            return v / (1.0 + np.exp(-v))
+
+        tdt = getattr(torch, dtype)
+        tx, tB, tC = (torch.from_numpy(silu(_randn(rng, s))).to(tdt)
+                      for s in ((B, L, H, P), (B, L, 1, N), (B, L, 1, N)))
+        dt = torch.from_numpy(np.log1p(np.exp(_randn(rng, (B, L, H)))))
+        dt[0, t] = 2.0  # the history decays by exp(-32) at token t
+        a = torch.full((H,), -16.0)
+        cb = float((tC[0, t, 0].double() * tB[0, t, 0].double()).sum())
+        D = torch.tensor([-cb * float(dt[0, t, 0]), 1.0])  # head 0 cancels at token t
+        args = (tx, dt, a, tB, tC, D)
+        got, _ = ssd_scan_chunked_model(*args, chunk=chunk)
+        want, _ = ssd_scan_ref(*(v.double() for v in args))
+        rms = want[0, t, 0].pow(2).mean().sqrt()
+        assert rms < 1e-7 * want[0, t, 1].pow(2).mean().sqrt()  # the row cancels
+        err = float((got[0, t, 0].double() - want[0, t, 0]).abs().max() / rms)
+        assert err <= 3e-2
+        coef32 = (torch.tensor(cb, dtype=torch.float32) * dt[0, t, 0] + D[0]).float()
+        coef64 = (cb * dt[0, t, 0].double() + D[0].double()).float()
+        f32_sum = got[0, t, 0].float() + tx[0, t, 0].float() * (coef32 - coef64)
+        assert float((f32_sum.double() - want[0, t, 0]).abs().max() / rms) > 100 * 3e-2
+
     @pytest.mark.parametrize("chunk", [40, 128])
     def test_tf32_route_keeps_f32_precision(self, chunk):
         """The f32 route's 3xTF32 products (``ssd_scan_chunked_model`` on f32
