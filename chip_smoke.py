@@ -149,10 +149,28 @@ every phase passed):
               kernels on the card against the same step on CPU copies
               through the plain route (loss, gradient norm, updated
               parameters, each against a stated tolerance).
-6. a ``{"kernels": [...]}`` line with each kernel's launches on the main
+6. service  - the paper's main path through the launcher, ``SERVICE_RUNS``:
+              ``python -m repro_torch.launch.train --execute --full-width
+              --device cuda`` in a subprocess (``examples/train_e2e_torch.py``
+              starts the data service, whose 2 workers draw the batches of
+              ``launch/specs.py``'s layout; a ``DeviceFeeder`` moves them to
+              the card; the trainer runs the kernels built in phase 1) for
+              starcoder2-3b (B=1, S=8192, 6 steps) and whisper-large-v3
+              uncut (B=8 clips, 448 tokens, 4 steps).  A non-zero exit, a
+              timeout or a missing result line fails the run; so do a loss
+              that is not finite, a first batch whose loss after the run is
+              not below its loss at step 1 (uniform tokens leave the loss
+              across batches flat within their noise), fewer launches than
+              ``train_launches_per_step`` a step, 80 GB or more of peak
+              memory, or a thread or process left running.  Logs the feed's
+              idle and stall beside phase 5's in-script feed, and the dry
+              run's FLOPs a step (``repro_torch.launch.dryrun`` on meta, the
+              same config, B and S) with the achieved TFLOP/s and share of
+              989e12.
+7. a ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths ((a) and (b) of every model, the augment phase, the steps of the
-   train runs; the checks are reported on their own lines) and its times,
-   then the card line, then ``{"ok": true, ...}``.
+   train runs and of the service runs; the checks are reported on their own
+   lines) and its times, then the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -160,6 +178,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -168,10 +187,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published peaks of one H100 SXM (dense): bf16 tensor cores, f32 outside
-# the tensor cores, HBM bandwidth.
-PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
-HBM_BYTES_PER_S = 3.35e12
+# The card's peaks (H100 SXM, dense) and the FLOP and byte formulas of the
+# kernels, one copy in the port (``repro_torch.launch.flops``).
+try:
+    from repro_torch.launch.flops import (HBM_BYTES_PER_S, PEAK_FLOPS, augment_bound, bound,
+                                          decode_bytes, decode_flops, flash_flops,
+                                          router_bwd_flops, router_bytes, router_flops,
+                                          ssd_bwd_flops, ssd_bwd_product_flops, ssd_flops,
+                                          ssd_product_flops)
+    from repro_torch.launch.flops import visible_pairs as _visible_pairs
+except ModuleNotFoundError as e:  # the script alone: main() says that the port is missing
+    if e.name != "repro_torch":
+        raise
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py
 # bf16 edges of the Hopper flash kernels (blocks of 128 query rows, key
 # tiles of 128 and 64 in the forward, 128-key blocks and 64-row q tiles in
@@ -593,20 +620,6 @@ def achieved_tflops(flops: float, ms: float) -> float:
     return flops / (ms * 1e-3) / 1e12
 
 
-def flash_flops(B, Sq, Sk, Hq, D, causal=True, window=0, q_offset=0, backward=False) -> float:
-    """The least FLOPs of a flash call on this run's masks: 4 D a visible
-    pair (Q K^T and P V) forward; 2.5x that backward (Q K^T, dO V^T, P^T dO,
-    dS^T Q, dS K)."""
-    fwd = 4.0 * B * Hq * D * _visible_pairs(Sq, Sk, causal, window, q_offset)
-    return 2.5 * fwd if backward else fwd
-
-
-def bound(flops: float, nbytes: float, dtype: str):
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_mem = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
-
-
 # ---------------------------------------------------------------------------
 # phase 1
 # ---------------------------------------------------------------------------
@@ -687,15 +700,6 @@ def ptxas_spills(lines) -> dict:
 # ---------------------------------------------------------------------------
 # phase 2
 # ---------------------------------------------------------------------------
-def _visible_pairs(Sq, Sk, causal, window, q_offset=0) -> int:
-    import numpy as np
-
-    qp = q_offset + np.arange(Sq)
-    hi = np.minimum(qp + 1, Sk) if causal else np.full(Sq, Sk)
-    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(Sq, dtype=np.int64)
-    return int(np.clip(hi - lo, 0, None).sum())
-
-
 def flash_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, softcap=0.0,
                q_offset=0, blocks=None, iters=10, library=True, twice=False, gen=None):
     """The forward kernel at each tile of ``blocks`` (default: the dtype's
@@ -830,9 +834,8 @@ def decode_case(name, B, S, Hq, Hkv, D, dtype, lengths, window=0, splits=(None, 
     library_ms = time_ms(sdpa, iters)
     library_device_ms = device_ms(sdpa, iters)
     visible = int(mask.sum())
-    flops = 4.0 * Hq * D * visible
-    nbytes = (2 * visible * Hkv * D + 2 * q.numel()) * q.element_size() + lens.numel() * 4
-    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    bound_ms, bound_by = bound(decode_flops(Hq, D, visible),
+                               decode_bytes(visible, B, Hq, Hkv, D, q.element_size()), dtype)
     rec = dict(kernel="decode_attention", case=name,
                shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window, splits=list(splits),
                           block_s=block_s, lengths=list(lengths)),
@@ -893,26 +896,6 @@ def router_agreement(got, want) -> dict:
     ids_equal, slots_equal = bool((gi == wi).all()), bool((gs == ws).all())
     return dict(ids_equal=ids_equal, slots_equal=slots_equal, gate_err=gate_err,
                 ok=ids_equal and slots_equal and gate_err <= GATE_TOL)
-
-
-def ssd_product_flops(B, L, H, P, N, chunk, groups=None) -> dict:
-    """FLOPs of each product of an ssd_scan call: per chunk of q tokens, the
-    q(q+1)/2 causal entries of C.B^T (2N each) once per group (the heads of
-    a group share it), and per head those of W x (2P each, W[i, j] = 0 for
-    j > i), C h and the state update (2qNP each); the ragged last chunk
-    counts its own q.  ``groups`` None: pre-expanded, one group a head."""
-    G = groups or H
-    Q = min(chunk, L)
-    qs = [min(Q, L - c) for c in range(0, L, Q)]
-    return dict(cb=float(B * G * sum(q * (q + 1) * N for q in qs)),
-                wx=float(B * H * sum(q * (q + 1) * P for q in qs)),
-                ch=float(B * H * sum(2 * q * N * P for q in qs)),
-                state=float(B * H * sum(2 * q * N * P for q in qs)))
-
-
-def ssd_flops(B, L, H, P, N, chunk, groups=None) -> float:
-    """The least FLOPs of an ssd_scan call (``ssd_product_flops``, summed)."""
-    return sum(ssd_product_flops(B, L, H, P, N, chunk, groups).values())
 
 
 # Tensor-core passes of each product in csrc/ssd_scan.cu, and the rate they
@@ -1042,10 +1025,7 @@ def router_case(name, T, E, k, ties=False, iters=20, gen=None):
     kernel_ms = time_ms(lambda: moe_router(logits, k), iters)
     kernel_device_ms = device_ms(lambda: moe_router(logits, k), iters)
     plain_ms = time_ms(lambda: moe_router_ref(logits, k), max(2, iters // 5), 1)
-    # softmax (max, exp, sum, divide) and k rounds of compare-select, per logit
-    flops = float(T * E * (4 + 2 * k))
-    nbytes = 4.0 * (T * E + 3 * T * k)
-    bound_ms, bound_by = bound(flops, nbytes, "float32")
+    bound_ms, bound_by = bound(router_flops(T, E, k), router_bytes(T, E, k), "float32")
     rec = dict(kernel="moe_router", case=name, shape=dict(T=T, E=E, k=k, ties=ties),
                dtype="float32", max_abs_err=agree["gate_err"], tol=GATE_TOL,
                ids_equal=agree["ids_equal"], slots_equal=agree["slots_equal"],
@@ -1055,26 +1035,6 @@ def router_case(name, T, E, k, ties=False, iters=20, gen=None):
                ok=agree["ok"] and bit_equal)
     log(rec)
     return rec
-
-
-def ssd_bwd_product_flops(B, L, H, P, N, chunk=64, groups=None) -> dict:
-    """FLOPs of each product of an ssd_scan backward, the least the function
-    needs: per chunk of q tokens the q(q+1)/2 causal entries of C.B^T (2N
-    each) once per group, and per head those of G = dy.x^T (2P), of W dy for
-    dx (2P), and of (G o L) with C and with B for dB and dC (2N each); per
-    token and head the state terms R^T B, R x, h dy, the backward chunk state
-    and the recomputed forward chunk state (2NP each).  ``groups`` None: one
-    group a head."""
-    G = groups or H
-    Q = min(chunk, L)
-    qs = [min(Q, L - c) for c in range(0, L, Q)]
-    tri = sum(q * (q + 1) for q in qs)
-    return dict(cb=float(B * G * tri * N), g=float(B * H * tri * P), wdy=float(B * H * tri * P),
-                dbdc=float(2 * B * H * tri * N), state=float(5 * B * H * L * 2 * N * P))
-
-
-def ssd_bwd_flops(B, L, H, P, N, chunk=64, groups=None) -> float:
-    return sum(ssd_bwd_product_flops(B, L, H, P, N, chunk, groups).values())
 
 
 def ssd_bwd_tensor_core_bound(B, L, H, P, N, chunk, groups, dtype) -> float:
@@ -1231,9 +1191,7 @@ def router_bwd_case(name, T, E, k, ties=False, iters=20, gen=None):
     kernel_ms = time_ms(lambda: moe_router_bwd(ids, gates, dgates, E), iters)
     kernel_device_ms = device_ms(lambda: moe_router_bwd(ids, gates, dgates, E), iters)
     plain_ms = time_ms(lambda: moe_router_bwd_ref(ids, gates, dgates, E), max(2, iters // 5), 1)
-    flops = float(T * k * 4)
-    nbytes = 4.0 * (T * E + 3 * T * k)
-    bound_ms, bound_by = bound(flops, nbytes, "float32")
+    bound_ms, bound_by = bound(router_bwd_flops(T, k), router_bytes(T, E, k), "float32")
     rec = dict(kernel="moe_router_bwd", case=name, shape=dict(T=T, E=E, k=k, ties=ties),
                dtype="float32", max_abs_err=v["err"], tol=GATE_TOL,
                bit_equal_across_runs=v["bit_equal"], kernel_ms=kernel_ms,
@@ -1285,13 +1243,6 @@ def augment_inputs(B, H, W, C, oh, ow, corners, gen, alternate_flips=False):
     mean = torch.tensor([IMAGENET_MEAN[c % 3] for c in range(C)], device="cuda")
     std = torch.tensor([IMAGENET_STD[c % 3] for c in range(C)], device="cuda")
     return img, crops, flips, mean, std
-
-
-def augment_bound(B, oh, ow, C):
-    """Bytes: the crop windows read once (uint8) and the output written once
-    (f32), plus corners, flags, mean and std; one FMA per output value."""
-    n = B * oh * ow * C
-    return bound(2.0 * n, 5.0 * n + 12.0 * B + 8.0 * C, "float32")
 
 
 def augment_case(name, B, H, W, C, oh, ow, corners="random", iters=20, gen=None,
@@ -2326,6 +2277,8 @@ def phase_train(arch, replace, B, S, steps):
         log_clocks(f"after the {arch} train profile")
     steady = secs[1:] if len(secs) > 1 else secs
     sps = sum(steady) / len(steady)
+    IN_SCRIPT_FEED[arch] = dict(seconds_per_step=sps, idle_s_per_step=feed["idle_s_per_step"],
+                                stall_fraction=feed["stall_frac"], breakdown=feed["breakdown"])
     log(dict(phase="train", arch=arch, layers=cfg.num_layers, B=B, S=S, steps=steps,
              losses=losses, seconds_per_step=secs, steady_seconds_per_step=sps,
              tokens_per_s=B * S / sps, max_memory_allocated_gb=peak,
@@ -2342,6 +2295,132 @@ def phase_train(arch, replace, B, S, steps):
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the service feeds the trainer through the launcher
+# ---------------------------------------------------------------------------
+# (arch, B, S, steps): phase 5's starcoder2-3b run (the window live, flash
+# forward twice and backward in all 30 layers) and whisper-large-v3 uncut
+# (B = 8 clips: 61.4 MB of f32 enc_embeds a batch, drawn on the workers,
+# the heaviest batch the service moves to the card).  The batches are the
+# launcher's: uniform tokens, standard normal frames (launch/specs layout).
+# Uniform tokens leave the loss nothing to learn across batches but the
+# logits' spread: at lr 2e-6 it moves about 1e-4 a step against about 1e-2
+# between batches, so the loss of step n against step 1 is a coin flip (so
+# is JAX's reduced --execute run's, on the CPU).  What must fall is the
+# loss of the run's first batch, taken again after the last step, against
+# its loss at step 1 (the same data before and after all the updates), and
+# the last batch's, taken again after its own step, against its loss in
+# that step (the last update, at the run's full lr, alone).
+SERVICE_RUNS = (("starcoder2-3b", 1, 8192, 6), ("whisper-large-v3", 8, 448, 4))
+SERVICE_WORKERS = 2
+SERVICE_TIMEOUT_S = 400
+IN_SCRIPT_FEED = {}  # phase 5's feed numbers by arch, for phase 6's log
+
+
+def service_command(arch, B, S, steps):
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--execute",
+            "--full-width", "--device", "cuda", "--batch", str(B), "--seq", str(S),
+            "--steps", str(steps), "--workers", str(SERVICE_WORKERS)]
+
+
+def run_service(cmd, run=subprocess.run):
+    """Runs the launcher's command line from the checkout's root with
+    ``PYTHONPATH`` at ``src``; returns (its last stdout line as JSON, its
+    stdout, the seconds it took).  A non-zero exit, a timeout or a last line
+    that is not a JSON object exits the run."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t = time.perf_counter()
+    try:
+        out = run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True,
+                  timeout=SERVICE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise SystemExit(f"service: {' '.join(cmd)} ran past {SERVICE_TIMEOUT_S} s") from e
+    seconds = time.perf_counter() - t
+    if out.returncode != 0:
+        raise SystemExit(f"service: {' '.join(cmd)} exited {out.returncode}:\n"
+                         f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        res = None
+    if not isinstance(res, dict) or res.get("run") != "train_e2e_torch":
+        raise SystemExit(f"service: no result line from {' '.join(cmd)}:\n{out.stdout[-2000:]}")
+    return res, out.stdout, seconds
+
+
+def service_checks(label, res, per_step) -> None:
+    """Exits unless the losses are finite, the first batch's loss after the
+    last step is below its loss at step 1 and the last batch's below its
+    loss in the last step, every kernel launched at least ``per_step`` times
+    a step, the peak memory is under 80 GB and the service left nothing
+    running."""
+    losses = res["losses"]
+    first, last = res["first_batch_loss_after"], res["last_batch_loss_after"]
+    if not losses or not all(math.isfinite(x) for x in losses + [first, last]):
+        raise SystemExit(f"{label}: losses not finite: {losses}, after the run {first} "
+                         f"(first batch), {last} (last batch)")
+    if not first < losses[0] or not last < losses[-1]:
+        raise SystemExit(f"{label}: a batch's loss did not fall: {losses}, after the run "
+                         f"{first} (first batch), {last} (last batch)")
+    peak = res["max_memory_allocated_gb"]
+    if peak is None or not peak < 80.0:
+        raise SystemExit(f"{label}: peak memory {peak} GB, want under 80 GB")
+    if res["left_running"]["threads"] or res["left_running"]["processes"]:
+        raise SystemExit(f"{label}: left running after the service stopped: "
+                         f"{res['left_running']}")
+    require_launches(label, res["launches"], per_step, res["steps"])
+
+
+def phase_service(arch, B, S, steps):
+    """``python -m repro_torch.launch.train --execute --full-width`` for one
+    model: the data service's workers draw the batches, the DeviceFeeder
+    moves them to the card, the trainer runs ``steps`` steps through the
+    kernels built in phase 1.  Logs the feed beside phase 5's in-script
+    feed for the model, and the dry run's FLOPs a step (the same config, B
+    and S, on meta) with the achieved rate.  Returns the subprocess's
+    launch counts over its steps (the main path)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import ShapeConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    label = f"service {arch}"
+    cmd = service_command(arch, B, S, steps)
+    log(f"{label}: {' '.join(cmd[1:])} (this process holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB of the card)")
+    res, stdout, seconds = run_service(cmd)
+    for line in stdout.strip().splitlines()[:-1]:
+        log(f"  | {line}")
+    service_checks(label, res, train_launches_per_step(get_config(arch)))
+    dry = run_cell(arch, ShapeConfig("service", S, B, "train"))
+    flops = dry["roofline"]["flops_per_device"]
+    sps = res["steady_seconds_per_step"]
+    feed = res["feed"]
+    log(dict(phase="service", arch=arch, B=B, S=S, steps=steps, workers=res["workers"],
+             losses=res["losses"], first_batch_loss_after=res["first_batch_loss_after"],
+             last_batch_loss_after=res["last_batch_loss_after"],
+             last_below_first=res["losses"][-1] < res["losses"][0],
+             seconds_per_step=res["seconds_per_step"],
+             steady_seconds_per_step=sps, tokens_per_s=res["tokens_per_s"],
+             max_memory_allocated_gb=res["max_memory_allocated_gb"],
+             feed_idle_s_per_step=feed["idle_s_per_step"],
+             feed_idle_s_per_step_after_first=feed["idle_s_per_step_after_first"],
+             feed_stall_fraction=feed["stall_frac"], feed_breakdown=feed["breakdown"],
+             feed_bytes=feed["bytes_to_device"], in_script_feed=IN_SCRIPT_FEED.get(arch),
+             dryrun_flops_per_step=flops, dryrun_flops_by_op=dry["flops_by_op"],
+             achieved_tflops=flops / sps / 1e12,
+             peak_share=flops / sps / PEAK_FLOPS["bfloat16"],
+             kernel_builds_s=res["kernel_builds"], command_seconds=seconds,
+             launches=res["launches"]))
+    return res["launches"]
 
 
 def _max_leaf_err(a, b) -> float:
@@ -2482,6 +2561,8 @@ def main() -> int:
         add(phase_train(*run))
     for arch, replace, *_ in TRAIN_RUNS:
         phase_train_check(arch, replace)
+    for run in SERVICE_RUNS:
+        add(phase_service(*run))
 
     kernels = []
     for name, meta in KERNEL_META.items():

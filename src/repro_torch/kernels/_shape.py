@@ -1,0 +1,183 @@
+"""The kernels' shape-only route: what each kernel op returns on the
+``meta`` device, and the FLOPs ``torch.utils.flop_counter.FlopCounterMode``
+charges it.
+
+Each op is a ``torch.library.custom_op`` whose only implementation is its
+fake one: on ``meta`` tensors it returns empty outputs of the kernel's
+shapes and dtypes and computes no numbers, so it is no fallback (a CPU or
+CUDA tensor never reaches it: the wrappers in ``<kernel>/ops.py`` send a
+CPU tensor to the plain version and a CUDA tensor to the kernel).  Its FLOP
+formula is the one of ``repro_torch.launch.flops``.  The dry run
+(``repro_torch.launch.dryrun``) builds a whole step on ``meta`` through
+these ops, autograd's backward included.
+
+Decode's FLOPs depend on ``lengths``, which a ``meta`` tensor does not
+hold: the op is charged every row of a full cache (the window's rows with a
+window), the most a call can read, which is what a decode step over a
+seq_len-deep cache reads.
+
+This module keeps its annotations evaluated (no ``from __future__ import
+annotations``): ``custom_op`` reads its schema from them.
+"""
+from typing import Optional, Tuple
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from ..launch import flops as F
+
+Tensor = torch.Tensor
+
+
+def _refuse(name: str) -> RuntimeError:
+    return RuntimeError(f"repro_torch::{name} is the shape-only route of a kernel; it takes "
+                        "meta tensors only")
+
+
+# --- flash attention ---------------------------------------------------------
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+                        q_offset: int) -> Tuple[Tensor, Tensor]:
+    raise _refuse("flash_attention_fwd")
+
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, causal, window, q_offset):
+    B, Sq, Hq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, Hq, Sq), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q, k, v, causal, window, q_offset, *args, out_shape=None, **kwargs):
+    B, Sq, Hq, D = q
+    return int(F.flash_flops(B, Sq, k[1], Hq, D, causal, window, q_offset))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor, do: Tensor,
+                        causal: bool, window: int, q_offset: int) -> Tuple[Tensor, Tensor, Tensor]:
+    raise _refuse("flash_attention_bwd")
+
+
+@flash_attention_bwd.register_fake
+def _(q, k, v, o, lse, do, causal, window, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q, k, v, o, lse, do, causal, window, q_offset, *args, out_shape=None, **kwargs):
+    B, Sq, Hq, D = q
+    return int(F.flash_flops(B, Sq, k[1], Hq, D, causal, window, q_offset, backward=True))
+
+
+# --- decode attention ----------------------------------------------------------
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, lengths: Tensor,
+                     window: int) -> Tensor:
+    raise _refuse("decode_attention")
+
+
+@decode_attention.register_fake
+def _(q, k_cache, v_cache, lengths, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _(q, k_cache, v_cache, lengths, window, *args, out_shape=None, **kwargs):
+    B, Hq, D = q
+    return int(F.decode_flops(Hq, D, F.decode_visible(B, k_cache[1], window)))
+
+
+# --- SSD scan ------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan(x: Tensor, dt: Tensor, a: Tensor, Bm: Tensor, Cm: Tensor, D: Tensor,
+             chunk: int) -> Tuple[Tensor, Tensor]:
+    raise _refuse("ssd_scan")
+
+
+@ssd_scan.register_fake
+def _(x, dt, a, Bm, Cm, D, chunk):
+    Bsz, _, H, P = x.shape
+    return torch.empty_like(x), x.new_empty((Bsz, H, Bm.shape[3], P), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x, dt, a, Bm, Cm, D, chunk, *args, out_shape=None, **kwargs):
+    Bsz, L, H, P = x
+    return int(F.ssd_flops(Bsz, L, H, P, Bm[3], chunk, Bm[2]))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def ssd_scan_bwd(x: Tensor, dt: Tensor, a: Tensor, Bm: Tensor, Cm: Tensor, D: Tensor,
+                 dy: Tensor, dh_final: Optional[Tensor]
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    raise _refuse("ssd_scan_bwd")
+
+
+@ssd_scan_bwd.register_fake
+def _(x, dt, a, Bm, Cm, D, dy, dh_final):
+    f32 = dict(dtype=torch.float32)
+    H = x.shape[2]
+    return (torch.empty_like(x), dt.new_empty(dt.shape, **f32), a.new_empty((H,), **f32),
+            torch.empty_like(Bm), torch.empty_like(Cm), a.new_empty((H,), **f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _(x, dt, a, Bm, Cm, D, dy, dh_final, *args, out_shape=None, **kwargs):
+    Bsz, L, H, P = x
+    return int(F.ssd_bwd_flops(Bsz, L, H, P, Bm[3], groups=Bm[2]))
+
+
+# --- MoE router ----------------------------------------------------------------
+@torch.library.custom_op("repro_torch::moe_router", mutates_args=())
+def moe_router(logits: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:
+    raise _refuse("moe_router")
+
+
+@moe_router.register_fake
+def _(logits, k):
+    T = logits.shape[0]
+    return (logits.new_empty((T, k), dtype=torch.int32),
+            logits.new_empty((T, k), dtype=torch.float32),
+            logits.new_empty((T, k), dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_router)
+def _(logits, k, *args, out_shape=None, **kwargs):
+    T, E = logits
+    return int(F.router_flops(T, E, k))
+
+
+@torch.library.custom_op("repro_torch::moe_router_bwd", mutates_args=())
+def moe_router_bwd(ids: Tensor, gates: Tensor, dgates: Tensor, E: int) -> Tensor:
+    raise _refuse("moe_router_bwd")
+
+
+@moe_router_bwd.register_fake
+def _(ids, gates, dgates, E):
+    return gates.new_empty((ids.shape[0], E), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_router_bwd)
+def _(ids, gates, dgates, E, *args, out_shape=None, **kwargs):
+    T, k = ids
+    return int(F.router_bwd_flops(T, k))
+
+
+# --- fused augment ---------------------------------------------------------------
+@torch.library.custom_op("repro_torch::fused_augment", mutates_args=())
+def fused_augment(images: Tensor, crops: Tensor, flips: Tensor, mean: Tensor, std: Tensor,
+                  out_h: int, out_w: int) -> Tensor:
+    raise _refuse("fused_augment")
+
+
+@fused_augment.register_fake
+def _(images, crops, flips, mean, std, out_h, out_w):
+    B, _, _, C = images.shape
+    return mean.new_empty((B, out_h, out_w, C), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.fused_augment)
+def _(images, crops, flips, mean, std, out_h, out_w, *args, out_shape=None, **kwargs):
+    B, _, _, C = images
+    return int(F.augment_flops(B, out_h, out_w, C))

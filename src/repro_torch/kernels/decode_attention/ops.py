@@ -2,7 +2,8 @@
 
 On a CUDA tensor it launches the hand-written Hopper kernel
 (``csrc/decode_attention.cu``) or raises; on a CPU tensor it computes the
-plain version ``decode_attention_ref``.  ``decode_attention.launches`` counts
+plain version ``decode_attention_ref``; on a ``meta`` tensor, the shape-only
+route (``kernels._shape``, no launch counted).  ``decode_attention.launches`` counts
 calls that launched the kernel (one per call, with the split merge's
 launch when there is more than one split).
 
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import _shape
 from .._grad import refuse_grad
 from .kernel import DTYPES, HEAD_DIMS, MAX_GROUP, decode_attention_fwd
 from .ref import decode_attention_ref
@@ -123,10 +125,12 @@ def decode_attention(
         if k_cache.device.type != "cpu" or v_cache.device.type != "cpu":
             raise ValueError("decode_attention: q on the CPU but a cache elsewhere")
         return decode_attention_ref(q, k_cache, v_cache, lengths, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     refuse_grad("decode_attention", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, lengths)
+    if q.device.type == "meta":
+        return _shape.decode_attention(q, k_cache, v_cache, lengths, window)
     B, Hq, _ = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     rows = rows_per_block(q.dtype, Hq // Hkv)

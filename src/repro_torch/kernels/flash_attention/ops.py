@@ -13,6 +13,11 @@ which autograd runs as usual.
 backward (``csrc/flash_attention_bwd.cu``) or raises; on a CPU tensor it
 computes ``flash_attention_bwd_ref`` (the same math, in f32).
 
+On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
+empty outputs of the kernel's shapes, charged their FLOPs under
+``FlopCounterMode``, with no launch counted; autograd on ``meta`` reaches the
+backward's through ``FlashAttention``.
+
 ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
 kernel launches (the backward's kernels, three for f32 and four for bf16,
 count as one launch).
@@ -23,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import _shape
 from .kernel import DTYPES, HEAD_DIMS, TILES, flash_attention_bwd_launch
 from .kernel import flash_attention_fwd as _launch_fwd
 from .ref import flash_attention_bwd_ref, flash_attention_ref
@@ -72,6 +78,8 @@ def _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k,
              with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check(q, k, v)
     block_q, block_k = resolve_tile(q.dtype, q.shape[3], block_q, block_k)
+    if q.device.type == "meta":
+        return _shape.flash_attention_fwd(q, k, v, causal, window, q_offset)
     o = torch.empty_like(q)
     lse = None
     if with_lse:
@@ -126,7 +134,7 @@ def flash_attention(
             raise ValueError("flash_attention: q on the CPU but k or v elsewhere")
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap, q_offset, block_q, block_k)
@@ -164,7 +172,7 @@ def flash_attention_bwd(
             raise ValueError("flash_attention_bwd: q on the CPU but another input elsewhere")
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
                                        softcap=softcap, q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
     _check(q, k, v)
     B, Sq, Hq, _ = q.shape
@@ -178,6 +186,8 @@ def flash_attention_bwd(
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 ({B}, {Hq}, {Sq}); "
                          f"got {lse.dtype} {tuple(lse.shape)}")
+    if q.device.type == "meta":
+        return _shape.flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_offset)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     flash_attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, causal=causal, window=window,
                                softcap=softcap, q_offset=q_offset)

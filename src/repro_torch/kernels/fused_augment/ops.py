@@ -2,7 +2,8 @@
 
 On a CUDA tensor it launches the hand-written Hopper kernel
 (``csrc/fused_augment.cu``) or raises; on a CPU tensor it computes the plain
-version ``fused_augment_ref``.  ``fused_augment.launches`` counts kernel
+version ``fused_augment_ref``; on a ``meta`` tensor, the shape-only route
+(``kernels._shape``, no launch counted).  ``fused_augment.launches`` counts kernel
 launches.  No model path calls it, in either package: it is the standalone op
 of the JAX package's ``repro.kernels.fused_augment``.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _shape
 from .kernel import MAX_CHANNELS, fused_augment_fwd
 from .ref import fused_augment_ref
 
@@ -58,9 +60,11 @@ def fused_augment(
         if any(t.device.type != "cpu" for t in (crops, flips, mean, std)):
             raise ValueError("fused_augment: images on the CPU but another input elsewhere")
         return fused_augment_ref(images, crops, flips, mean, std, out_h, out_w)
-    if images.device.type != "cuda":
+    if images.device.type not in ("cuda", "meta"):
         raise ValueError(f"fused_augment: no kernel for device {images.device}")
     _check(images, crops, flips, mean, std, out_h, out_w)
+    if images.device.type == "meta":
+        return _shape.fused_augment(images, crops, flips, mean, std, out_h, out_w)
     B, _, _, C = images.shape
     out = torch.empty((B, out_h, out_w, C), dtype=torch.float32, device=images.device)
     fused_augment_fwd(images, crops, flips, mean, std, out)

@@ -12,6 +12,11 @@ have none).  On a CPU tensor it computes the plain version
 ``moe_router_bwd``: on a CUDA tensor it launches ``route_bwd`` or raises; on
 a CPU tensor it computes ``moe_router_bwd_ref``.
 
+On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
+empty outputs of the kernels' shapes, charged their FLOPs under
+``FlopCounterMode``, with no launch counted; autograd on ``meta`` reaches the
+backward's through ``MoERouter``.
+
 ``moe_router.launches`` counts calls that launched the forward (its two
 launches count as one), ``moe_router_bwd.launches`` those of the backward.
 """
@@ -21,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from .. import _shape
 from .kernel import MAX_EXPERTS, MAX_K, moe_router_bwd_launch, moe_router_fwd
 from .ref import moe_router_bwd_ref, moe_router_ref
 
@@ -40,6 +46,8 @@ def _check(logits: torch.Tensor, k: int) -> None:
 
 def _forward(logits: torch.Tensor, k: int):
     _check(logits, k)
+    if logits.device.type == "meta":
+        return _shape.moe_router(logits, k)
     T = logits.shape[0]
     ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)
     gates = torch.empty((T, k), dtype=torch.float32, device=logits.device)
@@ -78,7 +86,7 @@ def moe_router(
     """
     if logits.device.type == "cpu":
         return moe_router_ref(logits, k)
-    if logits.device.type != "cuda":
+    if logits.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_router: no kernel for device {logits.device}")
     if torch.is_grad_enabled() and logits.requires_grad:
         return MoERouter.apply(logits, k)
@@ -96,7 +104,7 @@ def moe_router_bwd(
         if gates.device.type != "cpu" or dgates.device.type != "cpu":
             raise ValueError("moe_router_bwd: ids on the CPU but gates elsewhere")
         return moe_router_bwd_ref(ids, gates, dgates, E)
-    if ids.device.type != "cuda":
+    if ids.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_router_bwd: no kernel for device {ids.device}")
     if ids.dim() != 2 or gates.shape != ids.shape or dgates.shape != ids.shape:
         raise ValueError(f"moe_router_bwd: want ids, gates, dgates (T, k); got "
@@ -113,6 +121,8 @@ def moe_router_bwd(
         raise ValueError("moe_router_bwd: inputs on different devices")
     if not all(t.is_contiguous() for t in (ids, gates, dgates)):
         raise ValueError("moe_router_bwd: ids, gates and dgates must be contiguous")
+    if ids.device.type == "meta":
+        return _shape.moe_router_bwd(ids, gates, dgates, E)
     dlogits = torch.empty((T, E), dtype=torch.float32, device=ids.device)
     moe_router_bwd_launch(ids, gates, dgates, dlogits)
     moe_router_bwd.launches += 1

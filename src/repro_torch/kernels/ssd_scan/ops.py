@@ -12,6 +12,11 @@ version ``ssd_scan_ref``, through which autograd runs as usual.
 the states entering each chunk) or raises; on a CPU tensor it computes
 ``ssd_scan_bwd_ref`` (the same math, in f32).
 
+On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
+empty outputs of the kernels' shapes, charged their FLOPs under
+``FlopCounterMode``, with no launch counted; autograd on ``meta`` reaches the
+backward's through ``SSDScan``.
+
 ``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count wrapper calls
 that launched their kernels (one per call).
 """
@@ -21,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import _shape
 from .kernel import (BWD_CHUNK, DTYPES, HEAD_DIMS, MAX_CHUNK, MAX_STATE, ssd_scan_bwd_launch,
                      ssd_scan_fwd)
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
@@ -62,6 +68,8 @@ def _check(x, dt, a, Bm, Cm, D, chunk) -> None:
 def _forward(x, dt, a, Bm, Cm, D, chunk) -> Tuple[torch.Tensor, torch.Tensor]:
     chunk = min(chunk, x.shape[1])
     _check(x, dt, a, Bm, Cm, D, chunk)
+    if x.device.type == "meta":
+        return _shape.ssd_scan(x, dt, a, Bm, Cm, D, chunk)
     Bsz, L, H, P = x.shape
     y = torch.empty_like(x)
     h = torch.empty((Bsz, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
@@ -114,7 +122,7 @@ def ssd_scan(
         if any(t.device.type != "cpu" for t in (dt, a, Bm, Cm, D)):
             raise ValueError("ssd_scan: x on the CPU but another input elsewhere")
         return ssd_scan_ref(x, dt, a, Bm, Cm, D)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, Bm, Cm, D)):
         return SSDScan.apply(x, dt, a, Bm, Cm, D, chunk)
@@ -139,7 +147,7 @@ def ssd_scan_bwd(
         if any(t.device.type != "cpu" for t in (dt, a, Bm, Cm, D, dy)):
             raise ValueError("ssd_scan_bwd: x on the CPU but another input elsewhere")
         return ssd_scan_bwd_ref(x, dt, a, Bm, Cm, D, dy, dh_final)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
     Bsz, L, H, P = x.shape
     _check(x, dt, a, Bm, Cm, D, min(BWD_CHUNK, L))
@@ -154,6 +162,8 @@ def ssd_scan_bwd(
                                  or not dh_final.is_contiguous()):
         raise ValueError(f"ssd_scan_bwd: dh_final must be a contiguous float32 {want_h}; got "
                          f"{dh_final.dtype} {tuple(dh_final.shape)}")
+    if x.device.type == "meta":
+        return _shape.ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh_final)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
     ddt = torch.empty((Bsz, L, H), **f32)

@@ -1,0 +1,277 @@
+"""The one-card dry run (twin of the JAX package's ``repro/launch/dryrun.py``).
+
+For an (architecture x input shape) cell it builds the full config's step on
+the ``meta`` device - the train step for train shapes, the prefill forward or
+the serve step (``make_serve_step``; whisper's ``decode_step``) for serving
+shapes - against the ``launch.specs`` stand-ins, runs it once with no memory
+and no numbers, and counts:
+
+* FLOPs with ``torch.utils.flop_counter.FlopCounterMode``: PyTorch's own
+  formulas for the products, and each kernel op's formula for its
+  shape-only route (``kernels._shape``, from ``launch.flops``);
+* bytes as the operand and result bytes of every op that is not a view: an
+  unfused upper estimate of XLA's "bytes accessed" (an eager step fuses
+  nothing, and an in-place op counts its operand twice).
+
+It writes a JSON record with the roofline (``launch.roofline``, H100
+constants), the argument and output bytes and ``fits_hbm_80g``.
+``temp_bytes`` is null: a ``meta`` run allocates nothing, so it cannot give
+the step's temporaries, and the record does not guess them; ``fits_hbm_80g``
+holds the arguments alone against the card's 80 GB, a necessary condition.
+
+The optimizer reads a few scalars on the host (its clip scale, bias
+corrections and learning rate); on ``meta`` those reads return 1
+(``StepCounter``), which changes no op and no shape of the step.
+
+Meshes: ``one`` (one H100) runs now.  The JAX package's production meshes
+``single`` (16 x 16) and ``multi`` (2 x 16 x 16) need ``dist/``'s mesh and
+sharding rules, which are not ported yet: they raise and name the item.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-3b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch whisper-large-v3 --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --summarize
+``--all`` runs each cell in a fresh subprocess and skips cells whose record
+exists.  Records go to ``experiments/dryrun_torch/`` (git-ignored) unless
+``--out`` says otherwise.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+from typing import Any, Dict, Union
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..feed.sharded import DIST_ITEM
+from ..models.config import SHAPES, ShapeConfig
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+OUT_DIR = os.path.join(SRC, "..", "experiments", "dryrun_torch")
+MESHES = {"one": 1}  # the production meshes wait for dist/
+HBM_BYTES = 80e9
+# ops that allocate without writing: no bytes moved
+_NO_TRAFFIC = ("empty", "empty_strided", "new_empty", "new_empty_strided", "empty_like")
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts the operand and result bytes of every op that is not a view,
+    and answers a host read of a ``meta`` scalar (``.item()``, ``float()``)
+    with 1, which a ``meta`` tensor cannot give."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten._local_scalar_dense.default and args[0].device.type == "meta":
+            t = args[0]
+            return True if t.dtype == torch.bool else (1.0 if t.is_floating_point() else 1)
+        out = func(*args, **kwargs)
+        if not func.is_view and func.overloadpacket.__name__ not in _NO_TRAFFIC:
+            self.ops += 1
+            self.bytes += sum(t.numel() * t.element_size()
+                              for t in tree_leaves((args, kwargs, out))
+                              if isinstance(t, torch.Tensor))
+        return out
+
+
+def count_step(fn) -> Dict[str, Any]:
+    """Runs ``fn()`` on ``meta`` under ``FlopCounterMode`` and ``StepCounter``:
+    {"flops", "bytes", "ops", "flops_by_op", "seconds", "out"}."""
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc, StepCounter() as sc:
+        out = fn()
+    by_op = {str(k): int(v) for k, v in fc.get_flop_counts().get("Global", {}).items()}
+    return {"flops": int(fc.get_total_flops()), "bytes": int(sc.bytes), "ops": sc.ops,
+            "flops_by_op": by_op, "seconds": time.perf_counter() - t0, "out": out}
+
+
+def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", *,
+             microbatches: int = 1, param_dtype: str = "", moe_groups: int = 0,
+             remat: str = "", seq_shard: bool = False, reduced: bool = False,
+             tag: str = "") -> Dict[str, Any]:
+    """The record of one cell.  ``shape`` is a name of ``SHAPES`` or a
+    ``ShapeConfig`` (any global batch and length); ``reduced`` takes the
+    config's ``scaled_down()``."""
+    from ..configs import cell_supported, get_config
+    from ..models import build_model
+    from ..serve.engine import make_serve_step
+    from ..train import AdamWConfig, make_train_step
+    from . import specs as S
+    from .roofline import build_report
+
+    if mesh_name not in MESHES:
+        raise NotImplementedError(f"mesh {mesh_name!r} needs the production mesh and sharding "
+                                  f"rules, which are not ported yet; see {DIST_ITEM}. The "
+                                  f"one-card mesh runs now: --mesh one")
+    if seq_shard:
+        raise NotImplementedError(f"sequence sharding is a plan over a mesh; see {DIST_ITEM}")
+    cfg = get_config(arch)
+    cfg = cfg.scaled_down() if reduced else cfg
+    changes: Dict[str, Any] = {}
+    if param_dtype:
+        changes["param_dtype"] = param_dtype
+    if moe_groups and cfg.num_experts:
+        changes["moe_groups"] = moe_groups
+    if remat:
+        changes["remat"] = remat
+    cfg = cfg.replace(**changes) if changes else cfg
+    sh = SHAPES[shape] if isinstance(shape, str) else shape
+    record: Dict[str, Any] = {
+        "arch": arch, "shape": sh.name, "mesh": mesh_name, "status": "unknown",
+        "kind": sh.kind, "global_batch": sh.global_batch, "seq_len": sh.seq_len,
+        "variant": {"reduced": reduced, "microbatches": microbatches,
+                    "param_dtype": cfg.param_dtype, "remat": cfg.remat, "tag": tag},
+    }
+    supported, reason = cell_supported(cfg, sh)
+    if not supported:
+        record.update(status="SKIP", reason=reason)
+        return record
+
+    chips = MESHES[mesh_name]
+    model = build_model(cfg)
+    params = S.params_shape(model)
+    if sh.kind == "train":
+        oc = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+        state = {"params": params, "opt": S.opt_shape(model, oc)}
+        batch_in = S.train_input_specs(cfg, sh)
+        step = make_train_step(model, oc, microbatches=microbatches)
+        args: tuple = (state, batch_in)
+        counted = count_step(lambda: step(state, batch_in))
+        alias = S.nbytes(state)  # updated in place
+    elif sh.kind == "prefill":
+        batch_in = S.prefill_input_specs(cfg, sh)
+        args = (params, batch_in)
+        with torch.no_grad():
+            counted = count_step(lambda: model.forward(params, batch_in, last_token_only=True))
+        alias = 0
+    else:  # decode: one new token over a cache filled to its last row
+        tok, cache = S.decode_input_specs(model, cfg, sh)
+        cache["pos"] = sh.seq_len - 1
+        serve = model.decode_step if cfg.family == "encdec" else make_serve_step(model)
+        args = (params, cache, tok["tokens"])
+        with torch.no_grad():
+            counted = count_step(lambda: serve(params, cache, tok["tokens"]))
+        alias = S.nbytes(cache)  # updated in place
+    mem = {"argument_bytes": S.nbytes(args), "output_bytes": S.nbytes(counted["out"]),
+           "temp_bytes": None, "alias_bytes": alias}
+    mem["per_device_total"] = mem["argument_bytes"]
+    note = ("bytes: operand and result bytes of every non-view op, unfused (an upper "
+            "estimate); temp_bytes: a meta run gives no temporaries, so per_device_total is "
+            "the arguments alone")
+    rep = build_report(arch, sh.name, mesh_name, chips, counted, mem, cfg, sh, sh.kind,
+                       note=note)
+    record.update(status="OK", trace_s=round(counted["seconds"], 3), ops=counted["ops"],
+                  flops_by_op=counted["flops_by_op"], roofline=rep.to_json(),
+                  fits_hbm_80g=bool(mem["per_device_total"] < HBM_BYTES))
+    return record
+
+
+def cell_path(out_dir: str, arch: str, shape: str, mesh: str) -> str:
+    return os.path.join(out_dir, f"{mesh}__{arch}__{shape}.json")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--mesh", default="one", choices=["one", "single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--summarize", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="sequence-parallel activations (a mesh plan: not ported yet)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--param-dtype", default="", help="override cfg.param_dtype")
+    ap.add_argument("--moe-groups", type=int, default=0, help="GShard 2D dispatch groups")
+    ap.add_argument("--remat", default="", choices=["", "none", "block"],
+                    help="override cfg.remat")
+    ap.add_argument("--tag", default="", help="variant tag, a prefix of the record's name")
+    args = ap.parse_args(argv)
+    out_dir = os.path.abspath(args.out)
+    os.makedirs(out_dir, exist_ok=True)
+
+    if args.summarize:
+        summarize(out_dir)
+        return
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    prefix = f"{args.tag}__" if args.tag else ""
+    if args.all:
+        from ..configs import ARCH_IDS
+        from ..models.config import SHAPES
+
+        done = ok = failed = 0
+        for m in meshes:
+            for a in ARCH_IDS:
+                for s in SHAPES:
+                    if os.path.exists(cell_path(out_dir, f"{prefix}{a}", s, m)) and not args.force:
+                        done += 1
+                        continue
+                    print(f"=== {m} / {a} / {s} ===", flush=True)
+                    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                           "--shape", s, "--mesh", m, "--out", out_dir]
+                    for name in ("microbatches", "param_dtype", "moe_groups", "remat", "tag"):
+                        value = getattr(args, name)
+                        if value and not (name == "microbatches" and value == 1):
+                            cmd += ["--" + name.replace("_", "-"), str(value)]
+                    rc = subprocess.run(cmd, env={**os.environ, "PYTHONPATH": _pythonpath()},
+                                        timeout=3600).returncode
+                    ok, failed = (ok + 1, failed) if rc == 0 else (ok, failed + 1)
+        print(f"done(existing)={done} ok={ok} failed={failed}")
+        summarize(out_dir)
+        return
+
+    record: Dict[str, Any] = {"arch": args.arch, "shape": args.shape, "mesh": meshes[0]}
+    try:
+        record = run_cell(args.arch, args.shape, meshes[0], microbatches=args.microbatches,
+                          param_dtype=args.param_dtype, moe_groups=args.moe_groups,
+                          remat=args.remat, seq_shard=args.seq_shard, tag=args.tag)
+    except Exception as e:  # the record says why; the exit code says it failed
+        record.update(status="FAIL", error=repr(e), traceback=traceback.format_exc())
+        print(record["traceback"], file=sys.stderr)
+    path = cell_path(out_dir, f"{prefix}{args.arch}", record.get("shape") or args.shape,
+                     meshes[0])
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+    print(json.dumps({k: v for k, v in record.items() if k != "traceback"}, indent=1))
+    print(f"record -> {path}")
+    sys.exit(0 if record.get("status") in ("OK", "SKIP") else 1)
+
+
+def _pythonpath() -> str:
+    cur = os.environ.get("PYTHONPATH", "")
+    return f"{SRC}:{cur}" if cur else SRC
+
+
+def summarize(out_dir: str) -> None:
+    from .report import load
+
+    print(f"{'mesh':6s} {'arch':22s} {'shape':12s} {'status':6s} "
+          f"{'compute_s':>10s} {'memory_s':>10s} {'coll_s':>10s} {'dom':>10s} "
+          f"{'useful':>7s} {'args/dev':>9s} {'trace':>8s}")
+    for r in load(out_dir):
+        rl = r.get("roofline") or {}
+        mem_gb = ((rl.get("memory_per_device_bytes") or {}).get("per_device_total") or 0) / 1e9
+        print(f"{r.get('mesh', ''):6s} {r.get('arch', ''):22s} {r.get('shape', ''):12s} "
+              f"{r.get('status', ''):6s} "
+              f"{rl.get('compute_s', 0):10.4f} {rl.get('memory_s', 0):10.4f} "
+              f"{rl.get('collective_s', 0):10.4f} {rl.get('dominant', ''):>10s} "
+              f"{rl.get('useful_ratio', 0):7.2f} {mem_gb:8.1f}G "
+              f"{r.get('trace_s', 0):7.1f}s")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,148 @@
+"""The FLOPs and bytes each kernel op is charged: one copy, read by the
+kernels' shape-only ``meta`` route (``FlopCounterMode`` counts an op with
+these formulas), by the dry run and by ``chip_smoke.py``'s bounds.
+
+Every count is the least work the function needs on the call's data: the
+attention counts cover the visible (query, key) pairs only, the SSD counts
+the causal half of each chunk's products.  ``bound`` turns FLOPs and bytes
+into the least time one H100 could take.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+# Published peaks of one H100 SXM (dense): bf16 tensor cores, tf32 tensor
+# cores, f32 outside the tensor cores, and HBM bandwidth.
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float, dtype: str) -> Tuple[float, str]:
+    """(ms, "operations" or "bytes"): the larger of ``flops`` at the peak
+    rate of ``dtype`` and ``nbytes`` at the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int, q_offset: int = 0) -> int:
+    """(query, key) pairs a query block of Sq rows at ``q_offset`` attends
+    to over Sk keys under the causal mask and the window."""
+    qp = q_offset + np.arange(Sq)
+    hi = np.minimum(qp + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros(Sq, dtype=np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_flops(B, Sq, Sk, Hq, D, causal=True, window=0, q_offset=0, backward=False) -> float:
+    """The least FLOPs of a flash call on this run's masks: 4 D a visible
+    pair (Q K^T and P V) forward; 2.5x that backward (Q K^T, dO V^T, P^T dO,
+    dS^T Q, dS K)."""
+    fwd = 4.0 * B * Hq * D * visible_pairs(Sq, Sk, causal, window, q_offset)
+    return 2.5 * fwd if backward else fwd
+
+
+def decode_flops(Hq: int, D: int, visible: int) -> float:
+    """A decode call over ``visible`` cache rows in all (summed over the
+    sequences): q.k and p.v, 4 D a (query head, visible row)."""
+    return 4.0 * Hq * D * visible
+
+
+def decode_bytes(visible: int, B: int, Hq: int, Hkv: int, D: int, itemsize: int) -> float:
+    """The visible K and V rows read once, q read and the output written
+    once, and the (B,) int32 lengths."""
+    return (2.0 * visible * Hkv * D + 2.0 * B * Hq * D) * itemsize + 4.0 * B
+
+
+def decode_visible(B: int, S: int, window: int) -> int:
+    """Visible rows of a decode call over full caches of S rows, the most a
+    call over an S-row cache can read: S a sequence, or the window."""
+    return B * (min(S, window) if window > 0 else S)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+def ssd_product_flops(B, L, H, P, N, chunk, groups=None) -> Dict[str, float]:
+    """FLOPs of each product of an ssd_scan call: per chunk of q tokens, the
+    q(q+1)/2 causal entries of C.B^T (2N each) once per group (the heads of
+    a group share it), and per head those of W x (2P each, W[i, j] = 0 for
+    j > i), C h and the state update (2qNP each); the ragged last chunk
+    counts its own q.  ``groups`` None: pre-expanded, one group a head."""
+    G = groups or H
+    Q = min(chunk, L)
+    qs = [min(Q, L - c) for c in range(0, L, Q)]
+    return dict(cb=float(B * G * sum(q * (q + 1) * N for q in qs)),
+                wx=float(B * H * sum(q * (q + 1) * P for q in qs)),
+                ch=float(B * H * sum(2 * q * N * P for q in qs)),
+                state=float(B * H * sum(2 * q * N * P for q in qs)))
+
+
+def ssd_flops(B, L, H, P, N, chunk, groups=None) -> float:
+    """The least FLOPs of an ssd_scan call (``ssd_product_flops``, summed)."""
+    return sum(ssd_product_flops(B, L, H, P, N, chunk, groups).values())
+
+
+def ssd_bwd_product_flops(B, L, H, P, N, chunk=64, groups=None) -> Dict[str, float]:
+    """FLOPs of each product of an ssd_scan backward, the least the function
+    needs: per chunk of q tokens the q(q+1)/2 causal entries of C.B^T (2N
+    each) once per group, and per head those of G = dy.x^T (2P), of W dy for
+    dx (2P), and of (G o L) with C and with B for dB and dC (2N each); per
+    token and head the state terms R^T B, R x, h dy, the backward chunk state
+    and the recomputed forward chunk state (2NP each).  ``groups`` None: one
+    group a head."""
+    G = groups or H
+    Q = min(chunk, L)
+    qs = [min(Q, L - c) for c in range(0, L, Q)]
+    tri = sum(q * (q + 1) for q in qs)
+    return dict(cb=float(B * G * tri * N), g=float(B * H * tri * P), wdy=float(B * H * tri * P),
+                dbdc=float(2 * B * H * tri * N), state=float(5 * B * H * L * 2 * N * P))
+
+
+def ssd_bwd_flops(B, L, H, P, N, chunk=64, groups=None) -> float:
+    return sum(ssd_bwd_product_flops(B, L, H, P, N, chunk, groups).values())
+
+
+# ---------------------------------------------------------------------------
+# MoE router
+# ---------------------------------------------------------------------------
+def router_flops(T: int, E: int, k: int) -> float:
+    """softmax (max, exp, sum, divide) and k rounds of compare-select, per
+    logit."""
+    return float(T * E * (4 + 2 * k))
+
+
+def router_bwd_flops(T: int, k: int) -> float:
+    """The gates' backward: 4 operations a (token, choice)."""
+    return float(T * k * 4)
+
+
+def router_bytes(T: int, E: int, k: int) -> float:
+    """(T, E) f32 logits (or their gradient) and three (T, k) 4-byte
+    tensors, each moved once; the same for the backward."""
+    return 4.0 * (T * E + 3 * T * k)
+
+
+# ---------------------------------------------------------------------------
+# augment
+# ---------------------------------------------------------------------------
+def augment_flops(B: int, oh: int, ow: int, C: int) -> float:
+    """One FMA per output value."""
+    return 2.0 * (B * oh * ow * C)
+
+
+def augment_bytes(B: int, oh: int, ow: int, C: int) -> float:
+    """The crop windows read once (uint8) and the output written once (f32),
+    plus corners, flags, mean and std."""
+    n = B * oh * ow * C
+    return 5.0 * n + 12.0 * B + 8.0 * C
+
+
+def augment_bound(B: int, oh: int, ow: int, C: int) -> Tuple[float, str]:
+    return bound(augment_flops(B, oh, ow, C), augment_bytes(B, oh, ow, C), "float32")
+

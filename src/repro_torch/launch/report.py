@@ -1,0 +1,99 @@
+"""The dry-run and roofline tables from the dry run's records (twin of the
+JAX package's ``repro/launch/report.py``), as markdown on stdout.
+
+Usage: PYTHONPATH=src python -m repro_torch.launch.report [--dir experiments/dryrun_torch]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Any, Dict, List
+
+from .roofline import CARD, HBM_BW, PEAK
+
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
+                       "dryrun_torch")
+
+
+def load(out_dir: str) -> List[Dict[str, Any]]:
+    rows = []
+    for fn in sorted(os.listdir(out_dir)):
+        if fn.endswith(".json"):
+            with open(os.path.join(out_dir, fn)) as f:
+                rows.append(json.load(f))
+    return rows
+
+
+def fmt_bytes(b: float) -> str:
+    return f"{b/1e9:.1f}G" if b >= 1e8 else f"{b/1e6:.0f}M"
+
+
+def dryrun_table(rows: List[Dict[str, Any]], mesh: str) -> str:
+    out = [
+        f"### Mesh `{mesh}`",
+        "",
+        "| arch | shape | B x S | status | trace (s) | argument bytes | fits 80G HBM (arguments) |",
+        "|---|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        if r.get("mesh") != mesh:
+            continue
+        bs = f"{r.get('global_batch', '?')} x {r.get('seq_len', '?')}"
+        if r["status"] != "OK":
+            out.append(f"| {r['arch']} | {r['shape']} | {bs} | {r['status']} | — | — | "
+                       f"{r.get('reason') or r.get('error', '')} |")
+            continue
+        mem = (r["roofline"].get("memory_per_device_bytes") or {}).get("per_device_total", 0)
+        out.append(f"| {r['arch']} | {r['shape']} | {bs} | OK | {r.get('trace_s', 0):.1f} | "
+                   f"{fmt_bytes(mem)} | {'yes' if r.get('fits_hbm_80g') else 'NO'} |")
+    return "\n".join(out)
+
+
+def roofline_table(rows: List[Dict[str, Any]], mesh: str = "one") -> str:
+    out = [
+        "| arch | shape | FLOPs/step | compute (s) | memory (s) | dominant | MODEL/counted flops "
+        "| roofline frac | next lever |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in rows:
+        if r.get("mesh") != mesh or r["status"] != "OK":
+            continue
+        rl = r["roofline"]
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {rl['flops_per_device']:.4g} | "
+            f"{rl['compute_s']:.4g} | {rl['memory_s']:.4g} | **{rl['dominant']}** | "
+            f"{rl['useful_ratio']:.2f} | {rl['roofline_fraction']:.3f} | {_lever(rl)} |")
+    return "\n".join(out)
+
+
+def _lever(rl: Dict[str, Any]) -> str:
+    if rl["dominant"] == "memory":
+        if rl["useful_ratio"] < 0.6:
+            return "cut remat recompute / padding waste (useful ratio low)"
+        return "fuse the elementwise work (the byte count is unfused)"
+    return "compute-bound: tune the products and kernels toward the tensor-core peak"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default=os.path.abspath(OUT_DIR))
+    args = ap.parse_args()
+    rows = load(args.dir)
+    ok = sum(1 for r in rows if r["status"] == "OK")
+    skip = sum(1 for r in rows if r["status"] == "SKIP")
+    print("## Dry run (one H100, meta device)\n")
+    print(f"{ok} OK / {skip} SKIP of {len(rows)} cells "
+          "(SKIPs: `long_500k` on pure full-attention archs).\n")
+    for mesh in sorted({r.get("mesh") for r in rows}):
+        print(dryrun_table(rows, mesh))
+        print()
+    print(f"## Roofline ({CARD})\n")
+    print(f"compute = FLOPs / {PEAK:.4g}; memory = bytes / {HBM_BW:.4g}; no collective on one "
+          "card. FLOPs from FlopCounterMode (kernel ops by their formulas); bytes are the "
+          "unfused operand and result bytes of every op.\n")
+    print(roofline_table(rows))
+
+
+if __name__ == "__main__":
+    main()

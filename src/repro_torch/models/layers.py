@@ -486,7 +486,11 @@ def _init(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torc
     """Normal(0, scale) in ``dtype``, drawn in f32.  A leaf of three or more
     dims (stacked repeats, experts) is drawn one matrix at a time into a
     tensor of ``dtype``, so the f32 temporary is one matrix, not the leaf
-    (moonshot's (47, 64, 2048, 1408) expert leaf would need 34.7 GB)."""
+    (moonshot's (47, 64, 2048, 1408) expert leaf would need 34.7 GB).  On
+    the ``meta`` device (``lm.MetaGenerator``) it draws nothing and returns
+    the shape-only leaf."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if len(shape) <= 2:
         x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
         return x.mul_(scale).to(dtype)

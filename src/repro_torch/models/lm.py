@@ -153,11 +153,21 @@ def cast_for_compute(cfg: ModelConfig, params: Dict[str, Any]) -> Dict[str, Any]
     return _map_leaves(params, lambda k, t: t.to(dt) if k in MATMUL_LEAVES else t)
 
 
+class MetaGenerator:
+    """Stands in for a generator on the ``meta`` device, where none exists:
+    ``layers._init`` gives shape-only leaves for it and draws nothing."""
+
+    device = torch.device("meta")
+
+
 def init_generator(generator: Union[torch.Generator, int], device) -> Tuple[torch.Generator,
                                                                              torch.device]:
     """(generator, device) of a model's ``init``: ``device`` resolved (CUDA
-    unless the caller asks for "cpu"), an int seeding a generator there."""
+    unless the caller asks for "cpu"), an int seeding a generator there.  On
+    ``meta`` the generator is a ``MetaGenerator`` whatever was passed."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return MetaGenerator(), dev
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     if generator.device.type != dev.type:

@@ -106,9 +106,18 @@ def test_cpu_takes_plain_version():
 
 
 def test_other_devices_raise():
+    """A device that is neither CPU nor CUDA raises; ``meta`` (the dry run's
+    device) takes the shape-only route and computes nothing."""
+
+    class Other:  # a tensor on a device with no kernel ("xla")
+        device = torch.device("xla")
+
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_augment(Other(), *[Other()] * 4, out_h=4, out_w=4)
     img = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta")
     other = [torch.empty(s, dtype=d, device="meta") for s, d in
              (((1, 2), torch.int32), ((1,), torch.int32), ((3,), torch.float32),
               ((3,), torch.float32))]
-    with pytest.raises(ValueError, match="no kernel"):
-        fused_augment(img, *other, out_h=4, out_w=4)
+    out = fused_augment(img, *other, out_h=4, out_w=4)
+    assert out.device.type == "meta" and out.shape == (1, 4, 4, 3)
+    assert out.dtype == torch.float32

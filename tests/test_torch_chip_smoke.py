@@ -1246,3 +1246,118 @@ def test_train_check_configs(arch, monkeypatch):
         assert (cfg.attn_period, cfg.attn_offset, cfg.capacity_factor) == (2, 1, 64.0)
     assert star == get_config("starcoder2-3b").replace(num_layers=2, dtype="float32")
     assert moon == get_config("moonshot-v1-16b-a3b").replace(num_layers=2, dtype="float32")
+
+
+# ---------------------------------------------------------------------------
+# the formulas' one copy (repro_torch.launch.flops) and phase 6 (service)
+# ---------------------------------------------------------------------------
+def test_formulas_keep_their_values():
+    """chip_smoke.py takes its FLOP and byte formulas from the package; each
+    gives the value its own copy gave before the move, bit for bit."""
+    from repro_torch.launch import flops
+
+    assert chip_smoke.flash_flops is flops.flash_flops
+    assert chip_smoke.flash_flops(1, 8192, 8192, 24, 128, True, 4096) == 309262811136.0
+    assert chip_smoke.flash_flops(1, 8192, 8192, 24, 128, True, 4096,
+                                  backward=True) == 773157027840.0
+    assert chip_smoke.flash_flops(8, 448, 1500, 20, 64, False) == 27525120000.0
+    assert chip_smoke._visible_pairs(1000, 1000, True, 300, 0) == 255150
+    assert chip_smoke.ssd_flops(1, 8192, 80, 64, 128, 128, 1) == 27020754944.0
+    assert chip_smoke.ssd_flops(1, 4097, 128, 64, 16, 128, None) == 7558680576.0
+    assert chip_smoke.ssd_bwd_flops(1, 8192, 80, 64, 128, 64, 1) == 70113034240.0
+    assert chip_smoke.augment_bound(256, 224, 224, 3) == (0.05751610029850746, "bytes")
+    assert chip_smoke.bound(309262811136.0, 1e9, "bfloat16") == (0.31270253906572293,
+                                                                "operations")
+    # decode_case's and the router cases' inline counts, as they were
+    visible, B, Hq, Hkv, D = 1000, 8, 24, 2, 128
+    assert flops.decode_flops(Hq, D, visible) == 4.0 * Hq * D * visible
+    assert flops.decode_bytes(visible, B, Hq, Hkv, D, 2) == float(
+        (2 * visible * Hkv * D + 2 * B * Hq * D) * 2 + B * 4)
+    assert flops.router_flops(4096, 64, 6) == float(4096 * 64 * (4 + 2 * 6))
+    assert flops.router_bytes(4096, 64, 6) == 4.0 * (4096 * 64 + 3 * 4096 * 6)
+    assert flops.router_bwd_flops(4096, 6) == float(4096 * 6 * 4)
+
+
+def test_service_command_lines():
+    assert chip_smoke.SERVICE_RUNS == (("starcoder2-3b", 1, 8192, 6),
+                                       ("whisper-large-v3", 8, 448, 4))
+    cmd = chip_smoke.service_command("whisper-large-v3", 8, 448, 4)
+    assert cmd[1:] == ["-m", "repro_torch.launch.train", "--arch", "whisper-large-v3",
+                       "--execute", "--full-width", "--device", "cuda", "--batch", "8",
+                       "--seq", "448", "--steps", "4", "--workers", "2"]
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("phase_train_check(") < src.index("phase_service(") < src.index(
+        '"kernels"')
+
+
+def _canned(**changes):
+    res = {"run": "train_e2e_torch", "arch": "starcoder2-3b", "steps": 2,
+           "losses": [11.40, 11.41], "first_batch_loss_after": 11.39,
+           "last_batch_loss_after": 11.38,
+           "max_memory_allocated_gb": 61.0,
+           "launches": {"flash_attention": 120, "flash_attention_bwd": 60},
+           "left_running": {"threads": [], "processes": []}}
+    res.update(changes)
+    return res
+
+
+PER_STEP = {"flash_attention": 60, "flash_attention_bwd": 30}
+
+
+def test_service_checks_pass_a_good_run():
+    chip_smoke.service_checks("service", _canned(), PER_STEP)
+
+
+@pytest.mark.parametrize("changes", [
+    dict(first_batch_loss_after=11.40),  # the first batch's loss did not fall
+    dict(first_batch_loss_after=float("nan")),
+    dict(last_batch_loss_after=11.41),  # the last batch's loss did not fall
+    dict(last_batch_loss_after=float("nan")),
+    dict(losses=[11.40, float("nan")]),
+    dict(losses=[]),
+    dict(max_memory_allocated_gb=80.0),
+    dict(max_memory_allocated_gb=None),
+    dict(launches={"flash_attention": 120, "flash_attention_bwd": 59}),
+    dict(launches={"flash_attention": 120}),
+    dict(left_running={"threads": ["worker-0"], "processes": []}),
+    dict(left_running={"threads": [], "processes": ["Process-1"]}),
+], ids=lambda c: next(iter(c)))
+def test_service_checks_fail(changes):
+    with pytest.raises(SystemExit):
+        chip_smoke.service_checks("service", _canned(**changes), PER_STEP)
+
+
+class _Done:
+    def __init__(self, returncode, stdout, stderr=""):
+        self.returncode, self.stdout, self.stderr = returncode, stdout, stderr
+
+
+def test_run_service_reads_the_last_line():
+    import json
+
+    line = json.dumps(_canned())
+
+    def run(cmd, **kw):
+        assert kw["cwd"] == str(chip_smoke.ROOT) and kw["timeout"] == chip_smoke.SERVICE_TIMEOUT_S
+        assert kw["env"]["PYTHONPATH"] == str(chip_smoke.ROOT / "src")
+        return _Done(0, f"[starcoder2-3b] step 2 loss 11.3\n{line}\n")
+
+    res, stdout, _ = chip_smoke.run_service(["python", "-m", "x"], run=run)
+    assert res == _canned() and "step 2" in stdout
+
+
+@pytest.mark.parametrize("outcome", ["exit_1", "no_line", "not_a_result", "timeout"])
+def test_run_service_fails_a_failing_subprocess(outcome):
+    import json
+
+    def run(cmd, **kw):
+        if outcome == "timeout":
+            raise subprocess.TimeoutExpired(cmd, kw["timeout"])
+        if outcome == "exit_1":
+            return _Done(1, json.dumps(_canned()) + "\n", "Traceback ...")
+        if outcome == "no_line":
+            return _Done(0, "[starcoder2-3b] step 2 loss 11.3\n")
+        return _Done(0, json.dumps({"ok": True}) + "\n")
+
+    with pytest.raises(SystemExit):
+        chip_smoke.run_service(["python", "-m", "x"], run=run)

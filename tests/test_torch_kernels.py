@@ -812,18 +812,32 @@ class TestWrapperRouting:
 
     def test_other_devices_raise(self):
         """No kernel and no plain fallback for a device that is neither CPU
-        nor CUDA."""
+        nor CUDA; ``meta`` (the dry run's device) takes the shape-only route
+        and computes nothing (``tests/test_torch_launch.py`` holds its
+        shapes and FLOPs)."""
+
+        class Other:  # a tensor on a device with no kernel ("xla")
+            device = torch.device("xla")
+
+        t = Other()
+        with pytest.raises(ValueError, match="no kernel"):
+            flash_attention(t, t, t)
+        with pytest.raises(ValueError, match="no kernel"):
+            decode_attention(t, t, t, t)
+        with pytest.raises(ValueError, match="no kernel"):
+            ssd_scan(t, t, t, t, t, t)
+        with pytest.raises(ValueError, match="no kernel"):
+            moe_router(t, 2)
         q = torch.empty((1, 64, 4, 64), device="meta")
         k = torch.empty((1, 64, 2, 64), device="meta")
-        with pytest.raises(ValueError, match="no kernel"):
-            flash_attention(q, k, k)
-        with pytest.raises(ValueError, match="no kernel"):
-            decode_attention(q[:, 0], k, k, torch.empty((1,), dtype=torch.int32, device="meta"))
+        assert flash_attention(q, k, k).device.type == "meta"
+        lengths = torch.empty((1,), dtype=torch.int32, device="meta")
+        assert decode_attention(q[:, 0].contiguous(), k, k, lengths).shape == (1, 4, 64)
+        Bm = torch.empty((1, 64, 1, 16), device="meta")
         h = torch.empty((4,), device="meta")
-        with pytest.raises(ValueError, match="no kernel"):
-            ssd_scan(q, q[..., 0], h, k, k, h)
-        with pytest.raises(ValueError, match="no kernel"):
-            moe_router(torch.empty((8, 16), device="meta"), 2)
+        y, state = ssd_scan(q, q[..., 0].contiguous(), h, Bm, Bm, h)
+        assert y.shape == q.shape and state.shape == (1, 4, 16, 64)
+        assert moe_router(torch.empty((8, 16), device="meta"), 2)[0].dtype == torch.int32
 
     def test_modules_import_without_nvcc_or_cuda(self, tmp_path):
         """Importing the port builds nothing: no nvcc, no GPU, no triton."""

@@ -3,6 +3,9 @@
 * ``src/repro_torch/**`` and ``chip_smoke.py`` import no ``jax`` and no
   module of ``repro`` (absolute, or relative imports that climb out of
   ``repro_torch``): the port keeps its own copies.
+* ``examples/*_torch.py`` import the data service of ``repro``
+  (``repro.core``, ``repro.data``) and nothing else of it, no ``jax``, and
+  importing one loads no ``jax`` module.
 * The port's config registry equals the JAX one field by field.
 """
 import ast
@@ -22,12 +25,14 @@ from repro_torch.models import config as torch_model_config
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+SERVICE = ("repro.core", "repro.data")
 
 
 def _imported_modules(path: Path):
     """Absolute names of every module a file imports."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    if path.name == "chip_smoke.py":
+    if not path.is_relative_to(ROOT / "src"):  # chip_smoke.py, examples: no package
         package = []
     else:
         package = list(path.relative_to(ROOT / "src").parent.parts)
@@ -59,14 +64,52 @@ def test_scan_covers_the_port():
                  "src/repro_torch/serve/engine.py", "src/repro_torch/bridge.py",
                  "src/repro_torch/feed/feeder.py", "src/repro_torch/train/step.py",
                  "src/repro_torch/obs/registry.py",
-                 "src/repro_torch/kernels/fused_augment/ops.py"):
+                 "src/repro_torch/kernels/fused_augment/ops.py",
+                 "src/repro_torch/kernels/_shape.py"):
         assert want in names
+    launch = {p.name for p in (PORT / "launch").glob("*.py")}
+    assert {"__init__.py", "specs.py", "flops.py", "roofline.py", "dryrun.py", "report.py",
+            "train.py"} <= launch
+    assert {f"src/repro_torch/launch/{n}" for n in launch} <= names
+    assert "examples/train_e2e_torch.py" in {p.relative_to(ROOT).as_posix() for p in EXAMPLES}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+def _service_only(name: str) -> bool:
+    top = name.split(".")[0]
+    if top in ("jax", "jaxlib") or name.startswith("<"):
+        return False
+    return top != "repro" or any(name == m or name.startswith(m + ".") for m in SERVICE)
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_examples_import_only_the_service(path):
+    bad = [m for m in _imported_modules(path) if not _service_only(m)]
+    assert not bad, f"{path} imports {bad}"
+    assert any(m.startswith("repro.") for m in _imported_modules(path))
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_importing_an_example_loads_no_jax(path):
+    """Imported in a fresh interpreter (its ``main`` does not run), the file
+    and everything it pulls in leave no ``jax`` module in ``sys.modules``."""
+    import subprocess
+    import sys
+
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r})\n"
+            "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')))\n"
+            "print('repro.core' in sys.modules and 'repro.data' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, env={"PATH": "", "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split("\n")[:2] == ["[]", "True"]
 
 
 def test_relative_import_resolution():
