@@ -167,10 +167,31 @@ every phase passed):
               run's FLOPs a step (``repro_torch.launch.dryrun`` on meta, the
               same config, B and S) with the achieved TFLOP/s and share of
               989e12.
-7. a ``{"kernels": [...]}`` line with each kernel's launches on the main
+7. dist     - the distribution layer (``DIST_RUN``): (a) phase 5's
+              starcoder2-3b run at full width (B=1, S=8192, 3 steps) as a
+              sharded train step on a (data, model) = (1, 1) DeviceMesh over
+              one NCCL rank (a local store): the state placed by
+              ``make_param_shardings`` / ``make_opt_shardings``, the steps
+              under ``use_plan`` fed by ``DeviceFeeder(mesh=, plan=)``; then
+              the same steps with no mesh from the same initial state and
+              batches.  Losses and every updated parameter must be
+              bit-equal, the flash forward and backward must launch at least
+              ``train_launches_per_step`` a step, peak memory under 80 GB;
+              logs s/step beside phase 5's.  (b) int8 compression of the
+              embedding's gradient at (a)'s state (49152 x 3072 f32):
+              nearest codes equal to the CPU's and the scale bit-equal, the
+              error within ``compression_error_bound``, stochastic rounding
+              from a seeded CUDA generator unbiased to 1e-3 of the scale,
+              ``compressed_psum`` over the mesh equal to dequantize of
+              quantize; each timed.  The process group is destroyed.  (c) the
+              dry run on the production meshes (``DIST_DRYRUN`` on ``single``
+              and ``multi``, counts on meta): per-device argument bytes,
+              ``fits_hbm_80g`` and FLOPs a device.
+8. a ``{"kernels": [...]}`` line with each kernel's launches on the main
    paths ((a) and (b) of every model, the augment phase, the steps of the
-   train runs and of the service runs; the checks are reported on their own
-   lines) and its times, then the card line, then ``{"ok": true, ...}``.
+   train runs, of the service runs and of the sharded run; the checks are
+   reported on their own lines) and its times, then the card line, then
+   ``{"ok": true, ...}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -2423,6 +2444,193 @@ def phase_service(arch, B, S, steps):
     return res["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the distribution layer
+# ---------------------------------------------------------------------------
+# (a) phase 5's starcoder2-3b run (B = 1, S = 8192, f32 params and AdamW,
+# bf16 compute, block remat) as a sharded train step: a (data, model) =
+# (1, 1) DeviceMesh over one NCCL rank, the state placed by the sharding
+# rules, the steps under use_plan and fed by DeviceFeeder(mesh=, plan=);
+# then the same steps with no mesh from the same initial state and batches.
+# A mesh of one device changes nothing in the reference, so the losses and
+# every updated parameter must be bit-equal.  (b) int8 compression of the
+# embedding's gradient at (a)'s state (49152 x 3072 f32).  (c) the dry run
+# on the production meshes, counts on meta.
+DIST_RUN = ("starcoder2-3b", 1, 8192, 3)
+DIST_DRYRUN = (("llama3-405b", "train_4k"), ("kimi-k2-1t-a32b", "train_4k"))
+DIST_STOCHASTIC_TOL = 1e-3  # mean error of stochastic rounding, in units of the scale
+
+
+def _dist_run(model, opt, B, S, steps, mesh=None, plan=None):
+    """``steps`` train steps of ``model`` from the seed-0 state on
+    ``FamilyBatches`` (seed 0); over ``mesh`` the state is placed by the
+    sharding rules and the steps run under ``use_plan`` from
+    ``DeviceFeeder(mesh=, plan=)``.  Returns the state, the losses, the
+    seconds a step and the launch counts of the steps."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.dist import sharding_rules as SR
+    from repro_torch.dist.context import use_plan
+    from repro_torch.dist.placement import place_tree
+    from repro_torch.feed import DeviceFeeder
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = model.cfg
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt,
+                             device="cuda")
+    if mesh is not None:
+        shard = SR.make_param_shardings(mesh, state["params"], cfg, plan)
+        oshard = SR.make_opt_shardings(mesh, state["opt"], cfg, plan)
+        state["params"] = place_tree(state["params"], shard)
+        for k in ("m", "v"):
+            state["opt"][k] = place_tree(state["opt"][k], oshard[k])
+        feed_kw, scope = dict(mesh=mesh, plan=plan), use_plan(plan, mesh)
+    else:
+        feed_kw, scope = dict(device="cuda"), contextlib.nullcontext()
+    step = make_train_step(model, opt)
+    losses, secs = [], []
+    with DeviceFeeder(FamilyBatches(cfg, B, S, steps, seed=0), depth=2, **feed_kw) as feeder:
+        def run_steps():
+            with scope:
+                for _ in range(steps):
+                    t = time.perf_counter()
+                    _, m = step(state, feeder.next())
+                    losses.append(float(m["loss"]))
+                    secs.append(time.perf_counter() - t)
+
+        _, _, counts, peak = counted(f"dist {cfg.name} {'mesh' if mesh else 'no mesh'}",
+                                     run_steps)
+        shardings = feeder.shardings
+    return state, losses, secs, counts, peak, shardings
+
+
+def phase_dist():
+    """Phase 7; returns the launch counts of (a)'s sharded steps (the main
+    path)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.bridge import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.dist import compression as C
+    from repro_torch.dist.context import use_plan
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_plan, make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, make_loss_fn
+
+    arch, B, S, steps = DIST_RUN
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1, device_type="cuda")
+        plan = make_plan(mesh)
+        log(f"dist: {mesh} over {dist.get_world_size()} {dist.get_backend()} rank, plan {plan}")
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        opt = AdamWConfig(lr=2e-6, warmup_steps=steps)  # phase 5's
+        state, losses, secs, counts, peak, b_shard = _dist_run(model, opt, B, S, steps, mesh,
+                                                               plan)
+        per_step = train_launches_per_step(cfg)
+        require_launches(f"dist {arch} sharded", counts, per_step, steps)
+        if peak >= 80.0:
+            raise SystemExit(f"dist {arch}: peak memory {peak:.1f} GB, not under 80 GB")
+        snap = {k: t.detach().cpu() for k, t in flatten_with_paths(state["params"])}
+        # (b)'s leaf: the embedding's gradient at the state after the steps,
+        # on the run's first batch, under the plan
+        batch = next(iter(FamilyBatches(cfg, B, S, 1, seed=0).session()))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        params = dict(state["params"])
+        params["embed"] = params["embed"].detach().requires_grad_(True)
+        with use_plan(plan, mesh):
+            loss, _ = make_loss_fn(model)(params, batch)
+            (grad,) = torch.autograd.grad(loss, [params["embed"]])
+        del state, params, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        plain, plain_losses, plain_secs, plain_counts, plain_peak, _ = _dist_run(
+            model, opt, B, S, steps)
+        worst, differ = 0.0, []
+        for k, t in flatten_with_paths(plain["params"]):
+            if not torch.equal(snap[k], t.detach().cpu()):
+                differ.append(k)
+                worst = max(worst, float((snap[k] - t.detach().cpu()).abs().max()))
+        equal = losses == plain_losses and not differ
+        steady = secs[1:] or secs
+        plain_steady = plain_secs[1:] or plain_secs
+        log(dict(phase="dist/sharded_train", arch=arch, B=B, S=S, steps=steps,
+                 mesh={n: int(s) for n, s in zip(mesh.mesh_dim_names, mesh.shape)},
+                 backend=dist.get_backend(), plan=str(plan),
+                 batch_shardings={k: list(v.spec) for k, v in b_shard.items()},
+                 losses=losses, losses_no_mesh=plain_losses, bit_equal=equal,
+                 params_differ=differ[:8], params_max_abs_diff=worst,
+                 seconds_per_step=secs, steady_seconds_per_step=sum(steady) / len(steady),
+                 no_mesh_seconds_per_step=plain_secs,
+                 no_mesh_steady_seconds_per_step=sum(plain_steady) / len(plain_steady),
+                 phase5_seconds_per_step=IN_SCRIPT_FEED.get(arch, {}).get("seconds_per_step"),
+                 max_memory_allocated_gb=peak, no_mesh_max_memory_allocated_gb=plain_peak,
+                 launches=counts, launches_no_mesh=plain_counts,
+                 launches_per_step_want=per_step))
+        if not equal:
+            raise SystemExit(f"dist {arch}: the sharded steps differ from the unsharded ones "
+                             f"(losses {losses} vs {plain_losses}; {len(differ)} leaves, "
+                             f"largest difference {worst})")
+        del plain, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) compression of the gradient leaf on the card
+        bound = C.compression_error_bound(grad)
+        q, s = C.quantize_int8(grad)
+        q_cpu, s_cpu = C.quantize_int8(grad.cpu())
+        codes_equal = torch.equal(q.cpu(), q_cpu)
+        scale_equal = s.cpu().numpy().tobytes() == s_cpu.numpy().tobytes()
+        err = float((C.dequantize_int8(q, s) - grad).abs().max())
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        qs, ss = C.quantize_int8(grad, gen)
+        mean_err = float((C.dequantize_int8(qs, ss) - grad).double().mean().abs())
+        summed = C.compressed_psum(grad, mesh, "data")
+        psum_equal = torch.equal(summed, C.dequantize_int8(q, s))
+        times = {"quantize_nearest_ms": time_ms(lambda: C.quantize_int8(grad)),
+                 "quantize_stochastic_ms": time_ms(lambda: C.quantize_int8(grad, gen)),
+                 "dequantize_ms": time_ms(lambda: C.dequantize_int8(q, s)),
+                 "compressed_psum_ms": time_ms(lambda: C.compressed_psum(grad, mesh, "data"))}
+        ok = (codes_equal and scale_equal and err <= bound
+              and mean_err < DIST_STOCHASTIC_TOL * float(ss) and psum_equal)
+        log(dict(phase="dist/compression", leaf="embed grad", shape=list(grad.shape),
+                 dtype=str(grad.dtype), mbytes=grad.numel() * 4 / 1e6, scale=float(s),
+                 codes_equal_cpu=codes_equal, scale_bit_equal_cpu=scale_equal,
+                 nearest_max_abs_err=err, bound=bound,
+                 stochastic_mean_err=mean_err, stochastic_tol=DIST_STOCHASTIC_TOL * float(ss),
+                 compressed_psum_equal_dq_q=psum_equal, ok=ok, **times))
+        if not ok:
+            raise SystemExit("dist: int8 compression on the card disagrees (see the record)")
+        del grad, q, qs, summed
+    finally:
+        dist.destroy_process_group()
+    log(f"dist: process group destroyed (initialized: {dist.is_initialized()})")
+
+    # (c) the dry run's production meshes, counted on meta
+    for arch, shape in DIST_DRYRUN:
+        for mesh_name in ("single", "multi"):
+            rec = run_cell(arch, shape, mesh_name)
+            rl = rec["roofline"]
+            log(dict(phase="dist/dryrun", arch=arch, shape=shape, mesh=mesh_name,
+                     status=rec["status"], chips=rl["chips"], plan=rec["plan"],
+                     argument_bytes_per_device=rl["memory_per_device_bytes"]["argument_bytes"],
+                     fits_hbm_80g=rec["fits_hbm_80g"], flops_per_device=rl["flops_per_device"],
+                     compute_s=rl["compute_s"], memory_s=rl["memory_s"],
+                     collective_s=rl["collective_s"], dominant=rl["dominant"],
+                     trace_s=rec["trace_s"]))
+            if rec["status"] != "OK" or rl["collective_s"] is not None:
+                raise SystemExit(f"dist dry run {arch} {shape} {mesh_name}: {rec['status']}")
+    return counts
+
+
 def _max_leaf_err(a, b) -> float:
     return max(float((x.detach().cpu().float() - y.detach().float()).abs().max())
                for x, y in zip(_leaves(a), _leaves(b)))
@@ -2563,6 +2771,7 @@ def main() -> int:
         phase_train_check(arch, replace)
     for run in SERVICE_RUNS:
         add(phase_service(*run))
+    add(phase_dist())
 
     kernels = []
     for name, meta in KERNEL_META.items():

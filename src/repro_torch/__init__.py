@@ -7,7 +7,9 @@ MoE, SSM (mamba2), hybrid (jamba), the VLM backbone (qwen2-vl)) and the
 encoder-decoder (whisper) - on one NVIDIA H100: configs (``repro_torch.configs``),
 the model (``repro_torch.models``), the serving engine
 (``repro_torch.serve``), the feed from the data service
-(``repro_torch.feed``), training (``repro_torch.train``) and the
+(``repro_torch.feed``), training (``repro_torch.train``), the sharding
+layer (``repro_torch.dist``: plans, rules, placement on a ``DeviceMesh``,
+int8 gradient compression) and the
 hand-written Hopper kernels and their backwards (``repro_torch.kernels``).
 ``repro_torch.bridge`` carries parameters from the JAX model across,
 through numpy.

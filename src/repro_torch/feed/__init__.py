@@ -9,8 +9,9 @@ stall metrics that double as the autoscaler's client-latency signal.
 
   * ``feeder``  - ``DeviceFeeder``, the user-facing pipeline stage.
   * ``metrics`` - ``FeedMetrics`` and the rolling ``StallWindow`` reporter.
-  * ``sharded`` - host→device placement (``put_batch``, ``PinnedRing``) and
-                  the host layout from ``torch.distributed``.
+  * ``sharded`` - host→device placement (``put_batch``, ``PinnedRing``), the
+                  host layout from ``torch.distributed``, and the batch
+                  shardings over a mesh with each rank's shard.
 """
 from .feeder import DeviceFeeder
 from .metrics import FeedMetrics, StallWindow

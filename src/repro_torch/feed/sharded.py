@@ -12,18 +12,31 @@ never reads a buffer that is being overwritten.  On the CPU each leaf
 becomes an owned tensor (a copy: the zero-copy views of a service session
 are read-only and valid only until the next fetch).
 
-Sharding over a mesh is not ported yet: ``infer_batch_shardings`` raises,
-naming ROADMAP's ``dist/`` item.
+Over a mesh, per-leaf ``NamedSharding``s come from the caller or are derived
+once from a (mesh, ``ShardingPlan``) pair by ``dist.sharding_rules.
+batch_sharding``, the rule the train step's inputs follow.  In JAX one process
+holds the host batch and ``device_put`` splits it over its devices; in
+PyTorch every device is a rank.  So the mesh is one host: its first rank
+(the leader) holds the host batch, cuts it into every rank's shard
+(``shard_payloads``: row ranges of the data axes, the same rows for peers on
+the model axis) and scatters them over a gloo group of the mesh's ranks, and
+each rank places its shard and wraps it as the global tensor
+(``dist.placement.from_local``, the twin of
+``make_array_from_process_local_data``): no rank receives rows it does not
+hold, and there is never a gather.
 """
 from __future__ import annotations
 
 import itertools
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-DIST_ITEM = "ROADMAP queue 1, item 4 (dist/)"
+from ..bridge import flatten_with_paths, map_with_paths
+from ..dist.context import NamedSharding
+from ..dist.placement import from_local, shard_slices
 
 
 def host_layout() -> Tuple[int, int]:
@@ -54,7 +67,77 @@ def leaf_nbytes(tree: Any) -> int:
 
 
 def infer_batch_shardings(batch: Any, mesh: Any, plan: Any) -> Any:
-    raise NotImplementedError(f"batch shardings over a mesh are not ported yet; see {DIST_ITEM}")
+    """Per-leaf ``NamedSharding``s of a concrete batch: leading (batch) dim
+    over the plan's data axes, everything else replicated, as
+    ``sharding_rules.batch_sharding`` declares the train step's inputs.
+    Derived from the batch's own shapes, so an indivisible leading dim is
+    replicated instead of failing the placement."""
+    from ..dist.sharding_rules import batch_sharding
+
+    return batch_sharding(mesh, plan, batch)
+
+
+def resolve_shardings(batch: Any, shardings: Any) -> Any:
+    """A shardings argument as a per-leaf tree matching ``batch``: a single
+    ``NamedSharding`` applies to every leaf; a tree is returned as it is."""
+    if shardings is None:
+        return None
+    if isinstance(shardings, NamedSharding):
+        return _map(batch, lambda _: shardings)
+    return shardings
+
+
+def sharding_mesh(shardings: Any) -> Any:
+    """The mesh of a ``NamedSharding`` or of the first one in a tree."""
+    for _, s in flatten_with_paths(shardings):
+        if isinstance(s, NamedSharding):
+            return s.mesh
+    raise ValueError("shardings= holds no NamedSharding")
+
+
+@dataclass(frozen=True)
+class Shard:
+    """One rank's shard of a batch leaf: ``local`` (an owned array), the
+    leaf's global ``shape`` and its ``spec`` (a leaf to the tree helpers,
+    which recurse into tuples)."""
+
+    local: np.ndarray
+    shape: Tuple[int, ...]
+    spec: Any
+
+
+def shard_payloads(batch: Any, shardings: Any, coordinates: List[Tuple[int, ...]]) -> List[Any]:
+    """For each mesh coordinate, the batch tree with every leaf replaced by
+    its ``Shard`` at that coordinate."""
+    specs = dict(flatten_with_paths(shardings))
+
+    def payload(coord):
+        def one(key: str, leaf: Any) -> Shard:
+            arr = np.asarray(leaf)
+            sharding = specs[key]
+            local = np.ascontiguousarray(arr[shard_slices(sharding, arr.shape, coord)])
+            return Shard(local, arr.shape, sharding.spec)
+
+        return map_with_paths(batch, one)
+
+    return [payload(c) for c in coordinates]
+
+
+def local_arrays(payload: Any) -> Any:
+    """The ``local`` arrays of a ``Shard`` tree."""
+    return _map(payload, lambda s: s.local)
+
+
+def wrap_global(placed: Any, payload: Any, mesh: Any) -> Any:
+    """The placed local tree (``put_batch`` of the payload's ``local``
+    arrays) as global tensors over ``mesh``."""
+    shards = iter(leaves(payload))
+
+    def one(t: torch.Tensor) -> Any:
+        s = next(shards)
+        return from_local(t, NamedSharding(mesh, s.spec), s.shape)
+
+    return _map(placed, one)
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:

@@ -23,13 +23,28 @@ The optimizer reads a few scalars on the host (its clip scale, bias
 corrections and learning rate); on ``meta`` those reads return 1
 (``StepCounter``), which changes no op and no shape of the step.
 
-Meshes: ``one`` (one H100) runs now.  The JAX package's production meshes
-``single`` (16 x 16) and ``multi`` (2 x 16 x 16) need ``dist/``'s mesh and
-sharding rules, which are not ported yet: they raise and name the item.
+Meshes: ``one`` (one H100), and the JAX package's production meshes
+``single`` (16 x 16 = 256 chips) and ``multi`` (2 x 16 x 16 = 512), as
+``AbstractMesh``es (``launch.mesh``) under ``make_plan(mesh, fsdp_over_pod=
+cfg.fsdp_over_pod, seq_shard=)`` with ``--moe-pin`` and ``--moe-expert-axis``
+applied.  The step runs once at the global shapes under ``use_plan``; the
+record keeps JAX's fields per device:
+
+* ``argument_bytes``: the sum of every argument leaf's SHARD bytes under the
+  param, opt, batch and cache shardings (``sharding_rules``), which is what
+  JAX's ``memory_analysis`` reports for a partitioned step;
+* ``flops_per_device`` and ``bytes_per_device``: the counted step divided by
+  the chips (an even split; the partitioner's replicated work is not seen);
+* ``fits_hbm_80g``: the per-device arguments against 80 GB;
+* the collective bytes and term: null.  XLA's partitioner chooses the
+  reference's collectives and JAX parses them from HLO text; an eager step on
+  ``meta`` has none to count, so the roofline leaves the term out rather than
+  count it as 0.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-3b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch whisper-large-v3 --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b --shape train_4k --mesh multi
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --summarize
 ``--all`` runs each cell in a fresh subprocess and skips cells whose record
@@ -52,12 +67,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..feed.sharded import DIST_ITEM
 from ..models.config import SHAPES, ShapeConfig
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 OUT_DIR = os.path.join(SRC, "..", "experiments", "dryrun_torch")
-MESHES = {"one": 1}  # the production meshes wait for dist/
+MESHES = {"one": 1, "single": 256, "multi": 512}
 HBM_BYTES = 80e9
 # ops that allocate without writing: no bytes moved
 _NO_TRAFFIC = ("empty", "empty_strided", "new_empty", "new_empty_strided", "empty_like")
@@ -98,26 +112,39 @@ def count_step(fn) -> Dict[str, Any]:
             "flops_by_op": by_op, "seconds": time.perf_counter() - t0, "out": out}
 
 
+def make_mesh(mesh_name: str):
+    """The ``AbstractMesh`` of a ``MESHES`` name."""
+    from ..dist.context import AbstractMesh
+    from .mesh import make_production_mesh
+
+    if mesh_name not in MESHES:
+        raise ValueError(f"unknown mesh {mesh_name!r}; one of {sorted(MESHES)}")
+    if mesh_name == "one":
+        return AbstractMesh((1, 1), ("data", "model"))
+    return make_production_mesh(multi_pod=mesh_name == "multi")
+
+
 def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", *,
              microbatches: int = 1, param_dtype: str = "", moe_groups: int = 0,
-             remat: str = "", seq_shard: bool = False, reduced: bool = False,
+             remat: str = "", seq_shard: bool = False, moe_pin: str = "auto",
+             moe_expert_axis: str = "model", reduced: bool = False,
              tag: str = "") -> Dict[str, Any]:
     """The record of one cell.  ``shape`` is a name of ``SHAPES`` or a
     ``ShapeConfig`` (any global batch and length); ``reduced`` takes the
     config's ``scaled_down()``."""
+    import dataclasses
+
     from ..configs import cell_supported, get_config
+    from ..dist import sharding_rules as SR
+    from ..dist.context import use_plan
     from ..models import build_model
     from ..serve.engine import make_serve_step
     from ..train import AdamWConfig, make_train_step
     from . import specs as S
+    from .mesh import make_plan
     from .roofline import build_report
 
-    if mesh_name not in MESHES:
-        raise NotImplementedError(f"mesh {mesh_name!r} needs the production mesh and sharding "
-                                  f"rules, which are not ported yet; see {DIST_ITEM}. The "
-                                  f"one-card mesh runs now: --mesh one")
-    if seq_shard:
-        raise NotImplementedError(f"sequence sharding is a plan over a mesh; see {DIST_ITEM}")
+    mesh = make_mesh(mesh_name)
     cfg = get_config(arch)
     cfg = cfg.scaled_down() if reduced else cfg
     changes: Dict[str, Any] = {}
@@ -132,7 +159,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
     record: Dict[str, Any] = {
         "arch": arch, "shape": sh.name, "mesh": mesh_name, "status": "unknown",
         "kind": sh.kind, "global_batch": sh.global_batch, "seq_len": sh.seq_len,
-        "variant": {"reduced": reduced, "microbatches": microbatches,
+        "variant": {"reduced": reduced, "microbatches": microbatches, "seq_shard": seq_shard,
                     "param_dtype": cfg.param_dtype, "remat": cfg.remat, "tag": tag},
     }
     supported, reason = cell_supported(cfg, sh)
@@ -141,37 +168,59 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
         return record
 
     chips = MESHES[mesh_name]
+    plan = dataclasses.replace(
+        make_plan(mesh, fsdp_over_pod=cfg.fsdp_over_pod, seq_shard=seq_shard),
+        moe_pin=moe_pin, moe_expert_axis=moe_expert_axis)
+    record["plan"] = dataclasses.asdict(plan)
     model = build_model(cfg)
     params = S.params_shape(model)
-    if sh.kind == "train":
-        oc = AdamWConfig(state_dtype=cfg.opt_state_dtype)
-        state = {"params": params, "opt": S.opt_shape(model, oc)}
-        batch_in = S.train_input_specs(cfg, sh)
-        step = make_train_step(model, oc, microbatches=microbatches)
-        args: tuple = (state, batch_in)
-        counted = count_step(lambda: step(state, batch_in))
-        alias = S.nbytes(state)  # updated in place
-    elif sh.kind == "prefill":
-        batch_in = S.prefill_input_specs(cfg, sh)
-        args = (params, batch_in)
-        with torch.no_grad():
-            counted = count_step(lambda: model.forward(params, batch_in, last_token_only=True))
-        alias = 0
-    else:  # decode: one new token over a cache filled to its last row
-        tok, cache = S.decode_input_specs(model, cfg, sh)
-        cache["pos"] = sh.seq_len - 1
-        serve = model.decode_step if cfg.family == "encdec" else make_serve_step(model)
-        args = (params, cache, tok["tokens"])
-        with torch.no_grad():
-            counted = count_step(lambda: serve(params, cache, tok["tokens"]))
-        alias = S.nbytes(cache)  # updated in place
-    mem = {"argument_bytes": S.nbytes(args), "output_bytes": S.nbytes(counted["out"]),
+    p_shard = SR.make_param_shardings(mesh, params, cfg, plan)
+    with use_plan(plan, mesh):
+        if sh.kind == "train":
+            oc = AdamWConfig(state_dtype=cfg.opt_state_dtype)
+            state = {"params": params, "opt": S.opt_shape(model, oc)}
+            batch_in = S.train_input_specs(cfg, sh)
+            shards: tuple = ({"params": p_shard,
+                              "opt": SR.make_opt_shardings(mesh, state["opt"], cfg, plan)},
+                             SR.batch_sharding(mesh, plan, batch_in))
+            step = make_train_step(model, oc, microbatches=microbatches)
+            args: tuple = (state, batch_in)
+            counted = count_step(lambda: step(state, batch_in))
+            alias = SR.sharded_nbytes(state, shards[0])  # updated in place
+        elif sh.kind == "prefill":
+            batch_in = S.prefill_input_specs(cfg, sh)
+            shards = (p_shard, SR.batch_sharding(mesh, plan, batch_in))
+            args = (params, batch_in)
+            with torch.no_grad():
+                counted = count_step(lambda: model.forward(params, batch_in,
+                                                           last_token_only=True))
+            alias = 0
+        else:  # decode: one new token over a cache filled to its last row
+            tok, cache = S.decode_input_specs(model, cfg, sh)
+            cache["pos"] = sh.seq_len - 1
+            shards = (p_shard, SR.cache_sharding(mesh, plan, cache, cfg),
+                      SR.batch_sharding(mesh, plan, tok)["tokens"])
+            serve = model.decode_step if cfg.family == "encdec" else make_serve_step(model)
+            args = (params, cache, tok["tokens"])
+            with torch.no_grad():
+                counted = count_step(lambda: serve(params, cache, tok["tokens"]))
+            alias = SR.sharded_nbytes(cache, shards[1])  # updated in place
+    mem = {"argument_bytes": SR.sharded_nbytes(list(args), list(shards)),
+           "output_bytes": S.nbytes(counted["out"]) // chips,
            "temp_bytes": None, "alias_bytes": alias}
     mem["per_device_total"] = mem["argument_bytes"]
     note = ("bytes: operand and result bytes of every non-view op, unfused (an upper "
             "estimate); temp_bytes: a meta run gives no temporaries, so per_device_total is "
             "the arguments alone")
-    rep = build_report(arch, sh.name, mesh_name, chips, counted, mem, cfg, sh, sh.kind,
+    if chips > 1:
+        note += ("; per device: argument bytes are shard bytes under the sharding rules, "
+                 "FLOPs, bytes and outputs the counted step over the chips (an even split); "
+                 "collective bytes: null, XLA's partitioner chooses the reference's "
+                 "collectives and an eager step on meta has none to count, so the roofline "
+                 "leaves that term out")
+    cost = {"flops": counted["flops"] / chips, "bytes": counted["bytes"] / chips,
+            "collective_bytes": 0.0 if chips == 1 else None}
+    rep = build_report(arch, sh.name, mesh_name, chips, cost, mem, cfg, sh, sh.kind,
                        note=note)
     record.update(status="OK", trace_s=round(counted["seconds"], 3), ops=counted["ops"],
                   flops_by_op=counted["flops_by_op"], roofline=rep.to_json(),
@@ -193,10 +242,14 @@ def main(argv=None) -> None:
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=OUT_DIR)
     ap.add_argument("--seq-shard", action="store_true",
-                    help="sequence-parallel activations (a mesh plan: not ported yet)")
+                    help="sequence-parallel activations over the model axis")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--param-dtype", default="", help="override cfg.param_dtype")
     ap.add_argument("--moe-groups", type=int, default=0, help="GShard 2D dispatch groups")
+    ap.add_argument("--moe-pin", default="auto", choices=["auto", "group", "group_ep"],
+                    help="MoE dispatch-buffer sharding pin")
+    ap.add_argument("--moe-expert-axis", default="model", choices=["model", "data"],
+                    help="mesh axis sharding the expert dim of MoE weights")
     ap.add_argument("--remat", default="", choices=["", "none", "block"],
                     help="override cfg.remat")
     ap.add_argument("--tag", default="", help="variant tag, a prefix of the record's name")
@@ -223,10 +276,15 @@ def main(argv=None) -> None:
                     print(f"=== {m} / {a} / {s} ===", flush=True)
                     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
                            "--shape", s, "--mesh", m, "--out", out_dir]
-                    for name in ("microbatches", "param_dtype", "moe_groups", "remat", "tag"):
+                    for name, default in (("microbatches", 1), ("param_dtype", ""),
+                                          ("moe_groups", 0), ("moe_pin", "auto"),
+                                          ("moe_expert_axis", "model"), ("remat", ""),
+                                          ("tag", "")):
                         value = getattr(args, name)
-                        if value and not (name == "microbatches" and value == 1):
+                        if value != default:
                             cmd += ["--" + name.replace("_", "-"), str(value)]
+                    if args.seq_shard:
+                        cmd.append("--seq-shard")
                     rc = subprocess.run(cmd, env={**os.environ, "PYTHONPATH": _pythonpath()},
                                         timeout=3600).returncode
                     ok, failed = (ok + 1, failed) if rc == 0 else (ok, failed + 1)
@@ -238,7 +296,8 @@ def main(argv=None) -> None:
     try:
         record = run_cell(args.arch, args.shape, meshes[0], microbatches=args.microbatches,
                           param_dtype=args.param_dtype, moe_groups=args.moe_groups,
-                          remat=args.remat, seq_shard=args.seq_shard, tag=args.tag)
+                          remat=args.remat, seq_shard=args.seq_shard, moe_pin=args.moe_pin,
+                          moe_expert_axis=args.moe_expert_axis, tag=args.tag)
     except Exception as e:  # the record says why; the exit code says it failed
         record.update(status="FAIL", error=repr(e), traceback=traceback.format_exc())
         print(record["traceback"], file=sys.stderr)
@@ -265,10 +324,12 @@ def summarize(out_dir: str) -> None:
     for r in load(out_dir):
         rl = r.get("roofline") or {}
         mem_gb = ((rl.get("memory_per_device_bytes") or {}).get("per_device_total") or 0) / 1e9
+        coll = rl.get("collective_s", 0)
+        coll = f"{coll:10.4f}" if coll is not None else f"{'n/a':>10s}"
         print(f"{r.get('mesh', ''):6s} {r.get('arch', ''):22s} {r.get('shape', ''):12s} "
               f"{r.get('status', ''):6s} "
               f"{rl.get('compute_s', 0):10.4f} {rl.get('memory_s', 0):10.4f} "
-              f"{rl.get('collective_s', 0):10.4f} {rl.get('dominant', ''):>10s} "
+              f"{coll} {rl.get('dominant', ''):>10s} "
               f"{rl.get('useful_ratio', 0):7.2f} {mem_gb:8.1f}G "
               f"{r.get('trace_s', 0):7.1f}s")
 

@@ -89,10 +89,14 @@ def main() -> None:
         print(dryrun_table(rows, mesh))
         print()
     print(f"## Roofline ({CARD})\n")
-    print(f"compute = FLOPs / {PEAK:.4g}; memory = bytes / {HBM_BW:.4g}; no collective on one "
-          "card. FLOPs from FlopCounterMode (kernel ops by their formulas); bytes are the "
-          "unfused operand and result bytes of every op.\n")
-    print(roofline_table(rows))
+    print(f"compute = FLOPs / {PEAK:.4g}; memory = bytes / {HBM_BW:.4g} (per device); no "
+          "collective on one card, and on the production meshes the collective bytes are not "
+          "counted (the term is left out). FLOPs from FlopCounterMode (kernel ops by their "
+          "formulas); bytes are the unfused operand and result bytes of every op.\n")
+    for mesh in sorted({r.get("mesh") for r in rows}):
+        print(f"### Mesh `{mesh}`\n")
+        print(roofline_table(rows, mesh))
+        print()
 
 
 if __name__ == "__main__":

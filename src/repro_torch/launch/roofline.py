@@ -9,8 +9,11 @@ Three terms per (arch x shape x mesh), in seconds:
 
 The constants are the card's own (H100 SXM, dense bf16; ``flops.PEAK_FLOPS``
 and ``flops.HBM_BYTES_PER_S``).  On one card no collective runs, so the
-collective term is 0 and no link rate is needed; the production mesh waits
-for the port of ``dist/`` (``dryrun.DIST_ITEM``).
+collective term is 0 and no link rate is needed.  On the production meshes
+(256 and 512 chips) the collective bytes are unknown: JAX reads them from the
+partitioned HLO, and an eager step on ``meta`` runs none.  The report then
+holds null for them and leaves the term out of ``dominant`` and
+``roofline_fraction``, rather than count it as 0.
 
 FLOPs come from ``FlopCounterMode`` over the step on ``meta``, with each
 kernel op charged its formula (``kernels._shape``); bytes are the operand
@@ -26,7 +29,7 @@ ratio MODEL/counted flags remat and attention work beyond 6.N.D.
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from .flops import HBM_BYTES_PER_S, PEAK_FLOPS
 
@@ -44,11 +47,11 @@ class RooflineReport:
     # per-device quantities counted over the step on meta
     flops_per_device: float
     bytes_per_device: float
-    collective_bytes_per_device: float
+    collective_bytes_per_device: Optional[float]  # None: not countable
     # derived terms (seconds)
     compute_s: float
     memory_s: float
-    collective_s: float
+    collective_s: Optional[float]
     dominant: str
     # accounting
     model_flops_total: float
@@ -77,15 +80,19 @@ def model_flops(cfg, shape, kind: str, chips: int) -> float:
 def build_report(arch: str, shape_name: str, mesh_name: str, chips: int,
                  cost: Dict[str, float], mem: Dict[str, Any], cfg, shape, kind: str,
                  note: str = "") -> RooflineReport:
-    """The report of one cell from ``cost`` = {"flops", "bytes"} per device,
-    counted over the step on ``meta``."""
+    """The report of one cell from ``cost`` = {"flops", "bytes",
+    "collective_bytes"} per device, counted over the step on ``meta``; a
+    ``collective_bytes`` of None (not countable) leaves the term out."""
     flops_dev = float(cost["flops"])
     bytes_dev = float(cost["bytes"])
-    coll = {"total": 0, "counts": {}}
+    coll_dev = cost.get("collective_bytes", 0.0)
+    coll = {"total": coll_dev, "counts": {} if coll_dev is not None else None}
     compute_s = flops_dev / PEAK
     memory_s = bytes_dev / HBM_BW
-    collective_s = 0.0
-    terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
+    collective_s = 0.0 if coll_dev is not None else None  # one card: no collective
+    terms = {"compute": compute_s, "memory": memory_s}
+    if collective_s is not None:
+        terms["collective"] = collective_s
     dominant = max(terms, key=terms.get)
     mf = model_flops(cfg, shape, kind, chips)
     total = flops_dev * chips
@@ -93,7 +100,7 @@ def build_report(arch: str, shape_name: str, mesh_name: str, chips: int,
     return RooflineReport(
         arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
         flops_per_device=flops_dev, bytes_per_device=bytes_dev,
-        collective_bytes_per_device=0.0,
+        collective_bytes_per_device=coll_dev,
         compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
         dominant=dominant, model_flops_total=mf, hlo_flops_total=total,
         useful_ratio=mf / total if total else 0.0,

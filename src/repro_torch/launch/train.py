@@ -15,12 +15,14 @@ Two modes:
 
 Both run in a subprocess.  ``--execute`` runs ``examples/train_e2e_torch.py``,
 which starts the service (``repro.core``, ``repro.data``): this package itself
-imports nothing of ``repro``.  The production meshes (``--mesh single`` or
-``multi``) wait for the port of ``dist/``; ``--mesh one`` (the default) is one
-card.
+imports nothing of ``repro``.  The dry run takes ``--mesh one`` (the default,
+one card) or the production meshes ``single`` (256 chips) and ``multi``
+(512), with ``--seq-shard``, ``--moe-pin`` and ``--moe-expert-axis`` for the
+plan over them.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.train --arch kimi-k2-1t-a32b --shape train_4k --mesh multi
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b --execute --steps 30 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b --execute --full-width --batch 1 --seq 8192 --steps 6
 """
@@ -39,6 +41,8 @@ def main(argv=None) -> None:
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--mesh", default="one", choices=["one", "single", "multi"])
     ap.add_argument("--seq-shard", action="store_true")
+    ap.add_argument("--moe-pin", default="auto", choices=["auto", "group", "group_ep"])
+    ap.add_argument("--moe-expert-axis", default="model", choices=["model", "data"])
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--execute", action="store_true",
                     help="train for real on this host's card (a reduced config by default)")
@@ -71,6 +75,7 @@ def main(argv=None) -> None:
                "--shape", args.shape, "--mesh", args.mesh, "--tag", "preflight"]
         if args.seq_shard:
             cmd.append("--seq-shard")
+        cmd += ["--moe-pin", args.moe_pin, "--moe-expert-axis", args.moe_expert_axis]
         if args.microbatches != 1:
             cmd += ["--microbatches", str(args.microbatches)]
         if args.out:

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.context import shard_activations
 from . import layers as L
 from .config import ModelConfig
 from .lm import _index, cast_for_compute, init_generator
@@ -115,13 +116,14 @@ class EncDecModel:
         cfg = self.cfg
         h = h + L.attention(p["attn"], L.rms_norm(h, p["ln1"]), cfg, positions,
                             causal=False, use_rope=False)
-        return h + L.mlp(p["mlp"], L.rms_norm(h, p["ln2"]), cfg.mlp_act)
+        return shard_activations(h + L.mlp(p["mlp"], L.rms_norm(h, p["ln2"]), cfg.mlp_act), "bsd")
 
     def encode(self, params: Dict[str, Any], enc_embeds: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         B, S, d = enc_embeds.shape
         dt = L.cdt(cfg)
-        x = enc_embeds.to(dt) + _sinusoid(S, d, enc_embeds.device).to(dt)[None]
+        x = shard_activations(enc_embeds.to(dt) + _sinusoid(S, d, enc_embeds.device).to(dt)[None],
+                              "bsd")
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x = self._run(self._enc_layer, params["enc"], cfg.encoder_layers, x, positions)
         return L.rms_norm(x, params["enc_norm"])
@@ -134,7 +136,7 @@ class EncDecModel:
                             causal=True, use_rope=False)
         h = h + L.attention(p["xattn"], L.rms_norm(h, p["ln_x"]), cfg, positions,
                             causal=False, kv_x=enc_out, use_rope=False)
-        return h + L.mlp(p["mlp"], L.rms_norm(h, p["ln2"]), cfg.mlp_act)
+        return shard_activations(h + L.mlp(p["mlp"], L.rms_norm(h, p["ln2"]), cfg.mlp_act), "bsd")
 
     def forward(
         self, params: Dict[str, Any], batch: Dict[str, Any], last_token_only: bool = False,
@@ -146,7 +148,7 @@ class EncDecModel:
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = params["embed"].to(L.cdt(cfg))[tokens.long()]
-        x = x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
+        x = shard_activations(x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None], "bsd")
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x = self._run(self._dec_layer, params["dec"], cfg.num_layers, x, enc_out, positions)
         x = L.rms_norm(x, params["final_norm"])

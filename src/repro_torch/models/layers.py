@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.context import shard_activations
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
 from ..kernels.moe_router import moe_router
@@ -319,7 +320,7 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
         C = max(1, int(math.ceil(t * k / E * cfg.capacity_factor)))
         C = min(C, t)
 
-    xg = x.reshape(G, t, d)
+    xg = shard_activations(x.reshape(G, t, d), "gtd")
     logits = (xg @ params["router"].to(x.dtype)).float()  # (G, t, E)
     if x.device.type == "cpu" and cfg.attn_impl == "xla":
         expert_ids, gate, pos = _route_top_k(logits, k)
@@ -332,7 +333,7 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
     gid = torch.arange(G, device=x.device)[:, None, None].expand(G, t, k)
     buf = torch.zeros((G, E, C + 1, d), dtype=x.dtype, device=x.device)
     buf[gid, expert_ids, slot] = xg[:, :, None, :].expand(G, t, k, d)
-    buf = buf[:, :, :C]
+    buf = shard_activations(buf[:, :, :C], "gecd")
 
     w1 = params["w1"].to(x.dtype)
     if cfg.mlp_act == "swiglu":
@@ -340,8 +341,9 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
             "gecd,edf->gecf", buf, params["w3"].to(x.dtype))
     else:
         h = F.gelu(torch.einsum("gecd,edf->gecf", buf, w1), approximate="tanh")
-    out_buf = F.pad(torch.einsum("gecf,efd->gecd", h, params["w2"].to(x.dtype)),
-                    (0, 0, 0, 1))  # the spare slot C reads zero
+    out_buf = shard_activations(torch.einsum("gecf,efd->gecd", h, params["w2"].to(x.dtype)),
+                                "gecd")
+    out_buf = F.pad(out_buf, (0, 0, 0, 1))  # the spare slot C reads zero
 
     gathered = out_buf[gid, expert_ids, slot]  # (G, t, k, d)
     out = (gathered * gate[..., None]).sum(dim=2)

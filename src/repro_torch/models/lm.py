@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..dist.context import shard_activations
 from . import layers as L
 from .config import ModelConfig
 
@@ -96,7 +97,7 @@ def block_apply(
         h = L.attention(p["attn"], h, cfg, positions, causal=True)
     else:
         h = L.mamba2_mixer(p["ssm"], h, cfg)
-    x = x + h
+    x = shard_activations(x + h, "bsd")
     if ffn == "none":
         return x
     h2 = L.rms_norm(x, p["ln2"])
@@ -104,7 +105,7 @@ def block_apply(
         h2 = L.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg).reshape(B, S, d)
     else:
         h2 = L.mlp(p["mlp"], h2, cfg.mlp_act)
-    return x + h2
+    return shard_activations(x + h2, "bsd")
 
 
 def block_decode(
@@ -254,6 +255,7 @@ class LanguageModel:
             tokens = batch["tokens"]
             B, S = tokens.shape
             x = params["embed"].to(L.cdt(cfg))[tokens.long()]
+        x = shard_activations(x, "bsd")
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)

@@ -176,11 +176,34 @@ class TestDeviceFeeder:
             torch.testing.assert_close(x, ids[:, None].expand_as(x), rtol=0, atol=0)
         assert len({int(i) for _, ids in kept for i in ids}) == 4 * len(kept)
 
-    def test_mesh_arguments_are_not_ported(self, service_factory):
+    def test_mesh_arguments_are_not_ported(self, service_factory, tmp_path):
+        """The mesh path is ported (the name is the test's, from before):
+        over a (1, 1) DeviceMesh of one gloo rank, ``mesh=`` and ``plan=``
+        give plain tensors on the mesh's device, with the batch shardings
+        derived from the first batch; a mesh without a plan, or an abstract
+        mesh, is refused."""
+        import torch.distributed as dist
+
+        from repro_torch.dist import AbstractMesh, P
+        from repro_torch.launch.mesh import make_plan, make_test_mesh
+
         svc = service_factory(num_workers=1)
-        dds = _ids_pipeline(8).distribute(service=svc, processing_mode="dynamic")
-        with pytest.raises(NotImplementedError, match="dist/"):
-            DeviceFeeder(dds, device="cpu", mesh=object(), plan=object())
+        dds = _ids_pipeline(32).distribute(service=svc, processing_mode="dynamic")
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_test_mesh(1, 1)
+            with DeviceFeeder(dds, mesh=mesh, plan=make_plan(mesh)) as feeder:
+                b = feeder.next(timeout=60)
+                assert type(b["x"]) is torch.Tensor and b["x"].device.type == "cpu"
+                assert feeder.shardings["x"].spec == P("data")
+            with pytest.raises(TypeError, match="together"):
+                DeviceFeeder(dds, mesh=mesh)
+            with pytest.raises(TypeError, match="AbstractMesh"):
+                DeviceFeeder(dds, device="cpu", mesh=AbstractMesh((1, 1), ("data", "model")),
+                             plan=make_plan(mesh))
+        finally:
+            dist.destroy_process_group()
 
     def test_no_device_means_cuda_or_an_error(self, service_factory, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

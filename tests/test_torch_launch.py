@@ -329,7 +329,8 @@ def test_dryrun_flops_match_jax_dot_flops():
 def test_dryrun_one_full_config_on_meta():
     """starcoder2-3b's train_4k cell at full width, in seconds and no
     memory: the counted FLOPs over 6.N.D, the H100 roofline, temp_bytes
-    null and the production meshes naming their item."""
+    null; on the production meshes the same count over 256 and 512 chips,
+    the arguments' shard bytes per device and no collective term."""
     rec = dryrun.run_cell("starcoder2-3b", "train_4k")
     rl = rec["roofline"]
     assert rec["status"] == "OK" and rl["chips"] == 1 and rl["collective_s"] == 0.0
@@ -337,9 +338,15 @@ def test_dryrun_one_full_config_on_meta():
     assert rl["compute_s"] == rl["flops_per_device"] / 989e12
     assert rl["memory_per_device_bytes"]["temp_bytes"] is None
     assert rec["fits_hbm_80g"] is True
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            dryrun.run_cell("starcoder2-3b", "train_4k", mesh)
+    for mesh, chips in (("single", 256), ("multi", 512)):
+        big = dryrun.run_cell("starcoder2-3b", "train_4k", mesh)
+        brl = big["roofline"]
+        assert big["status"] == "OK" and brl["chips"] == chips
+        assert brl["flops_per_device"] == rl["flops_per_device"] / chips
+        assert brl["collective_s"] is None and brl["collective_bytes_per_device"] is None
+        per_dev = brl["memory_per_device_bytes"]["argument_bytes"]
+        assert rl["memory_per_device_bytes"]["argument_bytes"] / chips <= per_dev
+        assert per_dev < rl["memory_per_device_bytes"]["argument_bytes"] / 16
 
 
 @pytest.mark.parametrize("arch,shape", [("whisper-large-v3", "decode_32k"),
@@ -454,8 +461,10 @@ def test_launcher_without_execute_writes_a_dryrun_record(tmp_path):
     rec = json.loads((tmp_path / "one__preflight__starcoder2_3b__train_4k.json").read_text())
     assert rec["status"] == "OK" and rec["mesh"] == "one" and rec["variant"]["tag"] == "preflight"
     assert rec["roofline"]["flops_per_device"] > rec["roofline"]["model_flops_total"]
-    bad = _launcher("--arch", "starcoder2-3b", "--mesh", "single", "--out", str(tmp_path))
-    assert bad.returncode != 0 and "item 4" in bad.stderr
+    multi = _launcher("--arch", "starcoder2-3b", "--mesh", "multi", "--out", str(tmp_path))
+    assert multi.returncode == 0, multi.stderr[-3000:]
+    rec = json.loads((tmp_path / "multi__preflight__starcoder2_3b__train_4k.json").read_text())
+    assert rec["status"] == "OK" and rec["roofline"]["chips"] == 512
 
 
 def test_corpus_mode_checkpoints_and_resumes(tmp_path):

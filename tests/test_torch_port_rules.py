@@ -71,7 +71,13 @@ def test_scan_covers_the_port():
     assert {"__init__.py", "specs.py", "flops.py", "roofline.py", "dryrun.py", "report.py",
             "train.py"} <= launch
     assert {f"src/repro_torch/launch/{n}" for n in launch} <= names
-    assert "examples/train_e2e_torch.py" in {p.relative_to(ROOT).as_posix() for p in EXAMPLES}
+    assert "mesh.py" in launch
+    dist = {p.name for p in (PORT / "dist").glob("*.py")}
+    assert {"__init__.py", "context.py", "sharding_rules.py", "compression.py",
+            "placement.py"} <= dist
+    assert {f"src/repro_torch/dist/{n}" for n in dist} <= names
+    examples = {p.relative_to(ROOT).as_posix() for p in EXAMPLES}
+    assert {"examples/train_e2e_torch.py", "examples/device_feed_torch.py"} <= examples
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
