@@ -2455,10 +2455,271 @@ def phase_service(arch, B, S, steps):
 # A mesh of one device changes nothing in the reference, so the losses and
 # every updated parameter must be bit-equal.  (b) int8 compression of the
 # embedding's gradient at (a)'s state (49152 x 3072 f32).  (c) the dry run
-# on the production meshes, counts on meta.
+# on the production meshes, partitioned on meta DTensors over a fake process
+# group: one device's FLOPs and bytes, and the collectives it issues
+# (launch/comm_cost.py); a null collective term fails.  (d) the partitioned
+# step's boundary on the card: on (a)'s (1, 1) mesh the state and batches
+# are DTensors (DTensor.from_local with the rules' placements), so every
+# kernel wrapper takes them local (kernels/_boundary.py) before it launches;
+# starcoder2-3b's 3 steps of (a) (flash forward and backward), one step of
+# mamba2-2.7b at 4 layers (the SSD scan and its backward) and 4 decode steps
+# of moonshot at 4 layers (router, decode) are bit-equal to the same steps on
+# plain tensors.
 DIST_RUN = ("starcoder2-3b", 1, 8192, 3)
-DIST_DRYRUN = (("llama3-405b", "train_4k"), ("kimi-k2-1t-a32b", "train_4k"))
+# (arch, shape, mesh, reduced): the first cell at full size, the others at
+# scaled_down() on the same meshes - at full size each took 40-49 s on the
+# card's host, 177 s for the four, where the phase may add about 120 s
+DIST_DRYRUN = (("llama3-405b", "train_4k", "single", False),
+               ("llama3-405b", "train_4k", "multi", True),
+               ("kimi-k2-1t-a32b", "train_4k", "single", True),
+               ("kimi-k2-1t-a32b", "train_4k", "multi", True))
+DIST_DRYRUN_TIMEOUT_S = 240
 DIST_STOCHASTIC_TOL = 1e-3  # mean error of stochastic rounding, in units of the scale
+# (arch, config changes, B, S, steps) of (d)'s train run beside (a)'s
+DTENSOR_TRAIN = (("mamba2-2.7b", {"num_layers": 4}, 1, 8192, 1),)
+# (arch, config changes, B, cache rows, decode steps) of (d)'s decode run
+DTENSOR_DECODE = ("moonshot-v1-16b-a3b", {"num_layers": 4, "param_dtype": "bfloat16"}, 8, 256,
+                  4)
+
+
+def dtensor_tree(tree, shardings):
+    """``tree``'s tensor leaves as ``DTensor``s with the placements of their
+    shardings (``DTensor.from_local``; on a mesh of one device the leaf is
+    its own shard, so no copy is made)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.bridge import flatten_with_paths, map_with_paths
+    from repro_torch.dist.placement import placements
+
+    flat = dict(flatten_with_paths(shardings))
+
+    def one(key, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        sh = flat[key]
+        return DTensor.from_local(t, sh.mesh, placements(sh), run_check=False)
+
+    return map_with_paths(tree, one)
+
+
+def _plain(x):
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def dtensor_train(model, opt, state, batches, mesh, plan):
+    """One train step a batch with ``state``'s params and moments and each
+    batch as ``DTensor``s over ``mesh`` under ``plan``; ``state``'s tensors
+    are updated in place.  Returns the losses and the seconds of each step."""
+    from repro_torch.dist import sharding_rules as SR
+    from repro_torch.dist.context import use_plan
+    from repro_torch.train import make_train_step
+
+    cfg = model.cfg
+    run = {"params": dtensor_tree(state["params"],
+                                  SR.make_param_shardings(mesh, state["params"], cfg, plan)),
+           "opt": dict(state["opt"])}
+    oshard = SR.make_opt_shardings(mesh, state["opt"], cfg, plan)
+    for k in ("m", "v"):
+        run["opt"][k] = dtensor_tree(state["opt"][k], oshard[k])
+    step = make_train_step(model, opt)
+    losses, secs = [], []
+    with use_plan(plan, mesh):
+        for b in batches:
+            b = dtensor_tree(b, SR.batch_sharding(mesh, plan, b))
+            t = time.perf_counter()
+            _, m = step(run, b)
+            losses.append(float(_plain(m["loss"])))
+            secs.append(time.perf_counter() - t)
+    state["opt"]["step"] = run["opt"]["step"]
+    return losses, secs
+
+
+def decode_logits(model, params, B, rows, tokens, mesh=None, plan=None):
+    """The logits of ``len(tokens)`` decode steps from a zeroed cache of
+    ``rows`` rows; over ``mesh`` the params, cache and tokens are
+    ``DTensor``s laid out by the rules."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.dist import sharding_rules as SR
+    from repro_torch.dist.context import use_plan
+
+    dev = tokens[0].device
+    cache = model.init_cache(B, rows, device=dev)
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        cfg = model.cfg
+        params = dtensor_tree(params, SR.make_param_shardings(mesh, params, cfg, plan))
+        cache = dtensor_tree(cache, SR.cache_sharding(mesh, plan, cache, cfg))
+        scope = use_plan(plan, mesh)
+    out = []
+    with torch.no_grad(), scope:
+        for tok in tokens:
+            if mesh is not None:
+                tok = dtensor_tree({"t": tok}, SR.batch_sharding(mesh, plan, {"t": tok}))["t"]
+            logits, cache = model.decode_step(params, cache, tok)
+            out.append(_plain(logits))
+    return out
+
+
+def leaves_bit_equal(a, b):
+    """(the keys of the leaves of tree ``a`` that differ from ``b``'s, their
+    largest difference); ``b`` maps keys to tensors."""
+    import torch
+
+    from repro_torch.bridge import flatten_with_paths
+
+    differ, worst = [], 0.0
+    for k, t in flatten_with_paths(a):
+        x, y = _plain(t).detach().cpu(), b[k].detach().cpu()
+        if not torch.equal(x, y):
+            differ.append(k)
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return differ, worst
+
+
+def dryrun_verdict(rec) -> str:
+    """Why a production-mesh record of (c) fails, or "" when it passes: a
+    status other than OK, or a null or absent collective term."""
+    if rec.get("status") != "OK":
+        return f"status {rec.get('status')}: {rec.get('error', '')}"
+    rl = rec.get("roofline") or {}
+    if rl.get("collective_s") is None or rl.get("collective_bytes_per_device") is None:
+        return "null collective term"
+    if not (rl.get("collective_breakdown") or {}).get("counts"):
+        return "no collective breakdown"
+    return ""
+
+
+def run_dryrun_cell(arch, shape, mesh_name, out_dir, reduced=False, run=subprocess.run):
+    """(c)'s cell in a process of its own (a process has one default process
+    group, and the record's ``host_peak_rss_gb`` is then the cell's), at
+    the config's ``scaled_down()`` when ``reduced``: the record and the
+    command's seconds."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--mesh", mesh_name, "--out", out_dir] + (["--reduced", "--tag", "reduced"]
+                                                    if reduced else [])
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t = time.perf_counter()
+    res = run(cmd, capture_output=True, text=True, timeout=DIST_DRYRUN_TIMEOUT_S, env=env)
+    seconds = time.perf_counter() - t
+    tag = "reduced__" if reduced else ""
+    path = os.path.join(out_dir, f"{mesh_name}__{tag}{arch}__{shape}.json")
+    if res.returncode != 0 or not os.path.exists(path):
+        return {"status": "FAIL", "error": res.stderr[-2000:]}, seconds
+    with open(path) as f:
+        return json.load(f), seconds
+
+
+def phase_dtensor(mesh, plan, ref):
+    """Phase 7(d) on (a)'s (1, 1) mesh; ``ref`` holds (a)'s losses, seconds
+    a step and updated parameters (on the host).  Returns the launch counts
+    of its DTensor runs (the main path through the boundary)."""
+    import gc
+
+    import torch
+
+    from repro_torch.bridge import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    def cuda_batches(cfg, B, S, steps):
+        return [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                for b in FamilyBatches(cfg, B, S, steps, seed=0).session()]
+
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    arch, B, S, steps = DIST_RUN
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=2e-6, warmup_steps=steps)  # (a)'s
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt,
+                             device="cuda")
+    batches = cuda_batches(cfg, B, S, steps)
+    (losses, secs), _, counts, peak = counted(
+        f"dist dtensor {arch}", lambda: dtensor_train(model, opt, state, batches, mesh, plan))
+    require_launches(f"dist dtensor {arch}", counts, train_launches_per_step(cfg), steps)
+    differ, worst = leaves_bit_equal(state["params"], ref["snap"])
+    equal = losses == ref["losses"] and not differ
+    steady, ref_steady = secs[1:] or secs, ref["secs"][1:] or ref["secs"]
+    log(dict(phase="dist/dtensor_train", arch=arch, B=B, S=S, steps=steps, losses=losses,
+             losses_no_mesh=ref["losses"], bit_equal=equal, params_differ=differ[:8],
+             params_max_abs_diff=worst, seconds_per_step=secs,
+             steady_seconds_per_step=sum(steady) / len(steady),
+             phase7a_steady_seconds_per_step=sum(ref_steady) / len(ref_steady),
+             max_memory_allocated_gb=peak, launches=counts))
+    if not equal:
+        raise SystemExit(f"dist dtensor {arch}: the DTensor steps differ from the plain ones "
+                         f"({len(differ)} leaves, largest difference {worst})")
+    add(counts)
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch, changes, B, S, steps in DTENSOR_TRAIN:
+        cfg = get_config(arch).replace(**changes)
+        model = build_model(cfg)
+        opt = AdamWConfig(lr=2e-6, warmup_steps=steps)
+        batches = cuda_batches(cfg, B, S, steps)
+        plain = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt,
+                                 device="cuda")
+        step = make_train_step(model, opt)
+        plain_losses = [float(step(plain, b)[1]["loss"]) for b in batches]
+        snap = {k: t.detach().cpu() for k, t in flatten_with_paths(plain["params"])}
+        del plain
+        state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), opt,
+                                 device="cuda")
+        (losses, secs), _, counts, peak = counted(
+            f"dist dtensor {arch}", lambda: dtensor_train(model, opt, state, batches, mesh, plan))
+        require_launches(f"dist dtensor {arch}", counts, train_launches_per_step(cfg), steps)
+        differ, worst = leaves_bit_equal(state["params"], snap)
+        equal = losses == plain_losses and not differ
+        log(dict(phase="dist/dtensor_train", arch=arch, layers=cfg.num_layers, B=B, S=S,
+                 steps=steps, losses=losses, losses_no_mesh=plain_losses, bit_equal=equal,
+                 params_differ=differ[:8], params_max_abs_diff=worst, seconds_per_step=secs,
+                 max_memory_allocated_gb=peak, launches=counts))
+        if not equal:
+            raise SystemExit(f"dist dtensor {arch}: the DTensor step differs from the plain one")
+        add(counts)
+        del state, batches, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    arch, changes, B, rows, steps = DTENSOR_DECODE
+    cfg = get_config(arch).replace(**changes)
+    model = build_model(cfg)
+    params = model.cast_for_compute(model.init(torch.Generator(device="cuda").manual_seed(0),
+                                               device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = [torch.randint(1, cfg.vocab_size, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32) for _ in range(steps)]
+    want = decode_logits(model, params, B, rows, tokens)
+    got, seconds, counts, peak = counted(
+        f"dist dtensor {arch} decode",
+        lambda: decode_logits(model, params, B, rows, tokens, mesh, plan))
+    forward, per_step = expected_launches(cfg)
+    require_launches(f"dist dtensor {arch} decode", counts, per_step, steps)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    log(dict(phase="dist/dtensor_decode", arch=arch, layers=cfg.num_layers, B=B, rows=rows,
+             steps=steps, bit_equal=equal, seconds=seconds, max_abs_diff=diff,
+             max_memory_allocated_gb=peak, launches=counts))
+    if not equal:
+        raise SystemExit(f"dist dtensor {arch}: the DTensor decode differs from the plain one")
+    add(counts)
+    del params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
 
 
 def _dist_run(model, opt, B, S, steps, mesh=None, plan=None):
@@ -2507,8 +2768,8 @@ def _dist_run(model, opt, B, S, steps, mesh=None, plan=None):
 
 
 def phase_dist():
-    """Phase 7; returns the launch counts of (a)'s sharded steps (the main
-    path)."""
+    """Phase 7; returns the launch counts of (a)'s sharded steps and (d)'s
+    DTensor runs (the main path)."""
     import gc
 
     import torch
@@ -2518,7 +2779,6 @@ def phase_dist():
     from repro_torch.configs import get_config
     from repro_torch.dist import compression as C
     from repro_torch.dist.context import use_plan
-    from repro_torch.launch.dryrun import run_cell
     from repro_torch.launch.mesh import make_plan, make_test_mesh
     from repro_torch.models import build_model
     from repro_torch.train import AdamWConfig, make_loss_fn
@@ -2554,11 +2814,7 @@ def phase_dist():
 
         plain, plain_losses, plain_secs, plain_counts, plain_peak, _ = _dist_run(
             model, opt, B, S, steps)
-        worst, differ = 0.0, []
-        for k, t in flatten_with_paths(plain["params"]):
-            if not torch.equal(snap[k], t.detach().cpu()):
-                differ.append(k)
-                worst = max(worst, float((snap[k] - t.detach().cpu()).abs().max()))
+        differ, worst = leaves_bit_equal(plain["params"], snap)
         equal = losses == plain_losses and not differ
         steady = secs[1:] or secs
         plain_steady = plain_secs[1:] or plain_secs
@@ -2579,7 +2835,7 @@ def phase_dist():
             raise SystemExit(f"dist {arch}: the sharded steps differ from the unsharded ones "
                              f"(losses {losses} vs {plain_losses}; {len(differ)} leaves, "
                              f"largest difference {worst})")
-        del plain, snap
+        del plain
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2610,24 +2866,45 @@ def phase_dist():
         if not ok:
             raise SystemExit("dist: int8 compression on the card disagrees (see the record)")
         del grad, q, qs, summed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the same steps with the state and batches as DTensors
+        d_counts = phase_dtensor(mesh, plan, dict(losses=losses, secs=secs, snap=snap))
+        del snap
+        for k, v in d_counts.items():
+            counts[k] = counts.get(k, 0) + v
     finally:
         dist.destroy_process_group()
     log(f"dist: process group destroyed (initialized: {dist.is_initialized()})")
 
-    # (c) the dry run's production meshes, counted on meta
-    for arch, shape in DIST_DRYRUN:
-        for mesh_name in ("single", "multi"):
-            rec = run_cell(arch, shape, mesh_name)
-            rl = rec["roofline"]
-            log(dict(phase="dist/dryrun", arch=arch, shape=shape, mesh=mesh_name,
-                     status=rec["status"], chips=rl["chips"], plan=rec["plan"],
-                     argument_bytes_per_device=rl["memory_per_device_bytes"]["argument_bytes"],
-                     fits_hbm_80g=rec["fits_hbm_80g"], flops_per_device=rl["flops_per_device"],
-                     compute_s=rl["compute_s"], memory_s=rl["memory_s"],
-                     collective_s=rl["collective_s"], dominant=rl["dominant"],
-                     trace_s=rec["trace_s"]))
-            if rec["status"] != "OK" or rl["collective_s"] is not None:
-                raise SystemExit(f"dist dry run {arch} {shape} {mesh_name}: {rec['status']}")
+    # (c) the dry run's production meshes, partitioned on meta
+    out_dir = os.path.join(ROOT, "chiprun_out", "dryrun_dist")
+    os.makedirs(out_dir, exist_ok=True)
+    for arch, shape, mesh_name, reduced in DIST_DRYRUN:
+        rec, seconds = run_dryrun_cell(arch, shape, mesh_name, out_dir, reduced)
+        rl = rec.get("roofline") or {}
+        coll = rl.get("collective_breakdown") or {}
+        log(dict(phase="dist/dryrun", arch=arch, shape=shape, mesh=mesh_name,
+                 reduced=reduced,
+                 status=rec["status"], chips=rl.get("chips"), plan=rec.get("plan"),
+                 argument_bytes_per_device=(rl.get("memory_per_device_bytes") or {}).get(
+                     "argument_bytes"),
+                 fits_hbm_80g=rec.get("fits_hbm_80g"),
+                 flops_per_device=rl.get("flops_per_device"),
+                 bytes_per_device=rl.get("bytes_per_device"),
+                 collective_bytes_per_device=rl.get("collective_bytes_per_device"),
+                 collective_bytes_by_kind={k: coll.get(k) for k in (
+                     "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                     "collective-permute")},
+                 collective_counts=coll.get("counts"), collective_by_axis=coll.get("by_axis"),
+                 compute_s=rl.get("compute_s"), memory_s=rl.get("memory_s"),
+                 collective_s=rl.get("collective_s"), dominant=rl.get("dominant"),
+                 trace_s=rec.get("trace_s"), command_seconds=seconds,
+                 host_peak_rss_gb=rec.get("host_peak_rss_gb")))
+        why = dryrun_verdict(rec)
+        if why:
+            raise SystemExit(f"dist dry run {arch} {shape} {mesh_name}: {why}")
     return counts
 
 

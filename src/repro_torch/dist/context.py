@@ -22,6 +22,15 @@ mesh axis, if any, each role pins to:
 Outside an active plan, and on a mesh of one device, the hook returns its
 input object unchanged.  A dim that its axes do not divide is replicated.
 
+The partitioned step.  On a ``DeviceMesh`` of more than one device the
+steps run on ``DTensor``s (the twin of ``jax.jit(step, in_shardings=...)``):
+the parameters, optimizer state, inputs and caches are placed by the rules,
+and DTensor propagates their layout op by op.  What the model makes itself
+(rope tables, positions, masks, the MoE dispatch buffer) enters the mesh
+through ``like_mesh``, with an explicit placement; on a plain tensor it is
+the identity, so the one-device path is unchanged.  The kernel wrappers are
+where a ``DTensor`` becomes local (``kernels/_boundary.py``).
+
 Meshes.  The rules read only a mesh's axis names and sizes
 (``mesh_axis_sizes``), so they take either a ``torch`` ``DeviceMesh`` (ranks
 with devices, where tensors are placed) or an ``AbstractMesh`` (names and
@@ -36,7 +45,10 @@ import contextlib
 import math
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 Axis = Union[str, Tuple[str, ...]]
 
@@ -221,3 +233,97 @@ def shard_activations(x: Any, roles: str) -> Any:
 
     spec = plan_spec(roles, plan, shape=x.shape, mesh=mesh)
     return x.redistribute(x.device_mesh, placements(NamedSharding(x.device_mesh, spec)))
+
+
+# ---------------------------------------------------------------------------
+# the partitioned step
+# ---------------------------------------------------------------------------
+def is_dtensor(x: Any) -> bool:
+    return isinstance(x, DTensor)
+
+
+def like_mesh(t: torch.Tensor, ref: Any, placements: Optional[Sequence[Any]] = None) -> Any:
+    """``t`` itself when ``ref`` is not a ``DTensor`` (or ``t`` is one); else
+    ``t`` on ``ref``'s mesh as a ``DTensor``: replicated on every mesh dim (``t`` is then the
+    same value on every rank), or laid out by ``placements`` (``t`` is then
+    this rank's shard)."""
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, list(placements or [Replicate()] * mesh.ndim),
+                              run_check=False)
+
+
+def mesh_roles(mesh: Any) -> Tuple[List[int], Optional[int]]:
+    """(mesh dims of the data axes, mesh dim of the model axis or None) of a
+    ``DeviceMesh``, by the active plan's axis names (JAX's default names
+    without one)."""
+    plan = _STATE.plan or ShardingPlan(data_axes=("pod", "data"))
+    names = list(mesh.mesh_dim_names or ())
+    data = [i for i, n in enumerate(names) if n in plan.data_axes]
+    return data, (names.index(plan.model_axis) if plan.model_axis in names else None)
+
+
+def unshard_dim(x: Any, dim: int) -> Any:
+    """``x`` with tensor dim ``dim`` whole on every rank: a ``DTensor`` split
+    (or pending a sum) along it is redistributed, its other splits kept; any
+    other ``x`` is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    want = [Replicate() if (isinstance(p, Shard) and p.dim % x.ndim == dim)
+            or isinstance(p, Partial) else p for p in x.placements]
+    return x if tuple(want) == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+# per-layer cache leaf -> its heads dim (KV caches (B, S, Hkv, D), SSM state
+# (B, H, N, P)); the conv window (B, K-1, Ch) has none
+CACHE_HEADS = {"k": 2, "v": 2, "xk": 2, "xv": 2, "h": 1}
+
+
+def unsplit_repeats(t: Any, head_dim: Optional[int]) -> Any:
+    """A stacked decode-cache leaf (repeats, B, ...) laid out so that its
+    repeats and sequence dims are whole: batch over the data axes, heads
+    (``head_dim`` of one layer's leaf) over the model axis where they
+    divide.  The rules split a stacked leaf's leading dims (the repeats over
+    data, the sequence over the model axis, as JAX's do), and ``t[r]`` of a
+    split repeats dim is a gathered copy, which a step's in-place write
+    would miss.  Any other ``t`` is returned as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    data, model = mesh_roles(mesh)
+    want: List[Any] = [Replicate()] * mesh.ndim
+    if t.shape[1] % math.prod(mesh.size(i) for i in data) == 0:
+        for i in data:
+            want[i] = Shard(1)
+    if model is not None and head_dim is not None and t.shape[head_dim + 1] % mesh.size(model) == 0:
+        want[model] = Shard(head_dim + 1)
+    return t if tuple(want) == tuple(t.placements) else t.redistribute(mesh, want)
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity; its backward lays the gradient out as the forward's
+    output was (a pending sum's gradient replicated)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        # a pending sum's gradient is the same on every rank
+        ctx.placements = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == tuple(ctx.placements):
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def keep_grad_layout(x: Any) -> Any:
+    """``x``; on a mesh its gradient comes back in ``x``'s layout.  A
+    reshape that merges or splits a dim runs its backward as a view of the
+    gradient, which a split in the wrong place (a head split mid-way)
+    refuses."""
+    if isinstance(x, DTensor) and x.requires_grad:
+        return _GradLayout.apply(x)
+    return x

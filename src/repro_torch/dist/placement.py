@@ -92,11 +92,12 @@ def place(tensor: torch.Tensor, sharding: NamedSharding) -> Any:
     """``tensor`` (the same full value on every rank) laid out by
     ``sharding``: on a mesh of one device a plain tensor on its device (the
     object itself when it is there already), else this rank's shard as a
-    ``DTensor``."""
+    ``DTensor``.  A ``meta`` tensor stays on ``meta`` (the dry run's
+    shapes)."""
     mesh = sharding.mesh
     if isinstance(mesh, AbstractMesh):
         raise TypeError("an AbstractMesh has no devices to place a tensor on")
-    device = mesh_device(mesh)
+    device = tensor.device if tensor.device.type == "meta" else mesh_device(mesh)
     if mesh_size(mesh) == 1:
         return tensor.to(device)
     local = tensor[shard_slices(sharding, tensor.shape, mesh.get_coordinate())]

@@ -2,7 +2,9 @@
 
 On a CUDA tensor it launches the hand-written Hopper kernel
 (``csrc/decode_attention.cu``) or raises; on a CPU tensor it computes the
-plain version ``decode_attention_ref``; on a ``meta`` tensor, the shape-only
+plain version ``decode_attention_ref``; ``DTensor``s on a mesh are taken
+local (``kernels._boundary``: batch over the data axes, kv heads over the
+model axis, or each rank's kv head); on a ``meta`` tensor, the shape-only
 route (``kernels._shape``, no launch counted).  ``decode_attention.launches`` counts
 calls that launched the kernel (one per call, with the split merge's
 launch when there is more than one split).
@@ -20,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _shape
+from .. import _boundary, _shape
 from .._grad import refuse_grad
 from .kernel import DTYPES, HEAD_DIMS, MAX_GROUP, decode_attention_fwd
 from .ref import decode_attention_ref
@@ -120,7 +122,12 @@ def decode_attention(
     cache's 64-key tiles and at ``MAX_SPLITS``; ``block_s`` is the TPU
     kernel's segment tile and is accepted for its API only (the CUDA
     kernel's tiles are 64 keys).  The plain version ignores both.
+    ``DTensor``s are taken local (``_boundary``).
     """
+    if isinstance(q, _boundary.DTensor):
+        return _boundary.grouped_heads(decode_attention, q, (k_cache, v_cache), 1, 2,
+                                       tail=(lengths,), window=window, num_splits=num_splits,
+                                       block_s=block_s)
     if q.device.type == "cpu":
         if k_cache.device.type != "cpu" or v_cache.device.type != "cpu":
             raise ValueError("decode_attention: q on the CPU but a cache elsewhere")

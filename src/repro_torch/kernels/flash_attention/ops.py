@@ -13,6 +13,10 @@ which autograd runs as usual.
 backward (``csrc/flash_attention_bwd.cu``) or raises; on a CPU tensor it
 computes ``flash_attention_bwd_ref`` (the same math, in f32).
 
+On a mesh, ``flash_attention`` takes ``DTensor``s local
+(``kernels._boundary``): batch over the data axes, heads over the model
+axis, and each rank's kv heads when only the q heads split.
+
 On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
 empty outputs of the kernel's shapes, charged their FLOPs under
 ``FlopCounterMode``, with no launch counted; autograd on ``meta`` reaches the
@@ -28,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _shape
+from .. import _boundary, _shape
 from .kernel import DTYPES, HEAD_DIMS, TILES, flash_attention_bwd_launch
 from .kernel import flash_attention_fwd as _launch_fwd
 from .ref import flash_attention_bwd_ref, flash_attention_ref
@@ -127,8 +131,12 @@ def flash_attention(
     ``block_q``/``block_k`` pick the forward kernel's tile, one of
     ``TILES[dtype]``; None takes the dtype's default (``resolve_tile``).
     The result does not depend on the tile beyond rounding; the plain
-    version ignores it.
+    version ignores it.  ``DTensor``s are taken local (``_boundary``).
     """
+    if isinstance(q, _boundary.DTensor):
+        return _boundary.grouped_heads(flash_attention, q, (k, v), 2, 2, causal=causal,
+                                       window=window, softcap=softcap, q_offset=q_offset,
+                                       block_q=block_q, block_k=block_k)
     if q.device.type == "cpu":
         if k.device.type != "cpu" or v.device.type != "cpu":
             raise ValueError("flash_attention: q on the CPU but k or v elsewhere")

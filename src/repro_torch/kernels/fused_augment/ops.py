@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _shape
+from .. import _boundary, _shape
 from .kernel import MAX_CHANNELS, fused_augment_fwd
 from .ref import fused_augment_ref
 
@@ -55,7 +55,12 @@ def fused_augment(
     """Crop each image at its corner to (out_h, out_w), flip it along W when
     its flag is > 0, and normalise: f32 (B, out_h, out_w, C).  A corner out
     of range is taken as ``lax.dynamic_slice`` takes it (a negative start
-    wrapped once by the dimension, then clamped so the crop fits)."""
+    wrapped once by the dimension, then clamped so the crop fits).
+    ``DTensor``s are taken local (``_boundary``): images, crops and flips
+    over the data axes, mean and std whole."""
+    if isinstance(images, _boundary.DTensor):
+        return _boundary.batched(fused_augment, (images, crops, flips, mean, std), 3,
+                                 out_h=out_h, out_w=out_w)
     if images.device.type == "cpu":
         if any(t.device.type != "cpu" for t in (crops, flips, mean, std)):
             raise ValueError("fused_augment: images on the CPU but another input elsewhere")

@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from .. import _shape
+from .. import _boundary, _shape
 from .kernel import MAX_EXPERTS, MAX_K, moe_router_bwd_launch, moe_router_fwd
 from .ref import moe_router_bwd_ref, moe_router_ref
 
@@ -83,7 +83,11 @@ def moe_router(
 
     A (token, choice) is dropped under a capacity C iff ``slots >= C``; the
     caller applies C (the TPU kernel takes it only for parity of signature).
+    A ``DTensor`` is taken local whole on every rank (``_boundary``): the
+    slots are a prefix over all T tokens and top-k reads every expert.
     """
+    if isinstance(logits, _boundary.DTensor):
+        return _boundary.replicated(moe_router, (logits, k), 3)
     if logits.device.type == "cpu":
         return moe_router_ref(logits, k)
     if logits.device.type not in ("cuda", "meta"):

@@ -12,6 +12,9 @@ version ``ssd_scan_ref``, through which autograd runs as usual.
 the states entering each chunk) or raises; on a CPU tensor it computes
 ``ssd_scan_bwd_ref`` (the same math, in f32).
 
+On a mesh, ``ssd_scan`` takes ``DTensor``s local (``kernels._boundary``):
+batch over the data axes, heads (and B/C groups) over the model axis.
+
 On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
 empty outputs of the kernels' shapes, charged their FLOPs under
 ``FlopCounterMode``, with no launch counted; autograd on ``meta`` reaches the
@@ -26,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _shape
+from .. import _boundary, _shape
 from .kernel import (BWD_CHUNK, DTYPES, HEAD_DIMS, MAX_CHUNK, MAX_STATE, ssd_scan_bwd_launch,
                      ssd_scan_fwd)
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
@@ -116,8 +119,11 @@ def ssd_scan(
     kernel; the result does not depend on it beyond rounding.  The plain
     version is the token recurrence and ignores it.  The kernels take
     chunks up to 128, head dims 32 and 64 and states of 16 to 128 (a
-    multiple of 16); other shapes raise.
+    multiple of 16); other shapes raise.  ``DTensor``s are taken local
+    (``_boundary``).
     """
+    if isinstance(x, _boundary.DTensor):
+        return _boundary.ssd_heads(ssd_scan, x, dt, a, Bm, Cm, D, chunk=chunk)
     if x.device.type == "cpu":
         if any(t.device.type != "cpu" for t in (dt, a, Bm, Cm, D)):
             raise ValueError("ssd_scan: x on the CPU but another input elsewhere")

@@ -24,27 +24,37 @@ corrections and learning rate); on ``meta`` those reads return 1
 (``StepCounter``), which changes no op and no shape of the step.
 
 Meshes: ``one`` (one H100), and the JAX package's production meshes
-``single`` (16 x 16 = 256 chips) and ``multi`` (2 x 16 x 16 = 512), as
-``AbstractMesh``es (``launch.mesh``) under ``make_plan(mesh, fsdp_over_pod=
-cfg.fsdp_over_pod, seq_shard=)`` with ``--moe-pin`` and ``--moe-expert-axis``
-applied.  The step runs once at the global shapes under ``use_plan``; the
-record keeps JAX's fields per device:
+``single`` (16 x 16 = 256 chips) and ``multi`` (2 x 16 x 16 = 512) under
+``make_plan(mesh, fsdp_over_pod=cfg.fsdp_over_pod, seq_shard=)`` with
+``--moe-pin`` and ``--moe-expert-axis`` applied.  On a production mesh the
+step is partitioned, the twin of JAX's compile of the sharded step: a
+``fake_device_mesh`` (``launch.mesh``: the mesh's names and sizes over a
+"fake" process group, seen from rank 0) carries the params, optimizer
+state, inputs and cache as ``meta`` ``DTensor``s placed by the shardings,
+and the step runs once on them (``count_partitioned``).  The record keeps
+JAX's fields per device:
 
 * ``argument_bytes``: the sum of every argument leaf's SHARD bytes under the
   param, opt, batch and cache shardings (``sharding_rules``), which is what
   JAX's ``memory_analysis`` reports for a partitioned step;
-* ``flops_per_device`` and ``bytes_per_device``: the counted step divided by
-  the chips (an even split; the partitioner's replicated work is not seen);
+* ``flops_per_device`` and ``bytes_per_device``: those of the local program
+  one device runs (``LocalCounter``: the shards' ops, replicated work
+  included), which is what ``hlo_cost`` reads off the partitioned module;
 * ``fits_hbm_80g``: the per-device arguments against 80 GB;
-* the collective bytes and term: null.  XLA's partitioner chooses the
-  reference's collectives and JAX parses them from HLO text; an eager step on
-  ``meta`` has none to count, so the roofline leaves the term out rather than
-  count it as 0.
+* ``collective_bytes_per_device`` and ``collective_breakdown``: the operand
+  bytes of the collectives the step issues, by kind, count and mesh axis
+  (``launch.comm_cost``), priced by the roofline at each axis's link rate.
+
+A decode cell's stacked cache is relaid once at the step's start
+(``context.unsplit_repeats``), and that move is counted with the step.
+The process group is destroyed when the cell ends, as a process has one;
+``--all`` runs each cell in a process of its own.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-3b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch whisper-large-v3 --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch kimi-k2-1t-a32b --shape train_4k --mesh multi
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-405b --shape train_4k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --summarize
 ``--all`` runs each cell in a fresh subprocess and skips cells whose record
@@ -56,6 +66,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -63,9 +74,11 @@ import traceback
 from typing import Any, Dict, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from ..models.config import SHAPES, ShapeConfig
 
@@ -101,6 +114,71 @@ class StepCounter(TorchDispatchMode):
         return out
 
 
+class LocalCounter(TorchDispatchMode):
+    """The counts of one device's program of a partitioned step: an op on
+    ``DTensor``s passes to DTensor, whose local ops on this rank's shards
+    reach the counter (FLOPs by ``FlopCounterMode``'s formulas, kernel ops
+    by theirs, bytes as ``StepCounter`` counts them); DTensor's own shape
+    propagation runs on fake tensors and is not counted; each functional
+    collective is booked by ``comm_cost`` and moves no HBM bytes here."""
+
+    def __init__(self, comm):
+        super().__init__()
+        self.comm = comm
+        self.flops = 0
+        self.bytes = 0
+        self.ops = 0
+        self.by_op: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor runs it on the local shards
+        if any(t is not torch.Tensor for t in types):
+            return func(*args, **kwargs)  # DTensor's shape propagation on fake tensors
+        if func is torch.ops.aten._local_scalar_dense.default and args[0].device.type == "meta":
+            t = args[0]
+            return True if t.dtype == torch.bool else (1.0 if t.is_floating_point() else 1)
+        packet = func.overloadpacket
+        if packet not in flop_registry and not self.comm.record(func, args):
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        elif packet not in flop_registry:  # a collective
+            return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor) for t in tree_leaves(out)):
+            return out  # a factory op of DTensor's propagation
+        if packet in flop_registry:
+            n = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops += n
+            self.by_op[str(packet)] = self.by_op.get(str(packet), 0) + n
+        if not func.is_view and packet.__name__ not in _NO_TRAFFIC and func.namespace not in (
+                "_c10d_functional", "_c10d_functional_autograd", "_dtensor"):
+            self.ops += 1
+            self.bytes += sum(t.numel() * t.element_size()
+                              for t in tree_leaves((args, kwargs, out))
+                              if isinstance(t, torch.Tensor))
+        return out
+
+
+def count_partitioned(fn, mesh) -> Dict[str, Any]:
+    """Runs ``fn()`` (a step on ``meta`` ``DTensor``s over ``mesh``) under
+    ``LocalCounter`` and ``comm_cost``: {"flops", "bytes", "ops",
+    "flops_by_op", "collectives", "seconds", "out"} of one device."""
+    from .comm_cost import CommCounter, alltoall_as_alltoall
+
+    comm = CommCounter(mesh)
+    t0 = time.perf_counter()
+    counter = LocalCounter(comm)
+    with alltoall_as_alltoall(comm), counter:
+        out = fn()
+    return {"flops": counter.flops, "bytes": counter.bytes, "ops": counter.ops,
+            "flops_by_op": counter.by_op, "collectives": comm.detail(),
+            "seconds": time.perf_counter() - t0, "out": out}
+
+
 def count_step(fn) -> Dict[str, Any]:
     """Runs ``fn()`` on ``meta`` under ``FlopCounterMode`` and ``StepCounter``:
     {"flops", "bytes", "ops", "flops_by_op", "seconds", "out"}."""
@@ -113,12 +191,15 @@ def count_step(fn) -> Dict[str, Any]:
 
 
 def make_mesh(mesh_name: str):
-    """The ``AbstractMesh`` of a ``MESHES`` name."""
+    """The ``AbstractMesh`` of a ``MESHES`` name, or of "DxM" (a (data=D,
+    model=M) mesh, as the tests' small meshes)."""
     from ..dist.context import AbstractMesh
     from .mesh import make_production_mesh
 
+    if "x" in mesh_name:
+        return AbstractMesh(tuple(int(n) for n in mesh_name.split("x")), ("data", "model"))
     if mesh_name not in MESHES:
-        raise ValueError(f"unknown mesh {mesh_name!r}; one of {sorted(MESHES)}")
+        raise ValueError(f"unknown mesh {mesh_name!r}; one of {sorted(MESHES)} or DxM")
     if mesh_name == "one":
         return AbstractMesh((1, 1), ("data", "model"))
     return make_production_mesh(multi_pod=mesh_name == "multi")
@@ -132,17 +213,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
     """The record of one cell.  ``shape`` is a name of ``SHAPES`` or a
     ``ShapeConfig`` (any global batch and length); ``reduced`` takes the
     config's ``scaled_down()``."""
-    import dataclasses
-
     from ..configs import cell_supported, get_config
-    from ..dist import sharding_rules as SR
-    from ..dist.context import use_plan
-    from ..models import build_model
-    from ..serve.engine import make_serve_step
-    from ..train import AdamWConfig, make_train_step
-    from . import specs as S
-    from .mesh import make_plan
-    from .roofline import build_report
 
     mesh = make_mesh(mesh_name)
     cfg = get_config(arch)
@@ -167,7 +238,52 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
         record.update(status="SKIP", reason=reason)
         return record
 
-    chips = MESHES[mesh_name]
+    chips = mesh.size
+    if chips == 1:
+        return _count_cell(record, mesh, cfg, sh, chips, microbatches=microbatches,
+                           seq_shard=seq_shard, moe_pin=moe_pin, moe_expert_axis=moe_expert_axis)
+    import torch.distributed as dist
+
+    from .mesh import fake_device_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("the partitioned dry run makes its own process group; destroy this "
+                           "process's group first")
+    try:
+        return _count_cell(record, fake_device_mesh(mesh), cfg, sh, chips,
+                           microbatches=microbatches, seq_shard=seq_shard, moe_pin=moe_pin,
+                           moe_expert_axis=moe_expert_axis)
+    finally:
+        dist.destroy_process_group()
+
+
+def _local_nbytes(tree: Any) -> int:
+    """Bytes of this device's shards of the tensor leaves of ``tree``."""
+    from torch.distributed.tensor import DTensor
+
+    return sum((t.to_local() if isinstance(t, DTensor) else t).numel() * t.element_size()
+               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def _count_cell(record: Dict[str, Any], mesh: Any, cfg: Any, sh: ShapeConfig, chips: int, *,
+                microbatches: int, seq_shard: bool, moe_pin: str,
+                moe_expert_axis: str) -> Dict[str, Any]:
+    """Builds the cell's step on ``meta`` and counts it: on one chip the
+    whole step; on a mesh of more (``mesh`` a fake ``DeviceMesh``) its
+    arguments are placed as ``meta`` ``DTensor``s by the shardings and the
+    counts are one device's (``count_partitioned``)."""
+    import dataclasses
+
+    from ..dist import sharding_rules as SR
+    from ..dist.context import mesh_axis_sizes, use_plan
+    from ..dist.placement import place_tree
+    from ..models import build_model
+    from ..serve.engine import make_serve_step
+    from ..train import AdamWConfig, make_train_step
+    from . import specs as S
+    from .mesh import make_plan
+    from .roofline import build_report
+
     plan = dataclasses.replace(
         make_plan(mesh, fsdp_over_pod=cfg.fsdp_over_pod, seq_shard=seq_shard),
         moe_pin=moe_pin, moe_expert_axis=moe_expert_axis)
@@ -175,6 +291,10 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
     model = build_model(cfg)
     params = S.params_shape(model)
     p_shard = SR.make_param_shardings(mesh, params, cfg, plan)
+    if chips == 1:
+        count, place = count_step, (lambda tree, shardings: tree)
+    else:
+        count, place = (lambda fn: count_partitioned(fn, mesh)), place_tree
     with use_plan(plan, mesh):
         if sh.kind == "train":
             oc = AdamWConfig(state_dtype=cfg.opt_state_dtype)
@@ -183,18 +303,23 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
             shards: tuple = ({"params": p_shard,
                               "opt": SR.make_opt_shardings(mesh, state["opt"], cfg, plan)},
                              SR.batch_sharding(mesh, plan, batch_in))
-            step = make_train_step(model, oc, microbatches=microbatches)
             args: tuple = (state, batch_in)
-            counted = count_step(lambda: step(state, batch_in))
             alias = SR.sharded_nbytes(state, shards[0])  # updated in place
+            run_state = {"params": place(params, p_shard), "opt": dict(state["opt"])}
+            for k in ("m", "v"):
+                run_state["opt"][k] = place(state["opt"][k], shards[0]["opt"][k])
+            run_batch = place(batch_in, shards[1])
+            step = make_train_step(model, oc, microbatches=microbatches)
+            counted = count(lambda: step(run_state, run_batch))
         elif sh.kind == "prefill":
             batch_in = S.prefill_input_specs(cfg, sh)
             shards = (p_shard, SR.batch_sharding(mesh, plan, batch_in))
             args = (params, batch_in)
-            with torch.no_grad():
-                counted = count_step(lambda: model.forward(params, batch_in,
-                                                           last_token_only=True))
             alias = 0
+            run_params, run_batch = place(params, p_shard), place(batch_in, shards[1])
+            with torch.no_grad():
+                counted = count(lambda: model.forward(run_params, run_batch,
+                                                      last_token_only=True))
         else:  # decode: one new token over a cache filled to its last row
             tok, cache = S.decode_input_specs(model, cfg, sh)
             cache["pos"] = sh.seq_len - 1
@@ -202,30 +327,49 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
                       SR.batch_sharding(mesh, plan, tok)["tokens"])
             serve = model.decode_step if cfg.family == "encdec" else make_serve_step(model)
             args = (params, cache, tok["tokens"])
-            with torch.no_grad():
-                counted = count_step(lambda: serve(params, cache, tok["tokens"]))
             alias = SR.sharded_nbytes(cache, shards[1])  # updated in place
+            run_params, run_cache = place(params, p_shard), place(cache, shards[1])
+            run_tok = place({"t": tok["tokens"]}, {"t": shards[2]})["t"]
+            with torch.no_grad():
+                counted = count(lambda: serve(run_params, run_cache, run_tok))
+    out_bytes = S.nbytes(counted["out"]) if chips == 1 else _local_nbytes(counted["out"])
     mem = {"argument_bytes": SR.sharded_nbytes(list(args), list(shards)),
-           "output_bytes": S.nbytes(counted["out"]) // chips,
-           "temp_bytes": None, "alias_bytes": alias}
+           "output_bytes": out_bytes, "temp_bytes": None, "alias_bytes": alias}
     mem["per_device_total"] = mem["argument_bytes"]
     note = ("bytes: operand and result bytes of every non-view op, unfused (an upper "
             "estimate); temp_bytes: a meta run gives no temporaries, so per_device_total is "
             "the arguments alone")
     if chips > 1:
-        note += ("; per device: argument bytes are shard bytes under the sharding rules, "
-                 "FLOPs, bytes and outputs the counted step over the chips (an even split); "
-                 "collective bytes: null, XLA's partitioner chooses the reference's "
-                 "collectives and an eager step on meta has none to count, so the roofline "
-                 "leaves that term out")
-    cost = {"flops": counted["flops"] / chips, "bytes": counted["bytes"] / chips,
-            "collective_bytes": 0.0 if chips == 1 else None}
-    rep = build_report(arch, sh.name, mesh_name, chips, cost, mem, cfg, sh, sh.kind,
-                       note=note)
+        note += ("; per device: the step partitioned on meta DTensors over a fake process "
+                 "group of the mesh's size, seen from rank 0: argument bytes are shard bytes "
+                 "under the sharding rules; FLOPs, bytes and outputs are this device's local "
+                 "program (replicated work included); collective bytes are the operand bytes "
+                 "of the collectives it issues (launch/comm_cost.py)")
+        cost = {"flops": counted["flops"], "bytes": counted["bytes"],
+                "collective_bytes": counted["collectives"]["total"],
+                "collectives": counted["collectives"]}
+    else:
+        cost = {"flops": counted["flops"], "bytes": counted["bytes"], "collective_bytes": 0.0}
+    rep = build_report(record["arch"], sh.name, record["mesh"], chips, cost, mem, cfg, sh,
+                       sh.kind, note=note, mesh_sizes=mesh_axis_sizes(mesh))
     record.update(status="OK", trace_s=round(counted["seconds"], 3), ops=counted["ops"],
                   flops_by_op=counted["flops_by_op"], roofline=rep.to_json(),
                   fits_hbm_80g=bool(mem["per_device_total"] < HBM_BYTES))
     return record
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident memory in GB: ``VmHWM`` (Linux; reset by
+    exec, where ``ru_maxrss`` keeps the parent's peak across fork and exec),
+    else ``ru_maxrss``."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 1e6  # kB
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
 def cell_path(out_dir: str, arch: str, shape: str, mesh: str) -> str:
@@ -253,6 +397,8 @@ def main(argv=None) -> None:
     ap.add_argument("--remat", default="", choices=["", "none", "block"],
                     help="override cfg.remat")
     ap.add_argument("--tag", default="", help="variant tag, a prefix of the record's name")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the config's scaled_down() (give it a --tag: the record's name)")
     args = ap.parse_args(argv)
     out_dir = os.path.abspath(args.out)
     os.makedirs(out_dir, exist_ok=True)
@@ -283,8 +429,8 @@ def main(argv=None) -> None:
                         value = getattr(args, name)
                         if value != default:
                             cmd += ["--" + name.replace("_", "-"), str(value)]
-                    if args.seq_shard:
-                        cmd.append("--seq-shard")
+                    cmd += ["--seq-shard"] if args.seq_shard else []
+                    cmd += ["--reduced"] if args.reduced else []
                     rc = subprocess.run(cmd, env={**os.environ, "PYTHONPATH": _pythonpath()},
                                         timeout=3600).returncode
                     ok, failed = (ok + 1, failed) if rc == 0 else (ok, failed + 1)
@@ -297,10 +443,12 @@ def main(argv=None) -> None:
         record = run_cell(args.arch, args.shape, meshes[0], microbatches=args.microbatches,
                           param_dtype=args.param_dtype, moe_groups=args.moe_groups,
                           remat=args.remat, seq_shard=args.seq_shard, moe_pin=args.moe_pin,
-                          moe_expert_axis=args.moe_expert_axis, tag=args.tag)
+                          moe_expert_axis=args.moe_expert_axis, reduced=args.reduced,
+                          tag=args.tag)
     except Exception as e:  # the record says why; the exit code says it failed
         record.update(status="FAIL", error=repr(e), traceback=traceback.format_exc())
         print(record["traceback"], file=sys.stderr)
+    record["host_peak_rss_gb"] = peak_rss_gb()
     path = cell_path(out_dir, f"{prefix}{args.arch}", record.get("shape") or args.shape,
                      meshes[0])
     with open(path, "w") as f:
@@ -324,8 +472,7 @@ def summarize(out_dir: str) -> None:
     for r in load(out_dir):
         rl = r.get("roofline") or {}
         mem_gb = ((rl.get("memory_per_device_bytes") or {}).get("per_device_total") or 0) / 1e9
-        coll = rl.get("collective_s", 0)
-        coll = f"{coll:10.4f}" if coll is not None else f"{'n/a':>10s}"
+        coll = f"{rl.get('collective_s', 0):10.4f}"
         print(f"{r.get('mesh', ''):6s} {r.get('arch', ''):22s} {r.get('shape', ''):12s} "
               f"{r.get('status', ''):6s} "
               f"{rl.get('compute_s', 0):10.4f} {rl.get('memory_s', 0):10.4f} "

@@ -9,12 +9,17 @@ replicated per pod by default; FSDP may extend over ("pod", "data") for the
 One card cannot hold 256 ranks, so ``make_production_mesh`` returns an
 ``AbstractMesh``: the axis names and sizes the sharding rules read, with no
 devices (the twin of ``jax.sharding.AbstractMesh``).  A ``DeviceMesh`` is
-built only where tensors are placed (``make_test_mesh``): over gloo ranks on
-the CPU, or over NCCL ranks on the card.
+built where tensors are placed (``make_test_mesh``): over gloo ranks on the
+CPU, or over NCCL ranks on the card.  The dry run partitions its step on a
+``fake_device_mesh``: the production mesh's names and sizes over a "fake"
+process group (one process, seen from rank 0, whose collectives move
+nothing), so ``meta`` ``DTensor``s run the step one device runs.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
+
+import torch
 
 from ..dist.context import AbstractMesh, ShardingPlan, mesh_axis_sizes
 
@@ -50,3 +55,21 @@ def make_test_mesh(data: int = 1, model: int = 1, device_type: str = "cpu") -> O
         return None
     ranks = torch.arange(n).reshape(data, model)
     return DeviceMesh(device_type, ranks, mesh_dim_names=("data", "model"))
+
+
+def fake_device_mesh(mesh: AbstractMesh, device_type: str = "cpu") -> Any:
+    """A ``DeviceMesh`` with ``mesh``'s axis names and sizes over a "fake"
+    process group of ``mesh.size`` ranks, seen from rank 0.  The group is
+    the process's default group: the caller destroys it
+    (``torch.distributed.destroy_process_group()``) before it makes
+    another."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    # the one import of torch's private fake process group (it ships with
+    # torch and registers the "fake" backend when imported)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    sizes = mesh_axis_sizes(mesh)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    ranks = torch.arange(mesh.size).reshape(tuple(sizes.values()))
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(sizes))

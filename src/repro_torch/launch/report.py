@@ -10,7 +10,7 @@ import json
 import os
 from typing import Any, Dict, List
 
-from .roofline import CARD, HBM_BW, PEAK
+from .roofline import CARD, HBM_BW, IB_BW, NODE_CARDS, NVLINK_BW, PEAK
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
                        "dryrun_torch")
@@ -52,9 +52,9 @@ def dryrun_table(rows: List[Dict[str, Any]], mesh: str) -> str:
 
 def roofline_table(rows: List[Dict[str, Any]], mesh: str = "one") -> str:
     out = [
-        "| arch | shape | FLOPs/step | compute (s) | memory (s) | dominant | MODEL/counted flops "
-        "| roofline frac | next lever |",
-        "|---|---|---|---|---|---|---|---|---|",
+        "| arch | shape | FLOPs/step | compute (s) | memory (s) | collective (s) | dominant "
+        "| MODEL/counted flops | roofline frac | next lever |",
+        "|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         if r.get("mesh") != mesh or r["status"] != "OK":
@@ -62,7 +62,8 @@ def roofline_table(rows: List[Dict[str, Any]], mesh: str = "one") -> str:
         rl = r["roofline"]
         out.append(
             f"| {r['arch']} | {r['shape']} | {rl['flops_per_device']:.4g} | "
-            f"{rl['compute_s']:.4g} | {rl['memory_s']:.4g} | **{rl['dominant']}** | "
+            f"{rl['compute_s']:.4g} | {rl['memory_s']:.4g} | {rl['collective_s']:.4g} | "
+            f"**{rl['dominant']}** | "
             f"{rl['useful_ratio']:.2f} | {rl['roofline_fraction']:.3f} | {_lever(rl)} |")
     return "\n".join(out)
 
@@ -72,6 +73,11 @@ def _lever(rl: Dict[str, Any]) -> str:
         if rl["useful_ratio"] < 0.6:
             return "cut remat recompute / padding waste (useful ratio low)"
         return "fuse the elementwise work (the byte count is unfused)"
+    if rl["dominant"] == "collective":
+        cb = rl.get("collective_breakdown") or {}
+        top = max(((k, v) for k, v in cb.items() if k not in ("total", "counts")
+                   and isinstance(v, (int, float))), key=lambda kv: kv[1], default=("?", 0))[0]
+        return f"reduce {top} volume (reshard or overlap)"
     return "compute-bound: tune the products and kernels toward the tensor-core peak"
 
 
@@ -89,10 +95,12 @@ def main() -> None:
         print(dryrun_table(rows, mesh))
         print()
     print(f"## Roofline ({CARD})\n")
-    print(f"compute = FLOPs / {PEAK:.4g}; memory = bytes / {HBM_BW:.4g} (per device); no "
-          "collective on one card, and on the production meshes the collective bytes are not "
-          "counted (the term is left out). FLOPs from FlopCounterMode (kernel ops by their "
-          "formulas); bytes are the unfused operand and result bytes of every op.\n")
+    print(f"compute = FLOPs / {PEAK:.4g}; memory = bytes / {HBM_BW:.4g}; collective = bytes "
+          f"over each mesh axis / its link ({NVLINK_BW:.4g} B/s NVLink in a node of "
+          f"{NODE_CARDS}, {IB_BW:.4g} B/s InfiniBand between nodes); all per device. FLOPs "
+          "and bytes of one device's program (kernel ops by their formulas; bytes are the "
+          "unfused operand and result bytes of every op); collective bytes from "
+          "launch/comm_cost.py.\n")
     for mesh in sorted({r.get("mesh") for r in rows}):
         print(f"### Mesh `{mesh}`\n")
         print(roofline_table(rows, mesh))

@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.context import shard_activations
+from ..dist.context import CACHE_HEADS, like_mesh, shard_activations, unsplit_repeats
 from . import layers as L
 from .config import ModelConfig
 from .lm import _index, cast_for_compute, init_generator
@@ -122,8 +122,8 @@ class EncDecModel:
         cfg = self.cfg
         B, S, d = enc_embeds.shape
         dt = L.cdt(cfg)
-        x = shard_activations(enc_embeds.to(dt) + _sinusoid(S, d, enc_embeds.device).to(dt)[None],
-                              "bsd")
+        pe = like_mesh(_sinusoid(S, d, enc_embeds.device).to(dt)[None], enc_embeds)
+        x = shard_activations(enc_embeds.to(dt) + pe, "bsd")
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x = self._run(self._enc_layer, params["enc"], cfg.encoder_layers, x, positions)
         return L.rms_norm(x, params["enc_norm"])
@@ -147,8 +147,9 @@ class EncDecModel:
         enc_out = self.encode(params, batch["enc_embeds"])
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = params["embed"].to(L.cdt(cfg))[tokens.long()]
-        x = shard_activations(x + _sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None], "bsd")
+        x = L.embed_lookup(params["embed"], tokens, L.cdt(cfg))
+        pe = like_mesh(_sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None], x)
+        x = shard_activations(x + pe, "bsd")
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x = self._run(self._dec_layer, params["dec"], cfg.num_layers, x, enc_out, positions)
         x = L.rms_norm(x, params["final_norm"])
@@ -179,8 +180,8 @@ class EncDecModel:
         S = enc_out.shape[1]
         xattn = params["dec"]["xattn"]
         # contiguous: each layer's slab goes to the decode kernel as it is
-        xk, xv = (torch.einsum("bsd,ldk->lbsk", enc_out, xattn[w].to(dt))
-                  .reshape(Ld, batch_size, S, Hkv, D).contiguous() for w in ("wk", "wv"))
+        xk, xv = (L.split_heads(torch.einsum("bsd,ldk->lbsk", enc_out, xattn[w].to(dt)), Hkv)
+                  .contiguous() for w in ("wk", "wv"))
         shape = (Ld, batch_size, max_seq, Hkv, D)
         return {"pos": 0, "k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev), "xk": xk, "xv": xv}
@@ -193,8 +194,10 @@ class EncDecModel:
         the JAX model returns a new cache instead."""
         cfg = self.cfg
         pos = cache["pos"]
-        x = params["embed"].to(L.cdt(cfg))[tokens.long()][:, None, :]
-        x = x + _sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)[None, None, :]
+        for name in ("k", "v", "xk", "xv"):  # on a mesh: each layer's rows must be a view
+            cache[name] = unsplit_repeats(cache[name], CACHE_HEADS[name])
+        x = L.embed_lookup(params["embed"], tokens, L.cdt(cfg))[:, None, :]
+        x = x + like_mesh(_sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)[None, None, :], x)
         for i in range(cfg.num_layers):
             p = _index(params["dec"], i)
             c = {"k": cache["k"][i], "v": cache["v"][i]}

@@ -18,6 +18,11 @@ Conventions:
   * The JAX ``moe_ffn`` and ``mamba2_mixer`` call no Pallas kernel; the
     kernels compute the same functions (``tests/test_torch_models.py``
     holds both routes against JAX).
+  * On a mesh of more than one device the layers run on ``DTensor``s: what
+    they make themselves enters the mesh through ``like_mesh``, the kernel
+    wrappers take their inputs local (``kernels/_boundary.py``), and the
+    embedding lookup, the MoE routing, scatter and gather and the cache
+    writes run on each rank's shard.
   * Gradients: under autograd on a CUDA tensor, ``flash_attention``,
     ``ssd_scan`` and ``moe_router`` run their forward and backward kernels
     (``FlashAttention``, ``SSDScan``, ``MoERouter``), so the dense, MoE, SSM
@@ -33,8 +38,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from ..dist.context import shard_activations
+from ..dist.context import keep_grad_layout, like_mesh, shard_activations, unshard_dim
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
 from ..kernels.moe_router import moe_router
@@ -64,6 +71,92 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, in place (a cache row, a decode state).  On a mesh
+    ``src`` is first laid out as ``dst`` and each rank writes its own shard:
+    an in-place op cannot move ``dst``."""
+    if isinstance(dst, DTensor):
+        src = like_mesh(src, dst).redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# Embedding lookup
+# ---------------------------------------------------------------------------
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows ``tokens`` (any shape, integer) of ``table`` (V, d) cast to
+    ``dtype``: ``table[tokens]``.  On a mesh whose dim splits the vocabulary
+    it is Megatron's vocab-parallel lookup (``_vocab_parallel_lookup``)."""
+    if isinstance(table, DTensor):
+        vdims = [i for i, p in enumerate(table.placements)
+                 if isinstance(p, Shard) and p.dim == 0 and table.device_mesh.size(i) > 1]
+        if len(vdims) == 1:
+            return _vocab_parallel_lookup(table, tokens, dtype, vdims[0])
+    return table.to(dtype)[like_mesh(tokens, table).long()]
+
+
+def _vocab_parallel_lookup(table: DTensor, tokens: torch.Tensor, dtype: torch.dtype,
+                           vdim: int) -> DTensor:
+    """Every rank looks up all the tokens in its own rows and columns of the
+    table (rows outside its vocabulary range read zero): a sum over the
+    vocabulary's mesh dim, split along d as the table is.  It is reduced
+    (an all-reduce) and its split moved from d to the tokens' leading dim
+    (an all-to-all), the layout of ``tokens``."""
+    mesh = table.device_mesh
+    tokens = like_mesh(tokens, table)
+    tok_layout = tokens.placements
+    whole = [Replicate()] * mesh.ndim
+    v_local = table.shape[0] // mesh.size(vdim)
+    lo = mesh.get_local_rank(vdim) * v_local
+    d_dim = tokens.ndim  # the model dim of the result
+    out = [Partial() if i == vdim else Shard(d_dim) if isinstance(p, Shard) and p.dim == 1
+           else Replicate() for i, p in enumerate(table.placements)]
+
+    def lookup(tab, tok):
+        idx = tok.long() - lo
+        inside = (idx >= 0) & (idx < v_local)
+        rows = tab.to(dtype)[idx.clamp(0, v_local - 1)]
+        return torch.where(inside[..., None], rows, rows.new_zeros(()))
+
+    rows = local_map(lookup, out_placements=(out,), in_placements=(table.placements, whole),
+                     device_mesh=mesh, redistribute_inputs=True)(table, _all_tokens(tokens))
+    return rows.redistribute(mesh, [p if isinstance(p, Shard) else Replicate()
+                                    for p in tok_layout])
+
+
+def _all_tokens(tokens: DTensor) -> DTensor:
+    """``tokens`` whole on every rank.  Split over one data axis as wide as
+    the model axis (a square mesh), they are gathered as XLA's partitioner
+    gathers the reference's: a collective permute to the transposed device
+    ((data d, model m) sends its rows to (m, d)), then an all-gather over
+    the model axis.  Otherwise an all-gather over the axes that split
+    them."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = tokens.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    names = list(mesh.mesh_dim_names or ())
+    split = [i for i, p in enumerate(tokens.placements) if isinstance(p, Shard)]
+    if (mesh.ndim != 2 or names != ["data", "model"] or split != [0]
+            or tokens.placements[0].dim != 0 or mesh.size(0) != mesh.size(1)
+            or mesh.size() != dist.get_world_size()):
+        return tokens.redistribute(mesh, whole)
+    ranks = mesh.mesh.tolist()
+    src_dst = [0] * mesh.size()
+    for d, row in enumerate(ranks):
+        for m, r in enumerate(row):
+            src_dst[r] = ranks[m][d]
+    local = tokens.to_local()
+    # permute_tensor splits by element counts: it moves a flat tensor
+    moved = funcol.permute_tensor(local.reshape(-1), src_dst, dist.group.WORLD)
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    rows = gather(moved.reshape(local.shape), 0, (mesh, 1))
+    return DTensor.from_local(rows, mesh, whole, run_check=False)
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings (half-split rotation)
 # ---------------------------------------------------------------------------
@@ -79,7 +172,8 @@ def apply_rope(
     mrope: bool = False,
 ) -> torch.Tensor:
     D = x.shape[-1]
-    freqs = rope_freqs(D, theta, x.device)  # (D/2,)
+    positions = like_mesh(positions, x)  # on a mesh: positions and freqs enter it
+    freqs = like_mesh(rope_freqs(D, theta, x.device), positions)  # (D/2,)
     if mrope and positions.dim() == 3:
         # M-RoPE (qwen2-vl): the rotary channels split into 3 sections,
         # D//2//3, D//2//3 and the rest, driven by the (temporal, height,
@@ -150,6 +244,18 @@ def _attn_chunked(
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(..., heads x D) as (..., heads, D).  On a mesh that splits the last
+    dim mid-head (more ways than ``heads`` divides: llama3-405b's 8 kv heads
+    on a 16-wide model axis) it is gathered first."""
+    if isinstance(t, DTensor):
+        n = math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                      if isinstance(p, Shard) and p.dim % t.ndim == t.ndim - 1)
+        if heads % n:
+            t = unshard_dim(t, -1)
+    return keep_grad_layout(t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads))
+
+
 def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
          src: Optional[torch.Tensor] = None):
     """q from ``x``; k and v from ``src`` (the cross-attention source), or
@@ -157,9 +263,9 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
     src = x if src is None else src
     B, S, _ = x.shape
     Sk = src.shape[1]
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (src @ params["wk"].to(x.dtype)).reshape(B, Sk, cfg.num_kv_heads, cfg.head_dim)
-    v = (src @ params["wv"].to(x.dtype)).reshape(B, Sk, cfg.num_kv_heads, cfg.head_dim)
+    q = split_heads(x @ params["wq"].to(x.dtype), cfg.num_heads)
+    k = split_heads(src @ params["wk"].to(x.dtype), cfg.num_kv_heads)
+    v = split_heads(src @ params["wv"].to(x.dtype), cfg.num_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -194,7 +300,7 @@ def attention(
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out = flash_attention(q, k, v, causal=causal, window=cfg.attn_window,
                               softcap=cfg.attn_logit_softcap)
-    return out.reshape(B, S, cfg.q_dim) @ params["wo"].to(x.dtype)
+    return keep_grad_layout(out.reshape(B, S, cfg.q_dim)) @ params["wo"].to(x.dtype)
 
 
 def _decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -233,8 +339,8 @@ def attention_decode(
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    assign(k_cache[:, pos], k[:, 0].to(k_cache.dtype))
+    assign(v_cache[:, pos], v[:, 0].to(v_cache.dtype))
 
     if x_t.device.type == "cpu" and cfg.attn_impl == "xla":
         kv_pos = torch.arange(k_cache.shape[1], device=x_t.device)
@@ -243,7 +349,7 @@ def attention_decode(
             mask &= kv_pos > pos - cfg.attn_window
         out = _decode_plain(q[:, 0], k_cache, v_cache, mask).to(x_t.dtype)
     else:
-        lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x_t.device)
+        lengths = like_mesh(torch.full((B,), pos + 1, dtype=torch.int32, device=x_t.device), q)
         out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths,
                                window=cfg.attn_window)
     out = out.reshape(B, 1, cfg.q_dim) @ params["wo"].to(x_t.dtype)
@@ -263,11 +369,12 @@ def cross_attention_decode(
     ``lengths = Senc`` for every sequence; on the CPU ("xla") JAX's einsums,
     q scaled in f32 and rounded to the cache's dtype, an f32 softmax."""
     B = x_t.shape[0]
-    q = (x_t @ params["wq"].to(x_t.dtype)).reshape(B, cfg.num_heads, cfg.head_dim)
+    q = split_heads(x_t @ params["wq"].to(x_t.dtype), cfg.num_heads)[:, 0]
     if x_t.device.type == "cpu" and cfg.attn_impl == "xla":
         out = _decode_plain(q, xk, xv).to(x_t.dtype)
     else:
-        lengths = torch.full((B,), xk.shape[1], dtype=torch.int32, device=x_t.device)
+        lengths = like_mesh(torch.full((B,), xk.shape[1], dtype=torch.int32, device=x_t.device),
+                            q)
         out = decode_attention(q.contiguous(), xk, xv, lengths)
     return out.reshape(B, 1, cfg.q_dim) @ params["wo"].to(x_t.dtype)
 
@@ -276,11 +383,22 @@ def cross_attention_decode(
 # FFN
 # ---------------------------------------------------------------------------
 def mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The dense FFN.  On a mesh its hidden products are pinned to
+    Megatron's layout, batch over the data axes and the hidden width over
+    the model axis ("...h"): the layout the rules give w1, w3 and w2, which
+    keeps DTensor from splitting the tokens over the model axis (strided
+    shards on which its strategy search takes minutes)."""
+    roles = "bsh"[3 - x.ndim:] if x.ndim <= 3 else None
+
+    def up(w):
+        y = x @ params[w].to(x.dtype)
+        return shard_activations(y, roles) if roles else y
+
     if act == "swiglu":
-        h = F.silu(x @ params["w1"].to(x.dtype)) * (x @ params["w3"].to(x.dtype))
+        h = F.silu(up("w1")) * up("w3")
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ params["w1"].to(x.dtype), approximate="tanh")
+        h = F.gelu(up("w1"), approximate="tanh")
     return h @ params["w2"].to(x.dtype)
 
 
@@ -322,17 +440,10 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     xg = shard_activations(x.reshape(G, t, d), "gtd")
     logits = (xg @ params["router"].to(x.dtype)).float()  # (G, t, E)
-    if x.device.type == "cpu" and cfg.attn_impl == "xla":
-        expert_ids, gate, pos = _route_top_k(logits, k)
-    else:
-        routed = [moe_router(logits[g].contiguous(), k) for g in range(G)]
-        expert_ids, gate, pos = (torch.stack(r) for r in zip(*routed))
-    expert_ids = expert_ids.long()
-    gate = gate.to(x.dtype)
+    xla = x.device.type == "cpu" and cfg.attn_impl == "xla"
+    expert_ids, gate, pos = _per_group(_route, (logits,), 3, k=k, xla=xla)
     slot = dispatch_slots(pos, C)  # capacity-dropped choices fall back to the residual only
-    gid = torch.arange(G, device=x.device)[:, None, None].expand(G, t, k)
-    buf = torch.zeros((G, E, C + 1, d), dtype=x.dtype, device=x.device)
-    buf[gid, expert_ids, slot] = xg[:, :, None, :].expand(G, t, k, d)
+    buf = _per_group(_dispatch, (xg, expert_ids, slot), 1, E=E, C=C)  # (G, E, C + 1, d)
     buf = shard_activations(buf[:, :, :C], "gecd")
 
     w1 = params["w1"].to(x.dtype)
@@ -343,11 +454,62 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig,
         h = F.gelu(torch.einsum("gecd,edf->gecf", buf, w1), approximate="tanh")
     out_buf = shard_activations(torch.einsum("gecf,efd->gecd", h, params["w2"].to(x.dtype)),
                                 "gecd")
-    out_buf = F.pad(out_buf, (0, 0, 0, 1))  # the spare slot C reads zero
-
-    gathered = out_buf[gid, expert_ids, slot]  # (G, t, k, d)
-    out = (gathered * gate[..., None]).sum(dim=2)
+    out = _per_group(_combine, (out_buf, expert_ids, slot, gate), 1)
     return out.reshape(T, d)
+
+
+def _route(logits: torch.Tensor, k: int, xla: bool):
+    """(expert ids long, gates f32, capacity slots) (G, t, k) of each
+    group's (t, E) logits: the ``moe_router`` kernel per group, or the twin
+    of the JAX formulation (``xla``)."""
+    if xla:
+        ids, gate, pos = _route_top_k(logits, k)
+    else:
+        routed = [moe_router(logits[g].contiguous(), k) for g in range(logits.shape[0])]
+        ids, gate, pos = (torch.stack(r) for r in zip(*routed))
+    return ids.long(), gate, pos
+
+
+def _dispatch(xg: torch.Tensor, expert_ids: torch.Tensor, slot: torch.Tensor, E: int,
+              C: int) -> torch.Tensor:
+    """The (G, E, C + 1, d) buffer of each expert's tokens, slot C taking
+    every dropped choice."""
+    G, t, d = xg.shape
+    k = expert_ids.shape[-1]
+    gid = torch.arange(G, device=xg.device)[:, None, None].expand(G, t, k)
+    buf = torch.zeros((G, E, C + 1, d), dtype=xg.dtype, device=xg.device)
+    buf[gid, expert_ids, slot] = xg[:, :, None, :].expand(G, t, k, d)
+    return buf
+
+
+def _combine(out_buf: torch.Tensor, expert_ids: torch.Tensor, slot: torch.Tensor,
+             gate: torch.Tensor) -> torch.Tensor:
+    """Each token's experts' outputs (G, E, C, d) weighted by its gates:
+    (G, t, d); the spare slot C reads zero."""
+    out_buf = F.pad(out_buf, (0, 0, 0, 1))
+    G, t, k = expert_ids.shape
+    gid = torch.arange(G, device=out_buf.device)[:, None, None].expand(G, t, k)
+    gathered = out_buf[gid, expert_ids, slot]  # (G, t, k, d)
+    return (gathered * gate.to(out_buf.dtype)[..., None]).sum(dim=2)
+
+
+def _per_group(fn, args, n_out: int, **kw):
+    """``fn(*args, **kw)``; on a mesh, local to each rank's groups (the
+    routing, scatter and gather of ``moe_ffn`` run on the group shard, their
+    first dim, split over the data axes as the plan pins it; the expert dim
+    whole: what moves between them and the expert products is the layout
+    constraint's redistribution)."""
+    ref = args[0]
+    if not isinstance(ref, DTensor):
+        return fn(*args, **kw)
+    mesh = ref.device_mesh
+    spec = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in ref.placements]
+    ins = [spec if isinstance(a, torch.Tensor) else None for a in args]
+    outs = spec if n_out == 1 else (spec,) * n_out
+    return local_map(lambda *a: fn(*a, **kw), out_placements=outs, in_placements=tuple(ins),
+                     in_grad_placements=tuple(ins), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def dispatch_slots(pos: torch.Tensor, C: int) -> torch.Tensor:
@@ -426,7 +588,8 @@ def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     di = cfg.ssm_d_inner
     Q = min(cfg.ssm_chunk, L)
 
-    zxbcdt = x @ params["in_proj"].to(x.dtype)  # (B, L, 2di + 2GN + H)
+    # (B, L, 2di + 2GN + H); on a mesh its pieces' widths need it whole
+    zxbcdt = unshard_dim(x @ params["in_proj"].to(x.dtype), -1)
     z, xs, Bc, Cc, dt = torch.split(zxbcdt, [di, di, G * N, G * N, H], dim=-1)
     xbc = torch.cat([xs, Bc, Cc], dim=-1)
     xbc = F.silu(_depthwise_causal_conv(xbc, params["conv_w"], params["conv_b"]))
@@ -458,7 +621,7 @@ def mamba2_decode(
     B = x_t.shape[0]
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     di = cfg.ssm_d_inner
-    zxbcdt = (x_t @ params["in_proj"].to(x_t.dtype))[:, 0]
+    zxbcdt = unshard_dim(x_t @ params["in_proj"].to(x_t.dtype), -1)[:, 0]
     z, xs, Bc, Cc, dt = torch.split(zxbcdt, [di, di, G * N, G * N, H], dim=-1)
     xbc = torch.cat([xs, Bc, Cc], dim=-1)  # (B, Ch)
     full = torch.cat([state["conv"], xbc[:, None, :]], dim=1)  # (B, K, Ch)
@@ -476,8 +639,8 @@ def mamba2_decode(
     y = y.reshape(B, 1, di).to(x_t.dtype)
     y = rms_norm(y * F.silu(z[:, None, :]), params["norm_w"])
     out = y @ params["out_proj"].to(x_t.dtype)
-    state["h"].copy_(h)
-    state["conv"].copy_(full[:, 1:])
+    assign(state["h"], h)
+    assign(state["conv"], full[:, 1:])
     return out, state
 
 

@@ -25,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..dist.context import shard_activations
+from ..dist.context import CACHE_HEADS, shard_activations, unsplit_repeats
 from . import layers as L
 from .config import ModelConfig
 
@@ -254,7 +254,7 @@ class LanguageModel:
         else:
             tokens = batch["tokens"]
             B, S = tokens.shape
-            x = params["embed"].to(L.cdt(cfg))[tokens.long()]
+            x = L.embed_lookup(params["embed"], tokens, L.cdt(cfg))
         x = shard_activations(x, "bsd")
         positions = batch.get("positions")
         if positions is None:
@@ -318,7 +318,11 @@ class LanguageModel:
         stacked cache, which the layers write with ``copy_``."""
         cfg = self.cfg
         pos = cache["pos"]
-        x = params["embed"].to(L.cdt(cfg))[tokens.long()][:, None, :]  # (B,1,d)
+        for gi, g in enumerate(self.groups):
+            if g.repeats > 1:  # on a mesh: each repeat's rows must be a view
+                cache[f"group{gi}"] = [{n: unsplit_repeats(t, CACHE_HEADS.get(n))
+                                        for n, t in c.items()} for c in cache[f"group{gi}"]]
+        x = L.embed_lookup(params["embed"], tokens, L.cdt(cfg))[:, None, :]  # (B,1,d)
         for gi, r, j, spec, p in self._layers(params):
             c = cache[f"group{gi}"][j]
             if self.groups[gi].repeats > 1:

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..bridge import flatten_with_paths, map_with_paths
 
@@ -96,10 +97,42 @@ def _square_norm(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _leaf_squares(leaves: List[Any]) -> List[torch.Tensor]:
+    """The f64 square sums of the leaves, 0-d plain tensors: a plain leaf's
+    own, in leaf order; a ``DTensor``'s local shard's, summed with the
+    others split by the same mesh dims (of more than one device) and then
+    all-reduced once over those dims (a leaf whole on every rank counts
+    once).  On a mesh of one device every sum stays in leaf order."""
+    groups: Dict[Tuple[int, ...], torch.Tensor] = {}
+    out = []
+    mesh = None
+    for x in leaves:
+        if not isinstance(x, DTensor):
+            out.append(_square_norm(x))
+            continue
+        mesh = x.device_mesh
+        x = x.redistribute(mesh, [Replicate() if isinstance(p, Partial) else p
+                                  for p in x.placements])
+        key = tuple(i for i, p in enumerate(x.placements)
+                    if isinstance(p, Shard) and mesh.size(i) > 1)
+        s = _square_norm(x.to_local())
+        if not key:
+            out.append(s)
+        else:
+            groups[key] = s if key not in groups else groups[key] + s
+    for key, s in groups.items():
+        pending = [Partial() if i in key else Replicate() for i in range(mesh.ndim)]
+        out.append(DTensor.from_local(s, mesh, pending, run_check=False)
+                   .redistribute(mesh, [Replicate()] * mesh.ndim).to_local())
+    return out
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares: 0-d f32 on the first leaf's
-    device (the sum in f64, ``_square_norm``)."""
-    squares = [_square_norm(x) for x in _leaves(tree)]
+    device (the sum in f64, ``_square_norm``).  ``DTensor`` leaves add their
+    shards' sums over the mesh (``_leaf_squares``); the result is a plain
+    tensor, the same on every rank."""
+    squares = _leaf_squares(_leaves(tree))
     dev = squares[0].device
     return torch.sqrt(torch.stack([s.to(dev) for s in squares]).sum()).float()
 

@@ -28,6 +28,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from .. import DeviceLike
 from ..bridge import map_with_paths
@@ -37,21 +39,72 @@ from . import optimizer as opt
 PAD_ID = 0  # label id treated as padding (masked out of the loss)
 
 
+def _vocab_dim(logits: Any) -> Optional[int]:
+    """The mesh dim that splits the vocabulary of ``DTensor`` logits over
+    more than one device, or None (a plain tensor, or the vocabulary whole
+    on every rank)."""
+    if not isinstance(logits, DTensor):
+        return None
+    dims = [i for i, p in enumerate(logits.placements) if isinstance(p, Shard)
+            and p.dim % logits.ndim == logits.ndim - 1 and logits.device_mesh.size(i) > 1]
+    return dims[0] if len(dims) == 1 else None
+
+
+def _vocab_parallel(logits: DTensor, labels: Any, vdim: int):
+    """(log-sum-exp, gold logit, max) of logits whose vocabulary mesh dim
+    ``vdim`` splits (Megatron's vocab-parallel loss, what XLA's partitioner
+    emits for the reference: the max and the sum of exps reduced over the
+    vocabulary shards by an all-reduce each); the gold logit is each rank's
+    masked pick of its own vocabulary range, summed over the shards."""
+    mesh = logits.device_mesh
+    # each other mesh dim keeps its split of (B, S); a pending sum there
+    # (a product whose contraction it split) takes the labels' split
+    lab = [Replicate() if i == vdim else p if not isinstance(p, Partial) else
+           labels.placements[i] if isinstance(labels, DTensor) else Replicate()
+           for i, p in enumerate(logits.placements)]
+    logits = logits.redistribute(mesh, [p if i == vdim else lab[i]
+                                        for i, p in enumerate(logits.placements)])
+    m = logits.detach().amax(dim=-1)
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    v_local = logits.shape[-1] // mesh.size(vdim)
+    lo = mesh.get_local_rank(vdim) * v_local
+    out = [Partial() if i == vdim else p for i, p in enumerate(lab)]
+
+    def pick(lg, lb):
+        idx = lb - lo
+        inside = (idx >= 0) & (idx < v_local)
+        got = torch.gather(lg, -1, idx.clamp(0, v_local - 1)[..., None])[..., 0]
+        return torch.where(inside, got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+    gold = local_map(pick, out_placements=(out,), in_placements=(logits.placements, lab),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    return lse, gold, m
+
+
 def cross_entropy(
     logits: torch.Tensor,  # (B, S, V) f32
     labels: torch.Tensor,  # (B, S) integer
     z_loss: float = 1e-4,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token loss with z-loss.  On logits whose vocabulary a mesh
+    dim splits it is vocab-parallel (``_vocab_parallel``); its accuracy
+    counts a token whose gold logit is the row's maximum (argmax up to
+    exact ties)."""
     labels = labels.long()
     mask = (labels != PAD_ID).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    vdim = _vocab_dim(logits)
+    if vdim is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        lse, gold, top = _vocab_parallel(logits, labels, vdim)
     nll = (lse - gold) * mask
     zl = z_loss * lse.square() * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (nll + zl).sum() / denom
     with torch.no_grad():
-        acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+        hit = logits.argmax(-1) == labels if vdim is None else gold >= top
+        acc = (hit * mask).sum() / denom
     return loss, {"loss": nll.sum() / denom, "z_loss": zl.sum() / denom, "accuracy": acc}
 
 
@@ -61,6 +114,20 @@ def make_loss_fn(model: Model) -> Callable:
         return cross_entropy(logits, batch["labels"])
 
     return loss_fn
+
+
+def _unit_dims_whole(t: Any) -> Any:
+    """A ``DTensor`` read as whole (``Replicate``) on every mesh dim of one
+    device: the same local tensor, no copy (``p[r]`` of it is then a view);
+    any other ``t`` as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    want = [Replicate() if mesh.size(i) == 1 else p for i, p in enumerate(t.placements)]
+    if tuple(want) == tuple(t.placements):
+        return t
+    return DTensor.from_local(t.to_local(), mesh, want, run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def _graph_leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -73,14 +140,19 @@ def _graph_params(params: Any, grads: Any, repeats: Dict[str, int]) -> Any:
     """The params tree the model runs on under autograd: per leaf an
     autograd leaf sharing the parameter's storage with ``.grad`` preset to
     the gradient buffer; a stacked leaf becomes a list of per-repeat leaves
-    (the model's ``_index`` takes element r of it)."""
+    (the model's ``_index`` takes element r of it).  A ``DTensor`` whose
+    repeats dim a mesh dim of more than one device splits stays one leaf:
+    ``p[r]`` of it is a gathered copy, not a view, so the model indexes it
+    under autograd."""
 
     def walk(p, g, stacked: bool):
         if isinstance(p, dict):
             return {k: walk(p[k], g[k], stacked) for k in p}
         if isinstance(p, list):
             return [walk(a, b, stacked) for a, b in zip(p, g)]
-        if stacked:
+        p, g = _unit_dims_whole(p), _unit_dims_whole(g)
+        if stacked and not (isinstance(p, DTensor) and any(
+                isinstance(s, Shard) and s.dim == 0 for s in p.placements)):
             return [_graph_leaf(p[r], g[r]) for r in range(p.shape[0])]
         return _graph_leaf(p, g)
 

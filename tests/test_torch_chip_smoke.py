@@ -1361,3 +1361,122 @@ def test_run_service_fails_a_failing_subprocess(outcome):
 
     with pytest.raises(SystemExit):
         chip_smoke.run_service(["python", "-m", "x"], run=run)
+
+
+# ---------------------------------------------------------------------------
+# phase 7(c) and 7(d): the partitioned step
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def gloo_mesh11(tmp_path):
+    """A (1, 1) DeviceMesh over a world of one gloo rank, destroyed after
+    the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", rank=0,
+                            world_size=1)
+    try:
+        yield make_test_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "mamba2-2.7b"])
+def test_dtensor_train_driver_is_bit_equal_on_one_device(arch, gloo_mesh11):
+    """Phase 7(d)'s train driver on the CPU at 2 layers: the state and
+    batches as DTensors on a (1, 1) mesh through the kernel wrappers'
+    boundary give the plain steps' losses and parameters bit for bit."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.bridge import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_plan
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = get_config(arch).scaled_down().replace(num_layers=2, attn_impl="pallas",
+                                                 remat="block")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in chip_smoke.FamilyBatches(cfg, 2, 32, 2, seed=0).session()]
+    plain = init_train_state(model, 0, opt, device="cpu")
+    step = make_train_step(model, opt)
+    want = [float(step(plain, b)[1]["loss"]) for b in batches]
+    state = init_train_state(model, 0, opt, device="cpu")
+    seen = []
+    real = chip_smoke.dtensor_tree
+
+    def spy(tree, shardings):
+        out = real(tree, shardings)
+        seen.extend(isinstance(t, DTensor) for _, t in flatten_with_paths(out))
+        return out
+
+    chip_smoke.dtensor_tree = spy
+    try:
+        got, secs = chip_smoke.dtensor_train(model, opt, state, batches, gloo_mesh11,
+                                             make_plan(gloo_mesh11))
+    finally:
+        chip_smoke.dtensor_tree = real
+    assert seen and all(seen) and len(secs) == 2
+    assert got == want
+    differ, worst = chip_smoke.leaves_bit_equal(state["params"],
+                                                dict(flatten_with_paths(plain["params"])))
+    assert not differ, (differ[:4], worst)
+
+
+def test_dtensor_decode_driver_is_bit_equal_on_one_device(gloo_mesh11):
+    """Phase 7(d)'s decode driver (moonshot at 2 layers, the router and
+    decode through the boundary): the same logits bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_plan
+    from repro_torch.models import build_model
+
+    cfg = get_config("moonshot-v1-16b-a3b").scaled_down().replace(num_layers=2,
+                                                                 attn_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    tokens = [torch.randint(1, cfg.vocab_size, (4,), generator=gen, dtype=torch.int32)
+              for _ in range(3)]
+    want = chip_smoke.decode_logits(model, params, 4, 8, tokens)
+    got = chip_smoke.decode_logits(model, params, 4, 8, tokens, gloo_mesh11,
+                                   make_plan(gloo_mesh11))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_dryrun_verdict_fails_a_null_collective_term():
+    """Phase 7(c) fails a production-mesh record whose collective term is
+    null (the PR before the partitioned dry run wrote such records), a
+    failed record, and passes a partitioned one."""
+    good = {"status": "OK", "roofline": {
+        "collective_s": 1.5, "collective_bytes_per_device": 7.5e10,
+        "collective_breakdown": {"total": 7.5e10, "counts": {"all-gather": 3}}}}
+    assert chip_smoke.dryrun_verdict(good) == ""
+    null = {"status": "OK", "roofline": {"collective_s": None,
+                                         "collective_bytes_per_device": None,
+                                         "collective_breakdown": {"total": None, "counts": None}}}
+    assert "null" in chip_smoke.dryrun_verdict(null)
+    assert "FAIL" in chip_smoke.dryrun_verdict({"status": "FAIL", "error": "x"})
+
+
+def test_dryrun_cells_run_the_first_at_full_size(tmp_path):
+    """Phase 7(c) runs llama3-405b's single-pod cell at full size and the
+    other three at ``scaled_down()``; a reduced cell's command asks for it
+    and its record is read under its tag."""
+    assert [c[3] for c in chip_smoke.DIST_DRYRUN] == [False, True, True, True]
+    assert {c[2] for c in chip_smoke.DIST_DRYRUN} == {"single", "multi"}
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        (tmp_path / "multi__reduced__kimi__train_4k.json").write_text('{"status": "OK"}')
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    rec, _ = chip_smoke.run_dryrun_cell("kimi", "train_4k", "multi", str(tmp_path), True, run)
+    assert rec == {"status": "OK"}
+    assert seen[0][-3:] == ["--reduced", "--tag", "reduced"]

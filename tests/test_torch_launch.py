@@ -329,8 +329,10 @@ def test_dryrun_flops_match_jax_dot_flops():
 def test_dryrun_one_full_config_on_meta():
     """starcoder2-3b's train_4k cell at full width, in seconds and no
     memory: the counted FLOPs over 6.N.D, the H100 roofline, temp_bytes
-    null; on the production meshes the same count over 256 and 512 chips,
-    the arguments' shard bytes per device and no collective term."""
+    null; on the production meshes the partitioned step's count on one
+    device (between the even split and the one-card count: the 24 heads do
+    not divide the 16-wide model axis, so attention is replicated), the
+    arguments' shard bytes per device and a collective term."""
     rec = dryrun.run_cell("starcoder2-3b", "train_4k")
     rl = rec["roofline"]
     assert rec["status"] == "OK" and rl["chips"] == 1 and rl["collective_s"] == 0.0
@@ -342,8 +344,8 @@ def test_dryrun_one_full_config_on_meta():
         big = dryrun.run_cell("starcoder2-3b", "train_4k", mesh)
         brl = big["roofline"]
         assert big["status"] == "OK" and brl["chips"] == chips
-        assert brl["flops_per_device"] == rl["flops_per_device"] / chips
-        assert brl["collective_s"] is None and brl["collective_bytes_per_device"] is None
+        assert rl["flops_per_device"] / chips <= brl["flops_per_device"] < rl["flops_per_device"]
+        assert brl["collective_s"] > 0 and brl["collective_bytes_per_device"] > 0
         per_dev = brl["memory_per_device_bytes"]["argument_bytes"]
         assert rl["memory_per_device_bytes"]["argument_bytes"] / chips <= per_dev
         assert per_dev < rl["memory_per_device_bytes"]["argument_bytes"] / 16
