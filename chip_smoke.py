@@ -92,7 +92,12 @@ every phase passed):
               device (SDPA's beside attention).
               Last, decode's device time at 1-128 splits beside the card
               plan's pick (``SPLIT_SWEEP``), from which the plan's constants
-              were set.
+              were set.  Then the memory check of each of the eight kernels
+              (``phase_kernel_memory``): one call at its main case after a
+              warm-up, its rise of ``max_memory_allocated`` against what
+              ``repro_torch.launch.memory.MemoryTracker`` charges the same
+              call on meta (outputs plus the launch's ``*_scratch``), equal
+              within 512 B a tensor.
 3. models   - at full width, random weights from a seeded generator, for
               starcoder2-3b (dense), mamba2-2.7b (SSM), moonshot-v1-16b-a3b
               (MoE, bf16 parameters), kimi-k2-1t-a32b (MoE, head dim 112,
@@ -116,7 +121,13 @@ every phase passed):
               each phase logs its peak device memory and (a), (b) a profile
               of device time and idle share; a prefill profile that holds
               PyTorch's sort-based scatter (the MoE dispatch before it became
-              a plain assignment) fails.
+              a plain assignment) fails.  Each model's prefill and one of
+              its decode steps are held against the dry run's prediction
+              on meta for the same program (``step_memory_check``: the
+              record of ``run_cell`` with the phase's config, B, S, batch
+              and cast parameters; the card's bytes of the step are its
+              arguments plus its rise over what was allocated before it;
+              within ``MEM_STEP_TOL``, 10%, of the measured).
 4. augment  - ``fused_augment`` as its users call it: ResNet-50's ImageNet
               recipe (256 images 256x256x3 cropped to 224x224, random
               corners and flips) on 8 batches; no model path calls it in
@@ -143,7 +154,11 @@ every phase passed):
               layer of a repeated group under remat, a backward per layer;
               an enc-dec's flash in every encoder layer and twice in every
               decoder layer, each recomputed; fewer fails), then a profiled
-              step with the SM clock sampled before and after it.  Then each
+              step with the SM clock sampled before and after it, and,
+              with the feeder closed, one more step on the profiled
+              step's batch held against the dry run's prediction
+              (``step_memory_check``; the gradient buffers the step keeps
+              from its first call count as its own).  Then each
               at 2 layers in f32 (whisper 2 + 2, jamba at its cut and
               dropless; B=1, S=256): one train step through the
               kernels on the card against the same step on CPU copies
@@ -1444,6 +1459,217 @@ def flash_bwd_case(name, B, Sq, Sk, Hq, Hkv, D, dtype, causal=True, window=0, so
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the dry run's memory analysis (``repro_torch.launch.memory``) against the card
+# ---------------------------------------------------------------------------
+# Per kernel (end of phase 2): a call's rise of ``max_memory_allocated``
+# over ``memory_allocated`` before it must equal what the tracker charges the
+# same call on meta (its outputs plus its launch function's scratch), within
+# the caching allocator's rounding of each block.  Per step (phases 3 and 5):
+# the dry run's ``per_device_total`` on meta for the phase's own config, B,
+# S and batch, against the card's bytes of the step: its arguments (and the
+# gradient buffers a train step keeps from its first step) plus the step's
+# rise over what was allocated before it.  What was live before and is not
+# the step's - the cuBLAS workspace, the decode workspace of earlier calls
+# (released, so that the step makes its own, as in the dry run), the f32
+# parameters beside the cast ones a serving step reads, the feeder's
+# prefetched batches (a train step is measured after the feeder is closed)
+# - is taken out of the measurement and logged as ``other_resident_gb``.
+BLOCK_ROUND = 512
+MEM_STEP_TOL = 0.10  # |predicted - measured| over measured, a step
+MEM_STEP_AIM = 0.03  # past this the step is audited op by op (logged)
+MEM_SEED = 21
+MEM_AUDIT_TOP = 12
+
+
+def kernel_memory_verdict(kernel, rise, charged, tensors) -> dict:
+    """The per-kernel memory check: the card's rise against the meta charge
+    within ``BLOCK_ROUND`` bytes a tensor."""
+    tol = BLOCK_ROUND * tensors
+    return dict(phase="kernels/memory", kernel=kernel, rise_bytes=rise, charged_bytes=charged,
+                tensors=tensors, tol_bytes=tol, ok=abs(rise - charged) <= tol)
+
+
+def step_memory_verdict(label, predicted, measured) -> dict:
+    """The per-step memory check: the dry run's prediction within
+    ``MEM_STEP_TOL`` of the card's measured bytes."""
+    return dict(phase=f"{label}/memory", mem_predicted_gb=predicted / 1e9,
+                mem_measured_gb=measured / 1e9, ratio=predicted / measured,
+                tol=MEM_STEP_TOL, ok=abs(predicted - measured) <= MEM_STEP_TOL * measured)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensor leaves of nested dicts, lists and tuples."""
+    import torch
+
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def _meta_like(x):
+    import torch
+
+    return torch.empty(x.shape, dtype=x.dtype, device="meta") if isinstance(x, torch.Tensor) else x
+
+
+def kernel_memory_cases(gen):
+    """(kernel, inputs on the card, call) at each kernel's main case
+    (``MAIN_CASE``'s shapes)."""
+    import torch
+
+    from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
+                                     fused_augment, moe_router, moe_router_bwd, ssd_scan,
+                                     ssd_scan_bwd)
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    S = PREFILL_S
+    q, k, v = randn(1, S, 24, 128, dtype=bf16), randn(1, S, 2, 128, dtype=bf16), randn(
+        1, S, 2, 128, dtype=bf16)
+    o, lse = flash_attention_with_lse(q, k, v, window=4096)
+    dq = randn(1, S, 24, 128, dtype=bf16)
+    dq_, dk_ = randn(8, 24, 128, dtype=bf16), randn(8, 256, 2, 128, dtype=bf16)
+    lens = torch.full((8,), 96, dtype=torch.int32, device="cuda")
+    x, dt = randn(1, 8192, 80, 64), torch.rand((1, 8192, 80), generator=gen, device="cuda")
+    a, Bm, Cm, D = -torch.rand((80,), generator=gen, device="cuda"), randn(1, 8192, 1, 128), \
+        randn(1, 8192, 1, 128), randn(80)
+    logits = randn(4096, 64)
+    ids, gates, _ = moe_router(logits, 6)
+    imgs = torch.randint(0, 256, (256, 256, 256, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    crops = torch.randint(0, 33, (256, 2), generator=gen, device="cuda", dtype=torch.int32)
+    flips = torch.randint(0, 2, (256,), generator=gen, device="cuda", dtype=torch.int32)
+    mean = torch.tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.tensor(IMAGENET_STD, device="cuda")
+    return [
+        ("flash_attention", (q, k, v), lambda *t: flash_attention(*t, window=4096)),
+        ("flash_attention_bwd", (q, k, v, o, lse, dq),
+         lambda *t: flash_attention_bwd(*t, window=4096)),
+        ("decode_attention", (dq_, dk_, dk_.clone(), lens),
+         lambda *t: decode_attention(*t, window=4096)),
+        ("ssd_scan", (x, dt, a, Bm, Cm, D), ssd_scan),
+        ("ssd_scan_bwd", (x, dt, a, Bm, Cm, D, randn(1, 8192, 80, 64)), ssd_scan_bwd),
+        ("moe_router", (logits,), lambda t: moe_router(t, 6)),
+        ("moe_router_bwd", (ids, gates, randn(4096, 6)), lambda *t: moe_router_bwd(*t, 64)),
+        ("fused_augment", (imgs, crops, flips, mean, std),
+         lambda *t: fused_augment(*t, out_h=224, out_w=224)),
+    ]
+
+
+def phase_kernel_memory() -> list:
+    """Each kernel called once at its main case after a warm-up: the rise
+    of device memory over the call against the tracker's charge of the same
+    call on meta (``kernel_memory_verdict``).  Decode's workspace is
+    released after the warm-up, so that the measured call makes it, as a
+    fresh process (and the dry run) does."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.kernel import release_workspaces
+    from repro_torch.launch.memory import MemoryTracker
+
+    recs = []
+    gen = torch.Generator(device="cuda").manual_seed(MEM_SEED)
+    for name, inputs, call in kernel_memory_cases(gen):
+        call(*inputs)
+        if name == "decode_attention":
+            release_workspaces()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call(*inputs)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - before
+        del out
+        meta = [_meta_like(t) for t in inputs]  # made before the tracker: arguments
+        with MemoryTracker(sms=torch.cuda.get_device_properties(0).multi_processor_count) as mt:
+            call(*meta)
+        rec = kernel_memory_verdict(name, rise, mt.peak, mt.allocations + mt.scratch_allocations)
+        log(rec)
+        recs.append(rec)
+    bad = [r["kernel"] for r in recs if not r["ok"]]
+    if bad:
+        raise SystemExit(f"kernel memory: the card's allocation differs from the meta charge: "
+                         f"{bad}")
+    return recs
+
+
+def predict_step(arch, kind, B, S, replace, inputs, cast_params=False) -> dict:
+    """The dry run's record (on meta, one card) of the step a phase runs:
+    its config changes, B, S and batch."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.config import ShapeConfig
+
+    t = time.perf_counter()
+    rec = run_cell(arch, ShapeConfig(f"{kind}_{B}x{S}", S, B, kind), replace=replace,
+                   inputs=inputs, cast_params=cast_params)
+    if rec["status"] != "OK":
+        raise SystemExit(f"{arch} {kind}: the dry run gave {rec['status']}: {rec.get('reason')}")
+    rec["predict_s"] = time.perf_counter() - t
+    return rec
+
+
+def audit_step(label, fn) -> None:
+    """Runs ``fn`` once more under ``MemoryTracker("cuda", audit=True)`` and
+    logs the ops whose allocation differs from the tracker's charge, by op
+    (count, summed and largest difference)."""
+    from repro_torch.launch.memory import MemoryTracker
+
+    with MemoryTracker("cuda", audit=True) as mt:
+        fn()
+    by_op = {}
+    for m in mt.misses:
+        d = by_op.setdefault(m["op"], dict(op=m["op"], count=0, diff_bytes=0, largest=None))
+        d["count"] += 1
+        d["diff_bytes"] += m["rise"] - m["charged"]
+        if d["largest"] is None or abs(m["rise"] - m["charged"]) > abs(
+                d["largest"]["rise"] - d["largest"]["charged"]):
+            d["largest"] = m
+    top = sorted(by_op.values(), key=lambda d: -abs(d["diff_bytes"]))[:MEM_AUDIT_TOP]
+    log(dict(phase=f"{label}/memory_audit", ops_missed=len(mt.misses), peak_charged_gb=mt.peak / 1e9,
+             top=top))
+
+
+def step_memory_check(label, record, args, fn, held: int = 0) -> dict:
+    """Runs the step ``fn`` once with its arguments ``args`` resident and
+    holds the dry run's ``record`` against it (``step_memory_verdict``):
+    measured = bytes of ``args`` + ``held`` (buffers the step keeps from an
+    earlier call) + the rise over the step.  A step past ``MEM_STEP_AIM`` is
+    audited (``audit_step``); past ``MEM_STEP_TOL`` the run fails."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.kernel import release_workspaces
+
+    release_workspaces()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    arg_bytes = tree_bytes(args)
+    mem = record["roofline"]["memory_per_device_bytes"]
+    rec = step_memory_verdict(label, mem["per_device_total"], arg_bytes + held + peak - before)
+    rec.update(argument_bytes_meta=mem["argument_bytes"], argument_bytes_card=arg_bytes,
+               held_bytes=held, temp_bytes_meta=mem["temp_bytes"], rise_bytes=peak - before,
+               other_resident_gb=(before - arg_bytes - held) / 1e9,
+               max_memory_allocated_gb=peak / 1e9, predict_s=record["predict_s"])
+    log(rec)
+    if abs(rec["ratio"] - 1) > MEM_STEP_AIM:
+        audit_step(label, fn)
+    if not rec["ok"]:
+        raise SystemExit(f"{label}: predicted {rec['mem_predicted_gb']:.3f} GB against "
+                         f"{rec['mem_measured_gb']:.3f} GB measured, past {MEM_STEP_TOL:.0%}")
+    return rec
+
+
 def phase_kernels(main_S: int):
     import torch
 
@@ -1863,6 +2089,10 @@ def phase_model(arch, replace, prefill_S, check_replace, check_lengths):
                                                                   last_token_only=True))
     if any(SORT_SCATTER_KERNEL in name for name in ran):
         raise SystemExit(f"{arch} prefill ran the sort-based scatter {SORT_SCATTER_KERNEL}")
+    step_memory_check(f"{arch}/prefill",
+                      predict_step(arch, "prefill", 1, prefill_S, replace, batch, True),
+                      (cparams, batch), lambda: model.forward(cparams, batch,
+                                                              last_token_only=True))
 
     # (b) ServeEngine: 8 requests, prompts of 8-64 tokens, 32 new tokens each
     rng = np.random.default_rng(0)
@@ -1882,6 +2112,10 @@ def phase_model(arch, replace, prefill_S, check_replace, check_lengths):
              generated_tokens_per_s=sum(len(r.generated) for r in done) / secs,
              max_memory_allocated_gb=peak))
     feed = torch.ones((8,), dtype=torch.int32, device="cuda")
+    step_memory_check(f"{arch}/decode_step",
+                      predict_step(arch, "decode", 8, 256, replace, {"tokens": feed}, True),
+                      (eng.params, eng.cache, feed),
+                      lambda: eng._step(eng.params, eng.cache, feed))
 
     def eight_steps():
         for _ in range(8):
@@ -1997,6 +2231,9 @@ def phase_encdec(arch=WHISPER):
              encoder_frames_per_s=B * Senc / secs, decoder_tokens_per_s=B * S / secs,
              max_memory_allocated_gb=peak))
     profile_device(f"{arch}/prefill", lambda: model.forward(cparams, batch, last_token_only=True))
+    step_memory_check(f"{arch}/prefill", predict_step(arch, "prefill", B, S, {}, batch, True),
+                      (cparams, batch),
+                      lambda: model.forward(cparams, batch, last_token_only=True))
 
     # (b) serving: the encoder once, then WHISPER_STEPS decode steps
     prompt = toks[:, :WHISPER_PROMPT].to(torch.int32)
@@ -2013,6 +2250,9 @@ def phase_encdec(arch=WHISPER):
              steps_per_s=WHISPER_STEPS / secs, batch_tokens_per_s=WHISPER_STEPS * B / secs,
              max_memory_allocated_gb=peak))
     feed = torch.ones((B,), dtype=torch.int32, device="cuda")
+    step_memory_check(f"{arch}/decode_step",
+                      predict_step(arch, "decode", B, S, {}, {"tokens": feed}, True),
+                      (cparams, cache, feed), lambda: model.decode_step(cparams, cache, feed))
 
     def eight_steps():
         for _ in range(8):
@@ -2294,8 +2534,15 @@ def phase_train(arch, replace, B, S, steps):
         _, _, counts, peak = counted(f"train {arch} {steps} steps", run_steps)
         feed = feeder.metrics.summary()
         log_clocks(f"before the {arch} train profile")
-        profile_device(f"{arch}/train_step", lambda: step(state, feeder.next()))
+        last = feeder.next()
+        profile_device(f"{arch}/train_step", lambda: step(state, last))
         log_clocks(f"after the {arch} train profile")
+    # a warm step with the feeder closed (no batch moves during it); the
+    # gradient buffers the step keeps from its first call are the
+    # parameters' bytes
+    step_memory_check(f"train {arch}", predict_step(arch, "train", B, S, replace, last),
+                      (state, last), lambda: step(state, last),
+                      held=tree_bytes(state["params"]))
     steady = secs[1:] if len(secs) > 1 else secs
     sps = sum(steady) / len(steady)
     IN_SCRIPT_FEED[arch] = dict(seconds_per_step=sps, idle_s_per_step=feed["idle_s_per_step"],
@@ -2590,6 +2837,8 @@ def dryrun_verdict(rec) -> str:
     rl = rec.get("roofline") or {}
     if rl.get("collective_s") is None or rl.get("collective_bytes_per_device") is None:
         return "null collective term"
+    if not isinstance((rl.get("memory_per_device_bytes") or {}).get("temp_bytes"), int):
+        return "null temp_bytes"
     if not (rl.get("collective_breakdown") or {}).get("counts"):
         return "no collective breakdown"
     return ""
@@ -2890,6 +3139,8 @@ def phase_dist():
                  status=rec["status"], chips=rl.get("chips"), plan=rec.get("plan"),
                  argument_bytes_per_device=(rl.get("memory_per_device_bytes") or {}).get(
                      "argument_bytes"),
+                 temp_bytes_per_device=(rl.get("memory_per_device_bytes") or {}).get(
+                     "temp_bytes"),
                  fits_hbm_80g=rec.get("fits_hbm_80g"),
                  flops_per_device=rl.get("flops_per_device"),
                  bytes_per_device=rl.get("bytes_per_device"),
@@ -3032,6 +3283,7 @@ def main() -> int:
 
     phase_env()
     recs = phase_kernels(PREFILL_S)
+    phase_kernel_memory()
     totals = {}
 
     def add(counts):

@@ -14,7 +14,9 @@ these ops, autograd's backward included.
 Decode's FLOPs depend on ``lengths``, which a ``meta`` tensor does not
 hold: the op is charged every row of a full cache (the window's rows with a
 window), the most a call can read, which is what a decode step over a
-seq_len-deep cache reads.
+seq_len-deep cache reads.  Its ``num_splits`` (-1: the card's plan) sizes the
+split workspace the memory analysis charges (``launch.memory``), as each
+op's scratch there follows the CUDA launch's ``*_scratch``.
 
 This module keeps its annotations evaluated (no ``from __future__ import
 annotations``): ``custom_op`` reads its schema from them.
@@ -37,18 +39,21 @@ def _refuse(name: str) -> RuntimeError:
 # --- flash attention ---------------------------------------------------------
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
 def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
-                        q_offset: int) -> Tuple[Tensor, Tensor]:
+                        q_offset: int, with_lse: bool) -> Tuple[Tensor, Tensor]:
     raise _refuse("flash_attention_fwd")
 
 
 @flash_attention_fwd.register_fake
-def _(q, k, v, causal, window, q_offset):
+def _(q, k, v, causal, window, q_offset, with_lse):
+    # the kernel writes the log-sum-exp only when autograd keeps it: without
+    # it the op returns an empty one, as the CUDA route allocates none
     B, Sq, Hq, _ = q.shape
-    return torch.empty_like(q), q.new_empty((B, Hq, Sq), dtype=torch.float32)
+    lse = (B, Hq, Sq) if with_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse, dtype=torch.float32)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
-def _(q, k, v, causal, window, q_offset, *args, out_shape=None, **kwargs):
+def _(q, k, v, causal, window, q_offset, with_lse, *args, out_shape=None, **kwargs):
     B, Sq, Hq, D = q
     return int(F.flash_flops(B, Sq, k[1], Hq, D, causal, window, q_offset))
 
@@ -73,17 +78,17 @@ def _(q, k, v, o, lse, do, causal, window, q_offset, *args, out_shape=None, **kw
 # --- decode attention ----------------------------------------------------------
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
 def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, lengths: Tensor,
-                     window: int) -> Tensor:
+                     window: int, num_splits: int) -> Tensor:
     raise _refuse("decode_attention")
 
 
 @decode_attention.register_fake
-def _(q, k_cache, v_cache, lengths, window):
+def _(q, k_cache, v_cache, lengths, window, num_splits):
     return torch.empty_like(q)
 
 
 @register_flop_formula(torch.ops.repro_torch.decode_attention)
-def _(q, k_cache, v_cache, lengths, window, *args, out_shape=None, **kwargs):
+def _(q, k_cache, v_cache, lengths, window, num_splits, *args, out_shape=None, **kwargs):
     B, Hq, D = q
     return int(F.decode_flops(Hq, D, F.decode_visible(B, k_cache[1], window)))
 

@@ -80,6 +80,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def plan(dtype: torch.dtype, B: int, S: int, Hq: int, Hkv: int, num_splits: Optional[int],
+         sms: int) -> Tuple[int, int]:
+    """(query heads per block, splits) of a call: ``rows_per_block``, and
+    ``num_splits`` capped at the cache's 64-key tiles and ``MAX_SPLITS``, or
+    the card's plan (``split_count`` over ``sms`` SMs) when it is None."""
+    rows = rows_per_block(dtype, Hq // Hkv)
+    if num_splits is None:
+        return rows, split_count(S, B * Hkv * _cdiv(Hq // Hkv, rows), sms)
+    return rows, max(1, min(int(num_splits), _cdiv(S, TILE), MAX_SPLITS))
+
+
 def _check(q, k_cache, v_cache, lengths) -> None:
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: want q (B,Hq,D), caches (B,S,Hkv,D); got "
@@ -137,15 +148,11 @@ def decode_attention(
     refuse_grad("decode_attention", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, lengths)
     if q.device.type == "meta":
-        return _shape.decode_attention(q, k_cache, v_cache, lengths, window)
+        return _shape.decode_attention(q, k_cache, v_cache, lengths, window,
+                                       -1 if num_splits is None else int(num_splits))
     B, Hq, _ = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    rows = rows_per_block(q.dtype, Hq // Hkv)
-    if num_splits is None:
-        units = B * Hkv * _cdiv(Hq // Hkv, rows)
-        ns = split_count(S, units, _sm_count(q.device.index or 0))
-    else:
-        ns = max(1, min(int(num_splits), _cdiv(S, TILE), MAX_SPLITS))
+    rows, ns = plan(q.dtype, B, S, Hq, Hkv, num_splits, _sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     decode_attention_fwd(q, k_cache, v_cache, lengths, out, rows=rows, num_splits=ns,
                          window=window)

@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .._scratch import Scratch, allocate
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 112, 128)  # 112: kimi-k2 (7168 / 64)
@@ -39,6 +40,26 @@ def _lib(name: str, entry: str, argtypes) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = _I
     return lib
+
+
+def fwd_scratch(B: int, Sq: int, Sk: int, Hq: int, D: int, dtype: torch.dtype) -> Scratch:
+    """The forward's scratch: none (the output and the log-sum-exp are the
+    caller's)."""
+    return {}
+
+
+def bwd_scratch(B: int, Sq: int, Sk: int, Hq: int, D: int, dtype: torch.dtype) -> Scratch:
+    """Shape and dtype of each scratch tensor of one backward call, as
+    ``flash_attention_bwd_launch`` allocates them.  f32: Δ (B, Hq, Sq).
+    bf16: Δ and a copy of the log-sum-exp padded to ``BWD_Q_PAD`` query rows
+    (B, Hq, Sq_pad), and the per-query-head partials of dK and dV (B, Sk,
+    Hq, D), all f32."""
+    f32 = torch.float32
+    if dtype != torch.bfloat16:
+        return {"delta": ((B, Hq, Sq), f32)}
+    sq_pad = -(-Sq // BWD_Q_PAD) * BWD_Q_PAD
+    return {"delta": ((B, Hq, sq_pad), f32), "lse_pad": ((B, Hq, sq_pad), f32),
+            "dk_part": ((B, Sk, Hq, D), f32), "dv_part": ((B, Sk, Hq, D), f32)}
 
 
 def flash_attention_fwd(
@@ -71,25 +92,17 @@ def flash_attention_bwd_launch(
     """Launches the backward on the current stream; writes ``dq``, ``dk``
     and ``dv``.  f32: Δ, then dK/dV, then dQ.  bf16: Δ and a padded copy of
     the log-sum-exp, dK/dV as f32 partials per query head, their GQA group
-    sums, then dQ; the wrapper allocates that scratch here (two (B, Sk, Hq,
-    D) f32 buffers).  Inputs are checked by the caller (``ops``)."""
+    sums, then dQ; the scratch (``bwd_scratch``) is allocated here.  Inputs
+    are checked by the caller (``ops``)."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
-    f32 = dict(dtype=torch.float32, device=q.device)
-    lse_pad = dk_part = dv_part = None
-    if q.dtype == torch.bfloat16:
-        sq_pad = -(-Sq // BWD_Q_PAD) * BWD_Q_PAD
-        delta = torch.empty((B, Hq, sq_pad), **f32)
-        lse_pad = torch.empty((B, Hq, sq_pad), **f32)
-        dk_part = torch.empty((B, Sk, Hq, D), **f32)
-        dv_part = torch.empty((B, Sk, Hq, D), **f32)
-    else:
-        delta = torch.empty((B, Hq, Sq), **f32)
+    w = allocate(bwd_scratch(B, Sq, Sk, Hq, D, q.dtype), q.device)
     lib = _lib("flash_attention_bwd", "flash_attention_bwd", [_P] * 13 + [_I] * 9 + [_F, _I, _F]
                + [_P])
     err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), _ptr(lse_pad), _ptr(dk_part), _ptr(dv_part), dq.data_ptr(),
+        w["delta"].data_ptr(), _ptr(w.get("lse_pad")), _ptr(w.get("dk_part")),
+        _ptr(w.get("dv_part")), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
         B, Sq, Sk, Hq, Hkv, D, DTYPES[q.dtype], int(causal), int(window), float(softcap),
         int(q_offset), 1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream,

@@ -83,7 +83,8 @@ def _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k,
     _check(q, k, v)
     block_q, block_k = resolve_tile(q.dtype, q.shape[3], block_q, block_k)
     if q.device.type == "meta":
-        return _shape.flash_attention_fwd(q, k, v, causal, window, q_offset)
+        o, lse = _shape.flash_attention_fwd(q, k, v, causal, window, q_offset, with_lse)
+        return o, (lse if with_lse else None)
     o = torch.empty_like(q)
     lse = None
     if with_lse:

@@ -7,6 +7,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .._scratch import Scratch
 
 MAX_CHANNELS = 16
 
@@ -20,6 +21,11 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
         fn.restype = _I
     return lib
+
+
+def fwd_scratch(B: int, H: int, W: int, C: int, out_h: int, out_w: int) -> Scratch:
+    """The kernel's scratch: none (it writes the output alone)."""
+    return {}
 
 
 def fused_augment_fwd(

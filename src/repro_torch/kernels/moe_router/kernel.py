@@ -8,6 +8,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .._scratch import Scratch, allocate
 
 MAX_EXPERTS = 384  # kimi-k2's routing: 12 experts a lane in registers
 MAX_K = 8
@@ -25,18 +26,28 @@ def _lib(entry: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
+def fwd_scratch(T: int, E: int) -> Scratch:
+    """The forward's scratch: the token blocks' expert counts (blocks, E)
+    int32, when there is more than one block of ``TOKEN_BLOCK`` tokens."""
+    nb = -(-T // TOKEN_BLOCK)
+    return {"counts": ((nb, E), torch.int32)} if nb > 1 else {}
+
+
+def bwd_scratch(T: int, E: int, k: int) -> Scratch:
+    """The backward's scratch: none (``route_bwd`` writes dlogits alone)."""
+    return {}
+
+
 def moe_router_fwd(
     logits: torch.Tensor, ids: torch.Tensor, gates: torch.Tensor, slots: torch.Tensor, k: int,
 ) -> None:
     """Launches on the current stream and writes ``ids``, ``gates`` and
     ``slots``: the token blocks' routing and in-block slots, then, when there
     is more than one token block, the prefix of the earlier blocks' counts
-    (the (blocks, E) int32 scratch is allocated here).  Inputs are checked by
-    the caller (``ops.moe_router``)."""
+    (``fwd_scratch``, allocated here).  Inputs are checked by the caller
+    (``ops.moe_router``)."""
     T, E = logits.shape
-    nb = -(-T // TOKEN_BLOCK)  # blocks of the first launch
-    counts = (torch.empty((nb, E), dtype=torch.int32, device=logits.device) if nb > 1
-              else None)
+    counts = allocate(fwd_scratch(T, E), logits.device).get("counts")
     lib = _lib("moe_router_fwd", [_P] * 5 + [_I] * 3 + [_P])
     err = lib.moe_router_fwd(
         logits.data_ptr(), ids.data_ptr(), gates.data_ptr(), slots.data_ptr(),

@@ -4,12 +4,12 @@ library is built on its first launch."""
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
-from .. import _build
+from .. import _build, _scratch
+from .._scratch import Scratch, allocate
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
@@ -35,33 +35,41 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def fwd_scratch(Bsz: int, L: int, H: int, P: int, N: int, chunk: int,
+                dtype: torch.dtype) -> Scratch:
+    """Shape and dtype of each scratch tensor of one forward call, as
+    ``ssd_scan_fwd`` allocates them: each chunk's state ``states`` (B, H,
+    chunks, P, N) f32, the state entering it ``hp`` in x's type (as
+    ``STATE_PIECES`` bf16 pieces for bf16 inputs), and its log-decay ``cq``
+    (B, H, chunks) f32."""
+    nc = -(-L // chunk)
+    return {"states": ((Bsz, H, nc, P, N), torch.float32),
+            "hp": ((Bsz, H, nc, STATE_PIECES[dtype], P, N), dtype),
+            "cq": ((Bsz, H, nc), torch.float32)}
+
+
 def ssd_scan_fwd(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     D: torch.Tensor, y: torch.Tensor, h: torch.Tensor, *, chunk: int,
 ) -> None:
     """Runs the kernels of the chunk-parallel scan on the current stream;
     writes ``y`` and the final state ``h``.  Inputs are checked by the
-    caller (``ops.ssd_scan``).  Workspace: each chunk's state (B, H, chunks,
-    P, N) in f32, the state entering it in x's type (as two bf16 pieces for
-    bf16 inputs), and its log-decay."""
+    caller (``ops.ssd_scan``).  Scratch as ``fwd_scratch`` lists it,
+    allocated here."""
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    nc = -(-L // chunk)
-    dev = x.device
-    states = torch.empty((Bsz, H, nc, P, N), dtype=torch.float32, device=dev)
-    hp = torch.empty((Bsz, H, nc, STATE_PIECES[x.dtype], P, N), dtype=x.dtype, device=dev)
-    cq = torch.empty((Bsz, H, nc), dtype=torch.float32, device=dev)
+    w = allocate(fwd_scratch(Bsz, L, H, P, N, chunk, x.dtype), x.device)
     lib = _lib("ssd_scan", "ssd_scan_fwd", [_P] * 11 + [_I] * 8 + [_P])
     err = lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
-        y.data_ptr(), h.data_ptr(), states.data_ptr(), hp.data_ptr(),
-        cq.data_ptr(), Bsz, L, H, G, P, N, chunk, DTYPES[x.dtype], _stream(x),
+        y.data_ptr(), h.data_ptr(), w["states"].data_ptr(), w["hp"].data_ptr(),
+        w["cq"].data_ptr(), Bsz, L, H, G, P, N, chunk, DTYPES[x.dtype], _stream(x),
     )
     _build.check(lib, "ssd_scan", err)
 
 
 def bwd_scratch(Bsz: int, L: int, H: int, G: int, P: int, N: int,
-                dtype: torch.dtype) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+                dtype: torch.dtype) -> Scratch:
     """Shape and dtype of each scratch tensor of one backward call, as
     ``ssd_scan_bwd_launch`` allocates them: the forward's chunk states
     ``rstate`` (B, H, nc, P, N) f32, which then hold the gradients of the
@@ -89,8 +97,7 @@ def bwd_scratch(Bsz: int, L: int, H: int, G: int, P: int, N: int,
 def bwd_scratch_bytes(Bsz: int, L: int, H: int, G: int, P: int, N: int,
                       dtype: torch.dtype) -> Dict[str, int]:
     """Bytes of each scratch tensor of ``bwd_scratch``."""
-    return {name: math.prod(shape) * torch.empty((), dtype=dt).element_size()
-            for name, (shape, dt) in bwd_scratch(Bsz, L, H, G, P, N, dtype).items()}
+    return _scratch.nbytes(bwd_scratch(Bsz, L, H, G, P, N, dtype))
 
 
 def ssd_scan_bwd_launch(
@@ -107,8 +114,7 @@ def ssd_scan_bwd_launch(
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q = min(BWD_CHUNK, L)
-    w = {name: torch.empty(shape, dtype=dt, device=x.device)
-         for name, (shape, dt) in bwd_scratch(Bsz, L, H, G, P, N, x.dtype).items()}
+    w = allocate(bwd_scratch(Bsz, L, H, G, P, N, x.dtype), x.device)
     lib = _lib("ssd_scan", "ssd_scan_states", [_P] * 8 + [_I] * 8 + [_P])
     err = lib.ssd_scan_states(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(), w["h_final"].data_ptr(),

@@ -13,11 +13,18 @@ and no numbers, and counts:
   unfused upper estimate of XLA's "bytes accessed" (an eager step fuses
   nothing, and an in-place op counts its operand twice).
 
+* memory with ``launch.memory.MemoryTracker`` (the twin of JAX's
+  ``compiled.memory_analysis()``): the live set of the storages the step
+  allocates, each kernel's scratch charged on its shape-only route; its
+  peak is ``temp_bytes``.
+
 It writes a JSON record with the roofline (``launch.roofline``, H100
-constants), the argument and output bytes and ``fits_hbm_80g``.
-``temp_bytes`` is null: a ``meta`` run allocates nothing, so it cannot give
-the step's temporaries, and the record does not guess them; ``fits_hbm_80g``
-holds the arguments alone against the card's 80 GB, a necessary condition.
+constants), JAX's memory fields (``argument_bytes``, ``output_bytes``,
+``temp_bytes``, ``alias_bytes`` and ``per_device_total = argument_bytes +
+temp_bytes``), the tracker's own (``memory``: the live bytes at the step's
+end, the allocations, the largest scratch and the decode workspace) and
+``fits_hbm_80g``, that total against the card's 80 GB.  The cuBLAS
+workspace and the allocator's rounding are not counted (``launch.memory``).
 
 The optimizer reads a few scalars on the host (its clip scale, bias
 corrections and learning rate); on ``meta`` those reads return 1
@@ -40,7 +47,9 @@ JAX's fields per device:
 * ``flops_per_device`` and ``bytes_per_device``: those of the local program
   one device runs (``LocalCounter``: the shards' ops, replicated work
   included), which is what ``hlo_cost`` reads off the partitioned module;
-* ``fits_hbm_80g``: the per-device arguments against 80 GB;
+* ``temp_bytes``: the peak of one device's live set over its local
+  program, the outputs of the collectives included (``LocalCounter`` feeds
+  the tracker); ``fits_hbm_80g``: arguments plus temporaries against 80 GB;
 * ``collective_bytes_per_device`` and ``collective_breakdown``: the operand
   bytes of the collectives the step issues, by kind, count and mesh axis
   (``launch.comm_cost``), priced by the roofline at each axis's link rate.
@@ -71,7 +80,7 @@ import subprocess
 import sys
 import time
 import traceback
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -122,9 +131,10 @@ class LocalCounter(TorchDispatchMode):
     propagation runs on fake tensors and is not counted; each functional
     collective is booked by ``comm_cost`` and moves no HBM bytes here."""
 
-    def __init__(self, comm):
+    def __init__(self, comm, memory=None):
         super().__init__()
         self.comm = comm
+        self.memory = memory  # a memory.MemoryTracker fed every op counted here
         self.flops = 0
         self.bytes = 0
         self.ops = 0
@@ -146,10 +156,13 @@ class LocalCounter(TorchDispatchMode):
             if r is not NotImplemented:
                 return r
         elif packet not in flop_registry:  # a collective
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
+            self._remember(func, args, kwargs, out)
+            return out
         out = func(*args, **kwargs)
         if any(isinstance(t, FakeTensor) for t in tree_leaves(out)):
             return out  # a factory op of DTensor's propagation
+        self._remember(func, args, kwargs, out)
         if packet in flop_registry:
             n = int(flop_registry[packet](*args, **kwargs, out_val=out))
             self.flops += n
@@ -162,32 +175,44 @@ class LocalCounter(TorchDispatchMode):
                               if isinstance(t, torch.Tensor))
         return out
 
+    def _remember(self, func, args, kwargs, out) -> None:
+        if self.memory is not None:
+            self.memory.record(func, args, kwargs, out)
+
 
 def count_partitioned(fn, mesh) -> Dict[str, Any]:
     """Runs ``fn()`` (a step on ``meta`` ``DTensor``s over ``mesh``) under
-    ``LocalCounter`` and ``comm_cost``: {"flops", "bytes", "ops",
-    "flops_by_op", "collectives", "seconds", "out"} of one device."""
+    ``LocalCounter`` and ``comm_cost``, with a ``MemoryTracker`` fed by the
+    counter: {"flops", "bytes", "ops", "flops_by_op", "collectives",
+    "memory", "seconds", "out"} of one device."""
     from .comm_cost import CommCounter, alltoall_as_alltoall
+    from .memory import MemoryTracker
 
     comm = CommCounter(mesh)
     t0 = time.perf_counter()
-    counter = LocalCounter(comm)
+    mt = MemoryTracker()
+    counter = LocalCounter(comm, memory=mt)
     with alltoall_as_alltoall(comm), counter:
         out = fn()
     return {"flops": counter.flops, "bytes": counter.bytes, "ops": counter.ops,
             "flops_by_op": counter.by_op, "collectives": comm.detail(),
-            "seconds": time.perf_counter() - t0, "out": out}
+            "memory": mt.report(), "seconds": time.perf_counter() - t0, "out": out}
 
 
 def count_step(fn) -> Dict[str, Any]:
-    """Runs ``fn()`` on ``meta`` under ``FlopCounterMode`` and ``StepCounter``:
-    {"flops", "bytes", "ops", "flops_by_op", "seconds", "out"}."""
+    """Runs ``fn()`` on ``meta`` under ``FlopCounterMode``, ``StepCounter``
+    and, innermost, a ``MemoryTracker`` (it sees each op first and passes it
+    on; ``StepCounter`` answers the host reads): {"flops", "bytes", "ops",
+    "flops_by_op", "memory", "seconds", "out"}."""
+    from .memory import MemoryTracker
+
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as fc, StepCounter() as sc:
+    with FlopCounterMode(display=False) as fc, StepCounter() as sc, MemoryTracker() as mt:
         out = fn()
     by_op = {str(k): int(v) for k, v in fc.get_flop_counts().get("Global", {}).items()}
     return {"flops": int(fc.get_total_flops()), "bytes": int(sc.bytes), "ops": sc.ops,
-            "flops_by_op": by_op, "seconds": time.perf_counter() - t0, "out": out}
+            "flops_by_op": by_op, "memory": mt.report(), "seconds": time.perf_counter() - t0,
+            "out": out}
 
 
 def make_mesh(mesh_name: str):
@@ -209,15 +234,28 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
              microbatches: int = 1, param_dtype: str = "", moe_groups: int = 0,
              remat: str = "", seq_shard: bool = False, moe_pin: str = "auto",
              moe_expert_axis: str = "model", reduced: bool = False,
-             tag: str = "") -> Dict[str, Any]:
+             tag: str = "", replace: Optional[Dict[str, Any]] = None,
+             inputs: Optional[Dict[str, torch.Tensor]] = None,
+             cast_params: bool = False) -> Dict[str, Any]:
     """The record of one cell.  ``shape`` is a name of ``SHAPES`` or a
     ``ShapeConfig`` (any global batch and length); ``reduced`` takes the
-    config's ``scaled_down()``."""
+    config's ``scaled_down()``.  So that a cell can describe the program a
+    caller runs on the card: ``replace`` changes the config (after the
+    flags above, e.g. {"num_layers": 4}); ``inputs`` gives the step's batch
+    (a decode step's ``{"tokens"}``) in place of the ``launch.specs``
+    stand-ins, with its own keys, shapes and dtypes (tensors on any device;
+    only their shapes and dtypes are read); ``cast_params`` holds a serving
+    step's parameters as ``ServeEngine`` does, cast once to the compute
+    dtype (``cast_for_compute``)."""
     from ..configs import cell_supported, get_config
 
     mesh = make_mesh(mesh_name)
     cfg = get_config(arch)
     cfg = cfg.scaled_down() if reduced else cfg
+    sh = SHAPES[shape] if isinstance(shape, str) else shape
+    if cast_params and sh.kind == "train":
+        raise ValueError("cast_params holds a serving step's parameters; a train step "
+                         "updates them in their own dtype")
     changes: Dict[str, Any] = {}
     if param_dtype:
         changes["param_dtype"] = param_dtype
@@ -225,23 +263,33 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
         changes["moe_groups"] = moe_groups
     if remat:
         changes["remat"] = remat
+    changes.update(replace or {})
     cfg = cfg.replace(**changes) if changes else cfg
-    sh = SHAPES[shape] if isinstance(shape, str) else shape
     record: Dict[str, Any] = {
         "arch": arch, "shape": sh.name, "mesh": mesh_name, "status": "unknown",
         "kind": sh.kind, "global_batch": sh.global_batch, "seq_len": sh.seq_len,
         "variant": {"reduced": reduced, "microbatches": microbatches, "seq_shard": seq_shard,
                     "param_dtype": cfg.param_dtype, "remat": cfg.remat, "tag": tag},
     }
+    if replace:
+        record["variant"]["replace"] = dict(replace)
+    if inputs is not None:
+        record["variant"]["inputs"] = {k: [list(v.shape), str(v.dtype).split(".")[-1]]
+                                       for k, v in inputs.items()}
+    if cast_params:
+        record["variant"]["cast_params"] = True
+    specs_in = None if inputs is None else {
+        k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in inputs.items()}
     supported, reason = cell_supported(cfg, sh)
     if not supported:
         record.update(status="SKIP", reason=reason)
         return record
 
     chips = mesh.size
+    kw = dict(microbatches=microbatches, seq_shard=seq_shard, moe_pin=moe_pin,
+              moe_expert_axis=moe_expert_axis, inputs=specs_in, cast_params=cast_params)
     if chips == 1:
-        return _count_cell(record, mesh, cfg, sh, chips, microbatches=microbatches,
-                           seq_shard=seq_shard, moe_pin=moe_pin, moe_expert_axis=moe_expert_axis)
+        return _count_cell(record, mesh, cfg, sh, chips, **kw)
     import torch.distributed as dist
 
     from .mesh import fake_device_mesh
@@ -250,9 +298,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh_name: str = "one", 
         raise RuntimeError("the partitioned dry run makes its own process group; destroy this "
                            "process's group first")
     try:
-        return _count_cell(record, fake_device_mesh(mesh), cfg, sh, chips,
-                           microbatches=microbatches, seq_shard=seq_shard, moe_pin=moe_pin,
-                           moe_expert_axis=moe_expert_axis)
+        return _count_cell(record, fake_device_mesh(mesh), cfg, sh, chips, **kw)
     finally:
         dist.destroy_process_group()
 
@@ -266,12 +312,14 @@ def _local_nbytes(tree: Any) -> int:
 
 
 def _count_cell(record: Dict[str, Any], mesh: Any, cfg: Any, sh: ShapeConfig, chips: int, *,
-                microbatches: int, seq_shard: bool, moe_pin: str,
-                moe_expert_axis: str) -> Dict[str, Any]:
+                microbatches: int, seq_shard: bool, moe_pin: str, moe_expert_axis: str,
+                inputs: Optional[Dict[str, torch.Tensor]],
+                cast_params: bool) -> Dict[str, Any]:
     """Builds the cell's step on ``meta`` and counts it: on one chip the
     whole step; on a mesh of more (``mesh`` a fake ``DeviceMesh``) its
     arguments are placed as ``meta`` ``DTensor``s by the shardings and the
-    counts are one device's (``count_partitioned``)."""
+    counts are one device's (``count_partitioned``).  ``inputs``: the batch
+    in place of the specs' (``run_cell``)."""
     import dataclasses
 
     from ..dist import sharding_rules as SR
@@ -290,6 +338,8 @@ def _count_cell(record: Dict[str, Any], mesh: Any, cfg: Any, sh: ShapeConfig, ch
     record["plan"] = dataclasses.asdict(plan)
     model = build_model(cfg)
     params = S.params_shape(model)
+    if cast_params:
+        params = model.cast_for_compute(params)
     p_shard = SR.make_param_shardings(mesh, params, cfg, plan)
     if chips == 1:
         count, place = count_step, (lambda tree, shardings: tree)
@@ -299,7 +349,7 @@ def _count_cell(record: Dict[str, Any], mesh: Any, cfg: Any, sh: ShapeConfig, ch
         if sh.kind == "train":
             oc = AdamWConfig(state_dtype=cfg.opt_state_dtype)
             state = {"params": params, "opt": S.opt_shape(model, oc)}
-            batch_in = S.train_input_specs(cfg, sh)
+            batch_in = S.train_input_specs(cfg, sh) if inputs is None else inputs
             shards: tuple = ({"params": p_shard,
                               "opt": SR.make_opt_shardings(mesh, state["opt"], cfg, plan)},
                              SR.batch_sharding(mesh, plan, batch_in))
@@ -312,7 +362,7 @@ def _count_cell(record: Dict[str, Any], mesh: Any, cfg: Any, sh: ShapeConfig, ch
             step = make_train_step(model, oc, microbatches=microbatches)
             counted = count(lambda: step(run_state, run_batch))
         elif sh.kind == "prefill":
-            batch_in = S.prefill_input_specs(cfg, sh)
+            batch_in = S.prefill_input_specs(cfg, sh) if inputs is None else inputs
             shards = (p_shard, SR.batch_sharding(mesh, plan, batch_in))
             args = (params, batch_in)
             alias = 0
@@ -322,6 +372,7 @@ def _count_cell(record: Dict[str, Any], mesh: Any, cfg: Any, sh: ShapeConfig, ch
                                                       last_token_only=True))
         else:  # decode: one new token over a cache filled to its last row
             tok, cache = S.decode_input_specs(model, cfg, sh)
+            tok = tok if inputs is None else inputs
             cache["pos"] = sh.seq_len - 1
             shards = (p_shard, SR.cache_sharding(mesh, plan, cache, cfg),
                       SR.batch_sharding(mesh, plan, tok)["tokens"])
@@ -333,12 +384,16 @@ def _count_cell(record: Dict[str, Any], mesh: Any, cfg: Any, sh: ShapeConfig, ch
             with torch.no_grad():
                 counted = count(lambda: serve(run_params, run_cache, run_tok))
     out_bytes = S.nbytes(counted["out"]) if chips == 1 else _local_nbytes(counted["out"])
+    live = counted["memory"]
     mem = {"argument_bytes": SR.sharded_nbytes(list(args), list(shards)),
-           "output_bytes": out_bytes, "temp_bytes": None, "alias_bytes": alias}
-    mem["per_device_total"] = mem["argument_bytes"]
+           "output_bytes": out_bytes, "temp_bytes": live["temp_bytes"], "alias_bytes": alias}
+    mem["per_device_total"] = mem["argument_bytes"] + mem["temp_bytes"]
     note = ("bytes: operand and result bytes of every non-view op, unfused (an upper "
-            "estimate); temp_bytes: a meta run gives no temporaries, so per_device_total is "
-            "the arguments alone")
+            "estimate); temp_bytes: the peak of the live set of the storages the step "
+            "allocates above its arguments (launch/memory.py), each kernel's scratch and "
+            "decode's split workspace (made in the step) included; the cuBLAS workspace and "
+            "the caching allocator's 512-byte rounding are not; per_device_total = "
+            "argument_bytes + temp_bytes")
     if chips > 1:
         note += ("; per device: the step partitioned on meta DTensors over a fake process "
                  "group of the mesh's size, seen from rank 0: argument bytes are shard bytes "
@@ -354,6 +409,7 @@ def _count_cell(record: Dict[str, Any], mesh: Any, cfg: Any, sh: ShapeConfig, ch
                        sh.kind, note=note, mesh_sizes=mesh_axis_sizes(mesh))
     record.update(status="OK", trace_s=round(counted["seconds"], 3), ops=counted["ops"],
                   flops_by_op=counted["flops_by_op"], roofline=rep.to_json(),
+                  memory={k: v for k, v in live.items() if k != "temp_bytes"},
                   fits_hbm_80g=bool(mem["per_device_total"] < HBM_BYTES))
     return record
 
@@ -468,7 +524,7 @@ def summarize(out_dir: str) -> None:
 
     print(f"{'mesh':6s} {'arch':22s} {'shape':12s} {'status':6s} "
           f"{'compute_s':>10s} {'memory_s':>10s} {'coll_s':>10s} {'dom':>10s} "
-          f"{'useful':>7s} {'args/dev':>9s} {'trace':>8s}")
+          f"{'useful':>7s} {'mem/dev':>9s} {'trace':>8s}")
     for r in load(out_dir):
         rl = r.get("roofline") or {}
         mem_gb = ((rl.get("memory_per_device_bytes") or {}).get("per_device_total") or 0) / 1e9

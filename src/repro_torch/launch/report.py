@@ -29,24 +29,44 @@ def fmt_bytes(b: float) -> str:
     return f"{b/1e9:.1f}G" if b >= 1e8 else f"{b/1e6:.0f}M"
 
 
+def fit_verdict(r: Dict[str, Any]) -> str:
+    """"yes", or the lever of a cell whose arguments and temporaries do not
+    fit a device's 80 GB (as JAX's report names its levers)."""
+    if r.get("fits_hbm_80g"):
+        return "yes"
+    mem = r["roofline"]["memory_per_device_bytes"]
+    levers = []
+    if r.get("kind") == "train":
+        if (r.get("variant") or {}).get("remat") != "block":
+            levers.append("--remat block")
+        levers.append("--microbatches")
+    else:
+        levers.append("a smaller batch")
+    levers.append("a larger mesh")
+    return (f"NO: does not fit: temporaries {fmt_bytes(mem['temp_bytes'])} of "
+            f"{fmt_bytes(mem['per_device_total'])}; try {' / '.join(levers)}")
+
+
 def dryrun_table(rows: List[Dict[str, Any]], mesh: str) -> str:
     out = [
         f"### Mesh `{mesh}`",
         "",
-        "| arch | shape | B x S | status | trace (s) | argument bytes | fits 80G HBM (arguments) |",
-        "|---|---|---|---|---|---|---|",
+        "| arch | shape | B x S | status | trace (s) | arguments | temporaries | total a device "
+        "| fits 80G HBM |",
+        "|---|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         if r.get("mesh") != mesh:
             continue
         bs = f"{r.get('global_batch', '?')} x {r.get('seq_len', '?')}"
         if r["status"] != "OK":
-            out.append(f"| {r['arch']} | {r['shape']} | {bs} | {r['status']} | — | — | "
+            out.append(f"| {r['arch']} | {r['shape']} | {bs} | {r['status']} | — | — | — | — | "
                        f"{r.get('reason') or r.get('error', '')} |")
             continue
-        mem = (r["roofline"].get("memory_per_device_bytes") or {}).get("per_device_total", 0)
+        mem = r["roofline"].get("memory_per_device_bytes") or {}
         out.append(f"| {r['arch']} | {r['shape']} | {bs} | OK | {r.get('trace_s', 0):.1f} | "
-                   f"{fmt_bytes(mem)} | {'yes' if r.get('fits_hbm_80g') else 'NO'} |")
+                   f"{fmt_bytes(mem['argument_bytes'])} | {fmt_bytes(mem['temp_bytes'])} | "
+                   f"{fmt_bytes(mem['per_device_total'])} | {fit_verdict(r)} |")
     return "\n".join(out)
 
 

@@ -22,6 +22,10 @@ estimate of XLA's "bytes accessed".  The collective bytes are
 ``comm_cost``'s, the twin of JAX's ``parse_collective_bytes`` and
 ``hlo_cost`` (which read them from XLA's partitioned HLO).
 
+``memory_per_device_bytes`` carries the dry run's memory fields, JAX's:
+``argument_bytes``, ``output_bytes``, ``temp_bytes`` (``launch.memory``),
+``alias_bytes`` and ``per_device_total = argument_bytes + temp_bytes``.
+
 MODEL_FLOPS = 6.N.D for training (N params, active params for MoE; D
 tokens), 2.N_active.tokens for forward-only (prefill/decode) cells; the
 ratio MODEL/counted flags remat and attention work beyond 6.N.D.

@@ -14,9 +14,22 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from .. import DeviceLike, resolve_device
 from ..models import Model
+
+
+def _summed(logits: Any) -> Any:
+    """``DTensor`` logits whose pending sums (``Partial``: a batch too small
+    to split over the data axes leaves the head's contraction split there)
+    are reduced and whose vocabulary is gathered, so that the argmax is a
+    local one: an argmax over partial sums would be wrong, and DTensor's
+    own over a split vocabulary fails then.  One token's (B, V) a step."""
+    if not isinstance(logits, DTensor) or not any(isinstance(p, Partial)
+                                                  for p in logits.placements):
+        return logits
+    return logits.redistribute(logits.device_mesh, [Replicate()] * logits.device_mesh.ndim)
 
 
 def make_serve_step(model: Model) -> Callable:
@@ -24,7 +37,7 @@ def make_serve_step(model: Model) -> Callable:
 
     def step(params: Any, cache: Dict[str, Any], tokens: torch.Tensor):
         logits, cache = model.decode_step(params, cache, tokens)
-        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+        return torch.argmax(_summed(logits), dim=-1).to(torch.int32), cache
 
     return step
 

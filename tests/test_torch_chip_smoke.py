@@ -1451,12 +1451,17 @@ def test_dtensor_decode_driver_is_bit_equal_on_one_device(gloo_mesh11):
 
 def test_dryrun_verdict_fails_a_null_collective_term():
     """Phase 7(c) fails a production-mesh record whose collective term is
-    null (the PR before the partitioned dry run wrote such records), a
+    null (the PR before the partitioned dry run wrote such records), one
+    whose temporaries are null (the PRs before the memory analysis), a
     failed record, and passes a partitioned one."""
     good = {"status": "OK", "roofline": {
         "collective_s": 1.5, "collective_bytes_per_device": 7.5e10,
-        "collective_breakdown": {"total": 7.5e10, "counts": {"all-gather": 3}}}}
+        "collective_breakdown": {"total": 7.5e10, "counts": {"all-gather": 3}},
+        "memory_per_device_bytes": {"argument_bytes": 9, "temp_bytes": 12}}}
     assert chip_smoke.dryrun_verdict(good) == ""
+    no_temp = {**good, "roofline": {**good["roofline"], "memory_per_device_bytes": {
+        "argument_bytes": 9, "temp_bytes": None}}}
+    assert "null temp_bytes" in chip_smoke.dryrun_verdict(no_temp)
     null = {"status": "OK", "roofline": {"collective_s": None,
                                          "collective_bytes_per_device": None,
                                          "collective_breakdown": {"total": None, "counts": None}}}
@@ -1480,3 +1485,105 @@ def test_dryrun_cells_run_the_first_at_full_size(tmp_path):
     rec, _ = chip_smoke.run_dryrun_cell("kimi", "train_4k", "multi", str(tmp_path), True, run)
     assert rec == {"status": "OK"}
     assert seen[0][-3:] == ["--reduced", "--tag", "reduced"]
+
+
+# ---------------------------------------------------------------------------
+# the memory checks (phases 2, 3 and 5): their logic on the CPU, the card's
+# allocations stood in for by the CUDA route's own allocations on meta
+# ---------------------------------------------------------------------------
+def _card_route_ssd_bwd(monkeypatch, args):
+    """What ``ssd_scan_bwd``'s CUDA route allocates, counted on meta: the
+    wrapper's six outputs, then the launch function's scratch (its kernels
+    a stub library)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.memory import MemoryTracker
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = lambda *a: 0  # noqa: E731
+            fn.argtypes = fn.restype = None
+            return fn
+
+    monkeypatch.setattr(ssd_kernel, "_lib", lambda *a: Lib())
+    monkeypatch.setattr(ssd_kernel, "_stream", lambda t: 0)
+    x, dt, a, Bm, Cm, D, dy = args
+    with MemoryTracker() as mt:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        outs = (torch.empty_like(x), torch.empty(dt.shape, **f32), torch.empty((80,), **f32),
+                torch.empty_like(Bm), torch.empty_like(Cm), torch.empty((80,), **f32))
+        ssd_kernel.ssd_scan_bwd_launch(x, dt, a, Bm, Cm, D, dy, None, outs[0], outs[1],
+                                       outs[2], outs[3], outs[4], outs[5])
+    return mt.peak
+
+
+def _ssd_bwd_args():
+    import torch
+
+    m = dict(device="meta")
+    return (torch.empty((1, 8192, 80, 64), **m), torch.empty((1, 8192, 80), **m),
+            torch.empty((80,), **m), torch.empty((1, 8192, 1, 128), **m),
+            torch.empty((1, 8192, 1, 128), **m), torch.empty((80,), **m),
+            torch.empty((1, 8192, 80, 64), **m))
+
+
+def _plant_gap(monkeypatch):
+    """Drops the chunk states from the tracker's reckoning of the SSD
+    backward's scratch (the launch still allocates them)."""
+    from repro_torch.launch import memory
+
+    full = memory.KERNEL_SCRATCH["ssd_scan_bwd"]
+    monkeypatch.setitem(memory.KERNEL_SCRATCH, "ssd_scan_bwd",
+                        lambda *a: {k: v for k, v in full(*a).items() if k != "rstate"})
+
+
+@pytest.mark.parametrize("gap", [False, True])
+def test_kernel_memory_check_fails_a_dropped_scratch_tensor(gap, monkeypatch):
+    """Phase 2's per-kernel check at ``ssd_scan_bwd``'s main case: the CUDA
+    route's allocations equal the meta charge (within 512 B a tensor), and a
+    scratch tensor dropped from the tracker's reckoning fails it."""
+    from repro_torch.kernels import ssd_scan_bwd
+    from repro_torch.launch.memory import MemoryTracker
+
+    args = _ssd_bwd_args()
+    rise = _card_route_ssd_bwd(monkeypatch, args)
+    if gap:
+        _plant_gap(monkeypatch)
+    with MemoryTracker() as mt:
+        ssd_scan_bwd(*args)
+    rec = chip_smoke.kernel_memory_verdict("ssd_scan_bwd", rise, mt.peak,
+                                           mt.allocations + mt.scratch_allocations)
+    assert rec["ok"] is (not gap)
+    assert rec["tensors"] == (13 if gap else 14) and (rise == mt.peak) is (not gap)
+
+
+@pytest.mark.parametrize("gap", [False, True])
+def test_step_memory_check_fails_a_dropped_scratch_tensor(gap, monkeypatch):
+    """Phases 3 and 5's per-step check, on a step of one kernel call whose
+    scratch is most of its memory (``ssd_scan_bwd`` at mamba2's train shape):
+    measured = its arguments + the CUDA route's rise; predicted = its
+    arguments + the meta peak.  Equal, it passes; with the chunk states
+    (335.5 MB) dropped from the tracker's reckoning it is 26% short of the
+    1.28 GB measured and fails the 10% limit."""
+    from repro_torch.kernels import ssd_scan_bwd
+    from repro_torch.launch.memory import MemoryTracker
+
+    args = _ssd_bwd_args()
+    arg_bytes = chip_smoke.tree_bytes(args)
+    measured = arg_bytes + _card_route_ssd_bwd(monkeypatch, args)
+    if gap:
+        _plant_gap(monkeypatch)
+    with MemoryTracker() as mt:
+        ssd_scan_bwd(*args)
+    rec = chip_smoke.step_memory_verdict("train x", arg_bytes + mt.peak, measured)
+    assert rec["ok"] is (not gap)
+    assert rec["ratio"] == 1.0 if not gap else 0.73 < rec["ratio"] < 0.75
+    assert rec["tol"] == chip_smoke.MEM_STEP_TOL == 0.10
+
+
+def test_tree_bytes_walks_tuples_lists_and_dicts():
+    import torch
+
+    t = torch.empty((4, 8), dtype=torch.bfloat16, device="meta")
+    assert chip_smoke.tree_bytes((t, [t, {"a": t, "pos": 3}], None)) == 3 * 64

@@ -328,8 +328,9 @@ def test_dryrun_flops_match_jax_dot_flops():
 
 def test_dryrun_one_full_config_on_meta():
     """starcoder2-3b's train_4k cell at full width, in seconds and no
-    memory: the counted FLOPs over 6.N.D, the H100 roofline, temp_bytes
-    null; on the production meshes the partitioned step's count on one
+    memory: the counted FLOPs over 6.N.D, the H100 roofline, the step's
+    temporaries counted (256 x 4096 tokens' activations do not fit one
+    card); on the production meshes the partitioned step's count on one
     device (between the even split and the one-card count: the 24 heads do
     not divide the 16-wide model axis, so attention is replicated), the
     arguments' shard bytes per device and a collective term."""
@@ -338,8 +339,10 @@ def test_dryrun_one_full_config_on_meta():
     assert rec["status"] == "OK" and rl["chips"] == 1 and rl["collective_s"] == 0.0
     assert 1.0 < 1.0 / rl["useful_ratio"] < 2.0  # remat recomputes the forward
     assert rl["compute_s"] == rl["flops_per_device"] / 989e12
-    assert rl["memory_per_device_bytes"]["temp_bytes"] is None
-    assert rec["fits_hbm_80g"] is True
+    mem = rl["memory_per_device_bytes"]
+    assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 80e9
+    assert mem["per_device_total"] == mem["argument_bytes"] + mem["temp_bytes"]
+    assert rec["fits_hbm_80g"] is False
     for mesh, chips in (("single", 256), ("multi", 512)):
         big = dryrun.run_cell("starcoder2-3b", "train_4k", mesh)
         brl = big["roofline"]
