@@ -31,6 +31,8 @@ critical path:
    accelerator-idle / fetch / transfer / compute; a rolling window of the
    same numbers goes to the session's ``report_feed_stall`` (the service
    client's dispatcher heartbeat), the autoscaler's client-latency signal.
+   The counters are mirrored in the process registry
+   (``repro_torch.obs.get_registry()``), beside the train step's phases.
 
 The feeder imports nothing of the service: it takes any object with
 ``.session(**overrides)`` (a distributed dataset), or a raw dataset with
@@ -48,6 +50,7 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..dist.context import AbstractMesh
 from ..dist.placement import mesh_device
+from ..obs import get_registry, span
 from .metrics import FeedMetrics, StallWindow
 from .sharded import (PinnedRing, host_layout, infer_batch_shardings, leaf_nbytes, leaves,
                       local_arrays, put_batch, resolve_shardings, shard_payloads, sharding_mesh,
@@ -170,7 +173,7 @@ class DeviceFeeder:
             sharding_mode = "static" if self._num_hosts > 1 else "dynamic"
         self.sharding_mode = sharding_mode
 
-        self.metrics = FeedMetrics()
+        self.metrics = FeedMetrics(registry=get_registry())
         self._window = StallWindow(self.metrics)
         self._report_interval = report_interval_s
         self._last_report = time.perf_counter()
@@ -342,22 +345,24 @@ class DeviceFeeder:
 
         The blocked time is the accelerator-idle metric: with the double
         buffer keeping up it is ~0; when it grows, the feed (service fetch or
-        host→device transfer) is the bottleneck.
+        host→device transfer) is the bottleneck.  Under the profiler the
+        wait is the span ``feed.wait``.
         """
         t0 = time.perf_counter()
         compute = None if self._last_return is None else t0 - self._last_return
         deadline = None if timeout is None else t0 + timeout
-        while True:
-            if self._closed.is_set():
-                raise StopIteration("feeder closed")
-            try:
-                item = self._queue.get(timeout=0.1)
-                break
-            except queue.Empty:
-                if deadline is not None and time.perf_counter() > deadline:
-                    raise TimeoutError(
-                        f"no batch after {timeout:.1f}s (service stalled?)"
-                    )
+        with span("feed.wait"):
+            while True:
+                if self._closed.is_set():
+                    raise StopIteration("feeder closed")
+                try:
+                    item = self._queue.get(timeout=0.1)
+                    break
+                except queue.Empty:
+                    if deadline is not None and time.perf_counter() > deadline:
+                        raise TimeoutError(
+                            f"no batch after {timeout:.1f}s (service stalled?)"
+                        )
         now = time.perf_counter()
         if item is self._END:
             self._queue.put(self._END)  # idempotent end for later calls

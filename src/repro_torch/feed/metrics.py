@@ -38,10 +38,13 @@ class FeedMetrics:
     ``batches_fetched``/``bytes_to_device``; consumer thread: the rest), so
     mutation goes through the ``add_*`` helpers which hold ``_lock``.
 
-    The dataclass fields stay the source of truth — ``StallWindow`` and the
-    feeder tests read them directly under ``_lock`` — but every write is
-    mirrored into ``registry`` (``feed_*`` families) so the feeder shows up
-    in metrics dumps alongside the client/worker registries.
+    The dataclass fields stay the source of truth — ``StallWindow``,
+    ``summary()`` and the benchmark's ``feed_wait_ms`` read them directly —
+    but every write is mirrored into ``registry`` (``feed_*`` families).  A
+    ``DeviceFeeder`` passes the process registry
+    (``repro_torch.obs.get_registry()``), so one ``snapshot()`` of it shows
+    the feed's series beside the train step's ``train_phase_seconds``; a
+    ``FeedMetrics()`` made alone keeps a registry of its own.
     """
 
     steps: int = 0  # batches handed to the consumer

@@ -34,9 +34,15 @@ from torch.distributed.tensor.experimental import local_map
 from .. import DeviceLike
 from ..bridge import map_with_paths
 from ..models import Model
+from ..obs import PhaseClock, tracing
 from . import optimizer as opt
 
 PAD_ID = 0  # label id treated as padding (masked out of the loss)
+
+# device seconds of the forward, backward and optimizer phases of the steps
+# the profiler records; the benchmark's forward_ms, backward_ms, optimizer_ms
+PHASES = PhaseClock("train_phase_seconds",
+                    "device seconds of each phase of the train step, while traced")
 
 
 def _vocab_dim(logits: Any) -> Optional[int]:
@@ -193,39 +199,48 @@ def make_train_step(
                 g.zero_()
         return buffers["grads"]
 
+    def fold(a, g):
+        if a is not g:
+            a.add_(g)
+            g.zero_()
+
     def step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
-        grads = grad_buffers(params)
+        dev = opt._leaves(params)[0].device if tracing() else None
         if microbatches <= 1:
-            loss, aux = loss_fn(_graph_params(params, grads, repeats), batch)
-            loss.backward()
+            with PHASES.span("train.forward", "forward", dev):
+                grads = grad_buffers(params)
+                loss, aux = loss_fn(_graph_params(params, grads, repeats), batch)
+            with PHASES.span("train.backward", "backward", dev):
+                loss.backward()
             loss = loss.detach()
             aux = {k: v.detach() for k, v in aux.items()}
         else:
-            # f32 sums: straight into the f32 buffers, through f32 copies for others
-            acc = _map2(params, grads, lambda p, g: g if g.dtype == torch.float32
-                        else torch.zeros(g.shape, dtype=torch.float32, device=g.device))
             loss = None
             for i in range(microbatches):
-                mb = {k: v.reshape((microbatches, -1) + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                l, _ = loss_fn(_graph_params(params, grads, repeats), mb)
-                l.backward()
+                with PHASES.span("train.forward", "forward", dev):
+                    if i == 0:
+                        grads = grad_buffers(params)
+                        # f32 sums: straight into the f32 buffers, through f32 copies for others
+                        acc = _map2(params, grads, lambda p, g: g if g.dtype == torch.float32
+                                    else torch.zeros(g.shape, dtype=torch.float32,
+                                                     device=g.device))
+                    mb = {k: v.reshape((microbatches, -1) + tuple(v.shape[1:]))[i]
+                          for k, v in batch.items()}
+                    l, _ = loss_fn(_graph_params(params, grads, repeats), mb)
+                with PHASES.span("train.backward", "backward", dev):
+                    l.backward()
+                    _map2(acc, grads, fold)
                 loss = l.detach() if loss is None else loss + l.detach()
-
-                def fold(a, g):
-                    if a is not g:
-                        a.add_(g)
-                        g.zero_()
-
-                _map2(acc, grads, fold)
-            grads = acc
-            for g in opt._leaves(grads):
-                g.div_(microbatches)
             loss = loss / microbatches
             zero = torch.zeros((), device=loss.device)
             aux = {"loss": loss, "z_loss": zero, "accuracy": zero.clone()}
-        _, new_opt, om = opt.apply_updates(params, grads, state["opt"], opt_cfg)
+        with PHASES.span("train.optimizer", "optimizer", dev):
+            if microbatches > 1:
+                grads = acc
+                for g in opt._leaves(grads):
+                    g.div_(microbatches)
+            _, new_opt, om = opt.apply_updates(params, grads, state["opt"], opt_cfg)
         state["opt"] = new_opt
         metrics = {**aux, **om, "total_loss": loss}
         return state, metrics
