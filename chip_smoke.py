@@ -92,7 +92,13 @@ every phase passed):
               device (SDPA's beside attention).
               Last, decode's device time at 1-128 splits beside the card
               plan's pick (``SPLIT_SWEEP``), from which the plan's constants
-              were set.  Then the memory check of each of the eight kernels
+              were set.  Then the causal conv's cases (``conv_cases``, on
+              their own generator, ``CONV_SEED``): forward and backward
+              against the plain versions in f64 at mamba2-2.7b's train
+              shape and jamba-v0.1-52b's, and at its edges, bit-equal
+              across two runs, beside the plain versions' times, the
+              bytes bound and, at the main shapes, the time of the glue
+              they replaced.  Then the memory check of each of the ten kernels
               (``phase_kernel_memory``): one call at its main case after a
               warm-up, its rise of ``max_memory_allocated`` against what
               ``repro_torch.launch.memory.MemoryTracker`` charges the same
@@ -227,6 +233,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # kernels, one copy in the port (``repro_torch.launch.flops``).
 try:
     from repro_torch.launch.flops import (HBM_BYTES_PER_S, PEAK_FLOPS, augment_bound, bound,
+                                          conv_bwd_flops, conv_bytes, conv_flops,
                                           decode_bytes, decode_flops, flash_flops,
                                           router_bwd_flops, router_bytes, router_flops,
                                           ssd_bwd_flops, ssd_bwd_product_flops, ssd_flops,
@@ -404,6 +411,27 @@ ROUTER_BWD_CASES = (
 # (32/8: G = 4); f32 on the scalar route, non-causal Sq = 100 over Sk = 300
 # and G = 6.  Each records its device time beside SDPA's backward.
 SLICE10_SEED = 21
+# (name, B, L, d_inner, G N, heads, x dtype, w dtype) of the causal conv's
+# cases: mamba2-2.7b's train shape (B 4, L 2048: Ch 5376, bf16 activations,
+# f32 params, as the benchmark's cell runs it) and jamba-v0.1-52b's mixer (B
+# 1, L 4096, as its train run here: Ch 8224); then the edges: L of 1 and 5
+# (one short strip, ending within the conv's 3 rows of L), 130 (a strip of a
+# second block), f32 activations with bf16 weights, bf16 both, and widths no
+# multiple of the vector (the element-wise route).
+CONV_SEED = 22
+CONV_CASES = (
+    ("mamba2_train_B4_L2048", 4, 2048, 5120, 128, 80, "bfloat16", "float32"),
+    ("jamba_train_B1_L4096", 1, 4096, 8192, 16, 128, "bfloat16", "float32"),
+    ("L1", 2, 1, 256, 16, 8, "bfloat16", "float32"),
+    ("L5_f32", 2, 5, 256, 16, 8, "float32", "float32"),
+    ("L130_bf16_weights", 2, 130, 256, 16, 8, "float32", "bfloat16"),
+    ("L130_bf16_both", 2, 130, 256, 16, 8, "bfloat16", "bfloat16"),
+    ("unaligned_widths_L300", 2, 300, 250, 13, 5, "bfloat16", "float32"),
+)
+# of the largest |reference| entry, beside one rounding to the output's
+# dtype: the kernels sum in f32 in another order than f64 (the f32 forward
+# in the plain version's own order, so within this of it too)
+CONV_TOL = 1e-5
 FLASH_BWD_CASES_SLICE10 = (
     ("whisper_encoder_bwd_S1500", 8, 1500, 1500, 20, 20, 64, "bfloat16", dict(causal=False)),
     ("whisper_cross_bwd_Sq448_Sk1500", 8, 448, 1500, 20, 20, 64, "bfloat16",
@@ -449,7 +477,8 @@ ROUTER_CASES_SLICE10 = tuple((f"jamba_T{T}_E16_k2", T, 16, 2) for T in (8, 4096,
 NO_SPILL_KERNELS = ("decode_kernel", "decode_merge_kernel", "ssd_chunk_state", "ssd_state_pass",
                     "ssd_chunk_out", "route_blocks", "add_prefix", "augment_rows",
                     "ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk",
-                    "ssd_bwd_group_sum", "ssd_bwd_head_sum", "route_bwd")
+                    "ssd_bwd_group_sum", "ssd_bwd_head_sum", "route_bwd",
+                    "causal_conv_fwd_kernel", "causal_conv_bwd_kernel", "causal_conv_bwd_reduce")
 # bf16 only: largest error in a row over that row's RMS in the f32 plain
 # output.  A bf16 step is 2^-8 of a value, so a right kernel stays near
 # 2^-8 * (row max / row RMS), about 0.015; one key too many or too few in a
@@ -1254,6 +1283,137 @@ def backward_cases():
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 2, last: the mamba2 mixer's causal conv, forward and backward
+# ---------------------------------------------------------------------------
+def conv_inputs(B, L, di, gn, H, xdt, wdt, gen):
+    """The (x, B, C) columns as the mixer reads them in place from a (z, x,
+    B, C, dt) row of the in_proj output, and w (4, Ch) and b (Ch,) at the
+    port's init scale of w (0.5) with a bias of 0.1."""
+    import torch
+
+    Ch = di + 2 * gn
+    zxbcdt = torch.randn((B, L, 2 * di + 2 * gn + H), generator=gen, device="cuda")
+    xbc = zxbcdt.to(getattr(torch, xdt))[..., di:di + Ch]
+    w = (torch.randn((4, Ch), generator=gen, device="cuda") * 0.5).to(getattr(torch, wdt))
+    b = (torch.randn((Ch,), generator=gen, device="cuda") * 0.1).to(getattr(torch, wdt))
+    return xbc, w, b
+
+
+def conv_err(got, want64) -> float:
+    """The largest |got - want| over what one step of got's dtype (2^-7 of
+    a bf16 value: a value rounded once is within half of it, and the f32
+    sums before the rounding can move it across a rounding boundary) plus
+    ``CONV_TOL`` of the largest |want| allows: 1 or less passes."""
+    import torch
+
+    step = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    allowed = step * want64.abs() + CONV_TOL * float(want64.abs().max())
+    return float(((got.double() - want64).abs() / allowed.clamp_min(1e-300)).max())
+
+
+def conv_case(name, B, L, di, gn, H, xdt, wdt, gen=None):
+    """``causal_conv`` and ``causal_conv_bwd`` against their plain versions
+    in f64 on the card (``conv_err``: each output and gradient within one
+    step of its dtype plus ``CONV_TOL`` of its largest entry), the f32
+    forward also against the plain version in its own dtypes, and two runs
+    of each bit-equal.  Times: the kernels (CUDA events over 20 calls and
+    the profiler's device time), the plain versions, and at L >= 2048 the
+    glue the kernels replaced in the mixer (autograd through the plain
+    forward: its backward alone, ``glue_bwd_ms``); bounds at the bytes
+    (``flops.conv_bytes`` at 3.35 TB/s).  Two records: forward, backward."""
+    import torch
+
+    from repro_torch.kernels.causal_conv import (causal_conv, causal_conv_bwd,
+                                                 causal_conv_bwd_ref, causal_conv_ref)
+
+    xbc, w, b = conv_inputs(B, L, di, gn, H, xdt, wdt, gen)
+    x64, w64, b64 = xbc.double(), w.double(), b.double()
+    got, again = causal_conv(xbc, w, b, di), causal_conv(xbc, w, b, di)
+    plain = causal_conv_ref(xbc, w, b, di)
+    want = causal_conv_ref(x64, w64, b64, di)
+    fwd_errs = [conv_err(g, w_) for g, w_ in zip(got, want)]
+    fwd_equal = all(torch.equal(g, a) for g, a in zip(got, again))
+    plain_gap = max(float((g.double() - p.double()).abs().max()) for g, p in zip(got, plain))
+    if got[0].dtype == torch.float32:  # the same op order: near-equal to the plain version
+        fwd_errs.append(plain_gap / (CONV_TOL * max(float(p.abs().max()) for p in plain)))
+    douts = [torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype) for t in got]
+    bgot = causal_conv_bwd(xbc, w, b, *douts)
+    bagain = causal_conv_bwd(xbc, w, b, *douts)
+    bwant = causal_conv_bwd_ref(x64, w64, b64, *douts)
+    bwd_errs = {n: conv_err(g, w_) for n, g, w_ in zip(("dx", "dw", "db"), bgot, bwant)}
+    bwd_equal = all(torch.equal(g, a) for g, a in zip(bgot, bagain))
+    del got, again, plain, want, bgot, bagain, bwant, x64, w64, b64
+    torch.cuda.empty_cache()
+
+    T, Ch = B * L, di + 2 * gn
+    xi, oi = xbc.element_size(), torch.empty((), dtype=torch.promote_types(
+        xbc.dtype, w.dtype)).element_size()
+    recs = []
+    for kernel, fn, plain_fn, flops_, errs, equal in (
+            ("causal_conv", lambda: causal_conv(xbc, w, b, di),
+             lambda: causal_conv_ref(xbc, w, b, di), conv_flops(T, Ch), fwd_errs, fwd_equal),
+            ("causal_conv_bwd", lambda: causal_conv_bwd(xbc, w, b, *douts),
+             lambda: causal_conv_bwd_ref(xbc, w, b, *douts), conv_bwd_flops(T, Ch),
+             list(bwd_errs.values()), bwd_equal)):
+        kernel_ms = time_ms(fn, 20, 2)
+        dev = device_ms(fn, 20)
+        plain_ms = time_ms(plain_fn, 3, 1)
+        nbytes = conv_bytes(T, Ch, xi, oi, backward=kernel.endswith("bwd"))
+        bound_ms, bound_by = bound(flops_, nbytes, "float32")
+        rec = dict(kernel=kernel, case=name, shape=dict(B=B, L=L, d_inner=di, gn=gn, Ch=Ch),
+                   dtype=f"{xdt} x, {wdt} w", max_abs_err=max(errs), err_over_allowed=max(errs),
+                   tol=CONV_TOL, bit_equal_across_runs=equal, kernel_ms=kernel_ms,
+                   device_ms=dev, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                   bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+                   device_bound_share=bound_ms / dev if isinstance(dev, float) else None,
+                   ok=max(errs) <= 1.0 and equal)
+        if kernel == "causal_conv_bwd":
+            rec["errs"] = bwd_errs
+        else:
+            rec["plain_max_abs_gap"] = plain_gap
+        if L >= 2048 and kernel == "causal_conv_bwd":
+            rec["glue_bwd_ms"] = glue_bwd_ms(xbc, w, b, di, douts)
+        log(rec)
+        recs.append(rec)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def glue_bwd_ms(xbc, w, b, di, douts) -> float:
+    """Device time of the backward the mixer ran before the kernel: autograd
+    through the plain forward (per-tap products, pad, SiLU, split), the
+    graph made once and kept."""
+    import torch
+
+    from repro_torch.kernels.causal_conv import causal_conv_ref
+
+    x, w_, b_ = (t.detach().requires_grad_() for t in (xbc, w, b))
+    outs = causal_conv_ref(x, w_, b_, di)
+    ms = time_ms(lambda: torch.autograd.grad(outs, (x, w_, b_), douts, retain_graph=True), 3, 1)
+    del outs
+    return ms
+
+
+def conv_cases():
+    """The causal-conv cases (``CONV_CASES``), on their own generator
+    (``CONV_SEED``), after phase 2's parity cases: they move no earlier
+    case's inputs."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    g = torch.Generator(device="cuda").manual_seed(CONV_SEED)
+    recs = [r for name, *shape in CONV_CASES for r in conv_case(name, *shape, gen=g)]
+    bad = [(r["kernel"], r["case"]) for r in recs if not r["ok"]]
+    if bad:
+        raise SystemExit(f"causal conv parity failed: {bad}")
+    log(f"causal conv parity: {len(recs)} records passed; launches while comparing (not "
+        f"counted as main path): {launch_counts()}")
+    reset_launch_counts()
+    return recs
+
+
 def augment_inputs(B, H, W, C, oh, ow, corners, gen, alternate_flips=False):
     """images, crops, flips, mean, std on the card.  ``corners="random"``:
     each corner within the image, as the JAX suite draws them;
@@ -1520,9 +1680,9 @@ def kernel_memory_cases(gen):
     (``MAIN_CASE``'s shapes)."""
     import torch
 
-    from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
-                                     fused_augment, moe_router, moe_router_bwd, ssd_scan,
-                                     ssd_scan_bwd)
+    from repro_torch.kernels import (causal_conv, causal_conv_bwd, decode_attention,
+                                     flash_attention, flash_attention_bwd, fused_augment,
+                                     moe_router, moe_router_bwd, ssd_scan, ssd_scan_bwd)
     from repro_torch.kernels.flash_attention import flash_attention_with_lse
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1548,6 +1708,10 @@ def kernel_memory_cases(gen):
     flips = torch.randint(0, 2, (256,), generator=gen, device="cuda", dtype=torch.int32)
     mean = torch.tensor(IMAGENET_MEAN, device="cuda")
     std = torch.tensor(IMAGENET_STD, device="cuda")
+    # the conv at the benchmark cell's shape, drawn after every earlier input
+    _, B_, L_, di, gn, H_, xdt, wdt = CONV_CASES[0]
+    xbc, w, b = conv_inputs(B_, L_, di, gn, H_, xdt, wdt, gen)
+    douts = [randn(B_, L_, n) for n in (di, gn, gn)]
     return [
         ("flash_attention", (q, k, v), lambda *t: flash_attention(*t, window=4096)),
         ("flash_attention_bwd", (q, k, v, o, lse, dq),
@@ -1560,6 +1724,8 @@ def kernel_memory_cases(gen):
         ("moe_router_bwd", (ids, gates, randn(4096, 6)), lambda *t: moe_router_bwd(*t, 64)),
         ("fused_augment", (imgs, crops, flips, mean, std),
          lambda *t: fused_augment(*t, out_h=224, out_w=224)),
+        ("causal_conv", (xbc, w, b), lambda *t: causal_conv(*t, di)),
+        ("causal_conv_bwd", (xbc, w, b, *douts), causal_conv_bwd),
     ]
 
 
@@ -1952,8 +2118,9 @@ SORT_SCATTER_KERNEL = "indexing_backward_kernel"
 
 def expected_launches(cfg):
     """Kernel launches of one forward and of one decode step: one per
-    attention layer (flash / decode), per mamba2 layer (ssd_scan, forward
-    only: decode runs the recurrence) and per MoE layer (moe_router).  An
+    attention layer (flash / decode), per mamba2 layer (causal_conv and
+    ssd_scan, forward only: decode runs the recurrence) and per MoE layer
+    (moe_router).  An
     enc-dec forward runs flash in each encoder layer and twice (self and
     cross) in each decoder layer; its decode step runs decode twice a
     decoder layer."""
@@ -1966,7 +2133,7 @@ def expected_launches(cfg):
     attn = sum(m == "attn" for m, _ in pattern)
     ssm = sum(m == "ssm" for m, _ in pattern)
     moe = sum(f == "moe" for _, f in pattern)
-    forward = {"flash_attention": attn, "ssd_scan": ssm, "moe_router": moe}
+    forward = {"flash_attention": attn, "causal_conv": ssm, "ssd_scan": ssm, "moe_router": moe}
     step = {"decode_attention": attn, "moe_router": moe}
     return ({k: v for k, v in forward.items() if v}, {k: v for k, v in step.items() if v})
 
@@ -2450,6 +2617,7 @@ class FamilyBatches(ZipfTokens):
 
 # the kernels with a backward: forward, its backward, and the layers that run it
 BACKWARD_OF = (("flash_attention", "flash_attention_bwd", lambda m, f: m == "attn"),
+               ("causal_conv", "causal_conv_bwd", lambda m, f: m == "ssm"),
                ("ssd_scan", "ssd_scan_bwd", lambda m, f: m == "ssm"),
                ("moe_router", "moe_router_bwd", lambda m, f: f == "moe"))
 
@@ -3258,6 +3426,15 @@ KERNEL_META = {
         replaces="src/repro/models/layers.py:267",
         note="the port's own kernel (route_bwd): no TPU kernel computes it; JAX trains "
              "through autograd of the jnp moe_ffn (XLA)"),
+    "causal_conv": dict(
+        source="src/repro_torch/kernels/csrc/causal_conv.cu",
+        replaces="src/repro/models/layers.py:383",
+        note="the port's own kernel: no TPU kernel computes it; XLA fuses the JAX mixer's "
+             "conv and SiLU, eager PyTorch ran them as a dozen kernels"),
+    "causal_conv_bwd": dict(
+        source="src/repro_torch/kernels/csrc/causal_conv.cu",
+        replaces="src/repro/models/layers.py:383",
+        note="the port's own kernel: JAX trains through autograd of the jnp mixer (XLA)"),
 }
 # the parity case at the main path's shape that each kernel's line reports.
 # ssd_scan's is f32: mamba2-2.7b's mixer runs its conv with the f32 params
@@ -3266,7 +3443,8 @@ KERNEL_META = {
 MAIN_CASE = {"flash_attention": f"main_S{PREFILL_S}", "decode_attention": "main_serve_B8_S256",
              "ssd_scan": "mamba2_prefill_mamba2_regime", "moe_router": "moonshot_prefill",
              "fused_augment": "imagenet_B256", "flash_attention_bwd": f"main_S{PREFILL_S}",
-             "ssd_scan_bwd": "mamba2_train_S8192", "moe_router_bwd": "moonshot_train_T4096"}
+             "ssd_scan_bwd": "mamba2_train_S8192", "moe_router_bwd": "moonshot_train_T4096",
+             "causal_conv": "mamba2_train_B4_L2048", "causal_conv_bwd": "mamba2_train_B4_L2048"}
 
 
 def main() -> int:
@@ -3283,6 +3461,7 @@ def main() -> int:
 
     phase_env()
     recs = phase_kernels(PREFILL_S)
+    recs += conv_cases()
     phase_kernel_memory()
     totals = {}
 

@@ -19,15 +19,20 @@ Kernels:
   moe_router          - MoE softmax, top-k and token-major capacity slots
   moe_router_bwd      - the gates' backward (the gradient of the logits)
   fused_augment       - crop + horizontal flip + normalise of uint8 images
+  causal_conv         - the mamba2 mixer's depthwise causal conv (width 4),
+                        bias and SiLU over (x, B, C), read in place from the
+                        in_proj output; the port's own (XLA fuses it in JAX)
+  causal_conv_bwd     - its backward (dx; dw and db in a fixed order)
 
-Under autograd on a CUDA tensor, ``flash_attention``, ``ssd_scan`` and
-``moe_router`` run their forward and backward kernels through a
+Under autograd on a CUDA tensor, ``flash_attention``, ``ssd_scan``,
+``moe_router`` and ``causal_conv`` run their forward and backward kernels through a
 ``torch.autograd.Function``.  ``decode_attention`` (serving) has no
 backward: on a CUDA tensor that needs a gradient it raises
 (``_grad.refuse_grad``).
 """
 from typing import Dict
 
+from .causal_conv import causal_conv, causal_conv_bwd
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention, flash_attention_bwd
 from .fused_augment import fused_augment
@@ -37,7 +42,8 @@ from .ssd_scan import ssd_scan, ssd_scan_bwd
 KERNELS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
            "decode_attention": decode_attention, "ssd_scan": ssd_scan,
            "ssd_scan_bwd": ssd_scan_bwd, "moe_router": moe_router,
-           "moe_router_bwd": moe_router_bwd, "fused_augment": fused_augment}
+           "moe_router_bwd": moe_router_bwd, "fused_augment": fused_augment,
+           "causal_conv": causal_conv, "causal_conv_bwd": causal_conv_bwd}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -179,6 +179,18 @@ def ssd_heads(fn: Callable, x: Any, dt: Any, a: Any, Bm: Any, Cm: Any, D: Any,
     return _call(local, lay, [x, dt, a, Bm, Cm, D], ins, grads, [x_pl, h_pl])
 
 
+def causal_conv(fn: Callable, x: Any, w: Any, b: Any, **kw: Any) -> Tuple[Any, Any, Any]:
+    """``fn(x, w, b, **kw)`` -> (xs, B, C) on local shards: batch over the data
+    axes, time and channels whole (a causal conv cannot be cut along time
+    without a halo); w and b whole, their gradient a sum over the data
+    axes."""
+    lay = _Layout(x.device_mesh)
+    x_pl = lay.place(x, 0)
+    ins = [x_pl] + [lay.place(t, None) for t in (w, b)]
+    grads = [x_pl] + [lay.place(t, None, grad=True, partial_data=True) for t in (w, b)]
+    return _call(lambda *a: fn(*a, **kw), lay, [x, w, b], ins, grads, [x_pl] * 3)
+
+
 def replicated(fn: Callable, args: Sequence[Any], n_out: int, **kw: Any) -> Any:
     """``fn(*args, **kw)`` with every tensor whole on every rank (the router:
     its slots are a prefix over all the tokens, and its top-k needs every

@@ -133,6 +133,45 @@ def _(x, dt, a, Bm, Cm, D, dy, dh_final, *args, out_shape=None, **kwargs):
     return int(F.ssd_bwd_flops(Bsz, L, H, P, Bm[3], groups=Bm[2]))
 
 
+# --- causal conv ---------------------------------------------------------------
+@torch.library.custom_op("repro_torch::causal_conv", mutates_args=())
+def causal_conv(xbc: Tensor, w: Tensor, b: Tensor, d_inner: int) -> Tuple[Tensor, Tensor, Tensor]:
+    raise _refuse("causal_conv")
+
+
+@causal_conv.register_fake
+def _(xbc, w, b, d_inner):
+    Bsz, L, Ch = xbc.shape
+    gn = (Ch - d_inner) // 2
+    dt = torch.promote_types(xbc.dtype, w.dtype)
+    return (xbc.new_empty((Bsz, L, d_inner), dtype=dt), xbc.new_empty((Bsz, L, gn), dtype=dt),
+            xbc.new_empty((Bsz, L, gn), dtype=dt))
+
+
+@register_flop_formula(torch.ops.repro_torch.causal_conv)
+def _(xbc, w, b, d_inner, *args, out_shape=None, **kwargs):
+    Bsz, L, Ch = xbc
+    return int(F.conv_flops(Bsz * L, Ch, w[0]))
+
+
+@torch.library.custom_op("repro_torch::causal_conv_bwd", mutates_args=())
+def causal_conv_bwd(xbc: Tensor, w: Tensor, b: Tensor, dxs: Tensor, dB: Tensor,
+                    dC: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    raise _refuse("causal_conv_bwd")
+
+
+@causal_conv_bwd.register_fake
+def _(xbc, w, b, dxs, dB, dC):
+    return (xbc.new_empty(xbc.shape), torch.empty_like(w, memory_format=torch.contiguous_format),
+            torch.empty_like(b, memory_format=torch.contiguous_format))
+
+
+@register_flop_formula(torch.ops.repro_torch.causal_conv_bwd)
+def _(xbc, w, b, dxs, dB, dC, *args, out_shape=None, **kwargs):
+    Bsz, L, Ch = xbc
+    return int(F.conv_bwd_flops(Bsz * L, Ch, w[0]))
+
+
 # --- MoE router ----------------------------------------------------------------
 @torch.library.custom_op("repro_torch::moe_router", mutates_args=())
 def moe_router(logits: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor]:

@@ -109,6 +109,28 @@ def ssd_bwd_flops(B, L, H, P, N, chunk=64, groups=None) -> float:
 
 
 # ---------------------------------------------------------------------------
+# causal conv (the mamba2 mixer's depthwise conv, bias and SiLU)
+# ---------------------------------------------------------------------------
+def conv_flops(T: int, Ch: int, K: int = 4) -> float:
+    """A depthwise causal conv of width K over T tokens of Ch channels: a
+    multiply and an add a tap (2 K T Ch; the bias and SiLU not counted)."""
+    return 2.0 * K * T * Ch
+
+
+def conv_bwd_flops(T: int, Ch: int, K: int = 4) -> float:
+    """Its backward: the input's gradient and the weights', 2 K T Ch each."""
+    return 4.0 * K * T * Ch
+
+
+def conv_bytes(T: int, Ch: int, x_item: int, out_item: int, backward: bool = False) -> float:
+    """Forward: x read and the three outputs written once (T Ch values each).
+    Backward: x and the outputs' gradients read, dx written.  The weights and
+    the backward's partials (under 3% at the mixer's shapes) not counted."""
+    n = float(T * Ch)
+    return n * (2 * x_item + out_item) if backward else n * (x_item + out_item)
+
+
+# ---------------------------------------------------------------------------
 # MoE router
 # ---------------------------------------------------------------------------
 def router_flops(T: int, E: int, k: int) -> float:

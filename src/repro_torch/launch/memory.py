@@ -27,8 +27,9 @@ does not collect them.  Two kinds of allocation are not an op's output:
   op's outputs, freed when the op returns.  Decode's split workspace is
   persistent (one a device and stream, grown to the largest call's need and
   never freed): it is charged when a call grows it and stays live.
-  ``fused_augment`` has none, and its entry says so.  A ``repro_torch`` op
-  with no entry raises rather than count as zero;
+  ``fused_augment`` and the causal conv's forward have none, and their
+  entries say so.  A ``repro_torch`` op with no entry raises rather than
+  count as zero;
 * the temporaries PyTorch's own CUDA kernels allocate inside one op, below
   the dispatcher (``HIDDEN_TEMPORARIES``: ``logsumexp``'s shifted copy of its
   input), charged the same way.
@@ -92,6 +93,18 @@ def _ssd_bwd(x, dt, a, Bm, Cm, D, dy, dh_final) -> Scratch:
     return bwd_scratch(Bsz, L, H, Bm.shape[2], P, Bm.shape[3], x.dtype)
 
 
+def _conv_fwd(xbc, w, b, d_inner) -> Scratch:
+    from ..kernels.causal_conv.kernel import fwd_scratch
+
+    return fwd_scratch(*xbc.shape)
+
+
+def _conv_bwd(xbc, w, b, dxs, dB, dC) -> Scratch:
+    from ..kernels.causal_conv.kernel import bwd_scratch
+
+    return bwd_scratch(*xbc.shape)
+
+
 def _router_fwd(logits, k) -> Scratch:
     from ..kernels.moe_router.kernel import fwd_scratch
 
@@ -131,6 +144,8 @@ KERNEL_SCRATCH: Dict[str, Callable[..., Scratch]] = {
     "flash_attention_bwd": _flash_bwd,
     "ssd_scan": _ssd_fwd,
     "ssd_scan_bwd": _ssd_bwd,
+    "causal_conv": _conv_fwd,
+    "causal_conv_bwd": _conv_bwd,
     "moe_router": _router_fwd,
     "moe_router_bwd": _router_bwd,
     "fused_augment": _augment,

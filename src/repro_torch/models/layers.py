@@ -9,12 +9,13 @@ Conventions:
     the layer always runs the hand-written Hopper kernel (``flash_attention``
     for prefill/forward attention, self and cross, ``decode_attention`` for
     each decode step and each cross-attention decode step,
-    ``ssd_scan`` in ``mamba2_mixer``, ``moe_router`` in ``moe_ffn``): the
-    port has no XLA, so ``attn_impl`` "xla" and "pallas" name the same thing
-    on the card.  On a CPU tensor, "xla" runs the twin of the JAX
-    formulation (``_attn_chunked``, the chunked SSD einsums, ``top_k`` plus
-    cumsum) and "pallas*" the kernel wrapper, whose CPU path is the kernel's
-    plain version - so the CPU tests reach the kernel route's glue too.
+    ``causal_conv`` and ``ssd_scan`` in ``mamba2_mixer``, ``moe_router`` in
+    ``moe_ffn``): the port has no XLA, so ``attn_impl`` "xla" and "pallas"
+    name the same thing on the card.  On a CPU tensor, "xla" runs the twin
+    of the JAX formulation (``_attn_chunked``, the conv's loop over its taps
+    and the chunked SSD einsums, ``top_k`` plus cumsum) and "pallas*" the
+    kernel wrapper, whose CPU path is the kernel's plain version - so the
+    CPU tests reach the kernel route's glue too.
   * The JAX ``moe_ffn`` and ``mamba2_mixer`` call no Pallas kernel; the
     kernels compute the same functions (``tests/test_torch_models.py``
     holds both routes against JAX).
@@ -24,12 +25,12 @@ Conventions:
     embedding lookup, the MoE routing, scatter and gather and the cache
     writes run on each rank's shard.
   * Gradients: under autograd on a CUDA tensor, ``flash_attention``,
-    ``ssd_scan`` and ``moe_router`` run their forward and backward kernels
-    (``FlashAttention``, ``SSDScan``, ``MoERouter``), so the dense, MoE, SSM
-    and hybrid families train on the card; ``decode_attention`` (serving)
-    has no backward kernel and raises rather than return a tensor that cuts
-    the gradient off.  On the CPU every route trains through autograd of the
-    plain versions.
+    ``causal_conv``, ``ssd_scan`` and ``moe_router`` run their forward and
+    backward kernels (``FlashAttention``, ``CausalConv``, ``SSDScan``,
+    ``MoERouter``), so the dense, MoE, SSM and hybrid families train on the
+    card; ``decode_attention`` (serving) has no backward kernel and raises
+    rather than return a tensor that cuts the gradient off.  On the CPU
+    every route trains through autograd of the plain versions.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..dist.context import keep_grad_layout, like_mesh, shard_activations, unshard_dim
+from ..kernels.causal_conv import causal_conv
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
 from ..kernels.moe_router import moe_router
@@ -580,9 +582,12 @@ def _ssd_chunked(xs, Bc, Cc, dt, a, D, cfg: ModelConfig, Q: int) -> torch.Tensor
 def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SSD forward over a full sequence (prefill).  x: (B, L, d).
 
-    The kernel route hands the scan, with D, to ``ssd_scan``: the kernel
-    adds ``D * x`` itself, so it is not added again here, and it reads the
-    G groups of B and C in place (no ``repeat_interleave``)."""
+    The kernel route hands the conv, its bias and SiLU to ``causal_conv``,
+    which reads the (x, B, C) columns of the in_proj output in place and
+    writes the three contiguous tensors the scan takes, and the scan, with
+    D, to ``ssd_scan``: the kernel adds ``D * x`` itself, so it is not added
+    again here, and it reads the G groups of B and C in place (no
+    ``repeat_interleave``)."""
     B, L, d = x.shape
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     di = cfg.ssm_d_inner
@@ -590,19 +595,18 @@ def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 
     # (B, L, 2di + 2GN + H); on a mesh its pieces' widths need it whole
     zxbcdt = unshard_dim(x @ params["in_proj"].to(x.dtype), -1)
-    z, xs, Bc, Cc, dt = torch.split(zxbcdt, [di, di, G * N, G * N, H], dim=-1)
-    xbc = torch.cat([xs, Bc, Cc], dim=-1)
-    xbc = F.silu(_depthwise_causal_conv(xbc, params["conv_w"], params["conv_b"]))
-    xs, Bc, Cc = torch.split(xbc, [di, G * N, G * N], dim=-1)
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float())
     a = -torch.exp(params["A_log"].float())  # (H,)
 
     if x.device.type == "cpu" and cfg.attn_impl == "xla":
+        xbc = F.silu(_depthwise_causal_conv(xbc, params["conv_w"], params["conv_b"]))
+        xs, Bc, Cc = torch.split(xbc, [di, G * N, G * N], dim=-1)
         Y = _ssd_chunked(xs, Bc, Cc, dt, a, params["D"], cfg, Q)
     else:
-        Y = ssd_scan(xs.reshape(B, L, H, P).contiguous(), dt.contiguous(), a,
-                     Bc.reshape(B, L, G, N).contiguous(), Cc.reshape(B, L, G, N).contiguous(),
-                     params["D"].float().contiguous(), chunk=Q)[0]
+        xs, Bc, Cc = causal_conv(xbc, params["conv_w"], params["conv_b"], di)
+        Y = ssd_scan(xs.reshape(B, L, H, P), dt.contiguous(), a, Bc.reshape(B, L, G, N),
+                     Cc.reshape(B, L, G, N), params["D"].float().contiguous(), chunk=Q)[0]
     Y = Y.reshape(B, L, di).to(x.dtype)
     Y = rms_norm(Y * F.silu(z), params["norm_w"])  # gated RMSNorm
     return Y @ params["out_proj"].to(x.dtype)

@@ -388,7 +388,7 @@ def test_split_invariance_checks_the_card_plan():
     "arch,replace,forward,step",
     [
         ("starcoder2-3b", {}, {"flash_attention": 30}, {"decode_attention": 30}),
-        ("mamba2-2.7b", {}, {"ssd_scan": 64}, {}),
+        ("mamba2-2.7b", {}, {"causal_conv": 64, "ssd_scan": 64}, {}),
         ("moonshot-v1-16b-a3b", {}, {"flash_attention": 48, "moe_router": 47},
          {"decode_attention": 48, "moe_router": 47}),
         ("moonshot-v1-16b-a3b", {"num_layers": 4}, {"flash_attention": 4, "moe_router": 3},
@@ -406,10 +406,10 @@ def test_split_invariance_checks_the_card_plan():
         # jamba served at one 7:1 period: 7 mamba2 layers, 1 attention, MoE
         # on every 2nd layer; its f32 check at the 2-layer cut
         ("jamba-v0.1-52b", {"num_layers": 8},
-         {"flash_attention": 1, "ssd_scan": 7, "moe_router": 4},
+         {"flash_attention": 1, "causal_conv": 7, "ssd_scan": 7, "moe_router": 4},
          {"decode_attention": 1, "moe_router": 4}),
         ("jamba-v0.1-52b", {"num_layers": 2, "attn_period": 2, "attn_offset": 1},
-         {"flash_attention": 1, "ssd_scan": 1, "moe_router": 1},
+         {"flash_attention": 1, "causal_conv": 1, "ssd_scan": 1, "moe_router": 1},
          {"decode_attention": 1, "moe_router": 1}),
     ],
 )
@@ -557,8 +557,10 @@ def test_encdec_vlm_cases_cover_the_new_routes(monkeypatch):
     ("starcoder2-3b", {}, {"flash_attention": 60, "flash_attention_bwd": 30}),
     ("starcoder2-3b", {"num_layers": 2}, {"flash_attention": 4, "flash_attention_bwd": 2}),
     ("starcoder2-3b", {"remat": "none"}, {"flash_attention": 30, "flash_attention_bwd": 30}),
-    ("mamba2-2.7b", {}, {"ssd_scan": 128, "ssd_scan_bwd": 64}),
-    ("mamba2-2.7b", {"num_layers": 2}, {"ssd_scan": 4, "ssd_scan_bwd": 2}),
+    ("mamba2-2.7b", {}, {"causal_conv": 128, "causal_conv_bwd": 64, "ssd_scan": 128,
+                         "ssd_scan_bwd": 64}),
+    ("mamba2-2.7b", {"num_layers": 2}, {"causal_conv": 4, "causal_conv_bwd": 2, "ssd_scan": 4,
+                                        "ssd_scan_bwd": 2}),
     # 1 dense layer (a group of its own, not recomputed) + 3 MoE layers
     ("moonshot-v1-16b-a3b", {"num_layers": 4}, {"flash_attention": 7, "flash_attention_bwd": 4,
                                                 "moe_router": 6, "moe_router_bwd": 3}),
@@ -574,8 +576,8 @@ def test_encdec_vlm_cases_cover_the_new_routes(monkeypatch):
     ("qwen2-vl-2b", {}, {"flash_attention": 56, "flash_attention_bwd": 28}),
     # jamba's cut: one group of 2 layers, not repeated, so nothing recomputed
     ("jamba-v0.1-52b", {"num_layers": 2, "attn_period": 2, "attn_offset": 1},
-     {"flash_attention": 1, "flash_attention_bwd": 1, "ssd_scan": 1, "ssd_scan_bwd": 1,
-      "moe_router": 1, "moe_router_bwd": 1}),
+     {"flash_attention": 1, "flash_attention_bwd": 1, "causal_conv": 1, "causal_conv_bwd": 1,
+      "ssd_scan": 1, "ssd_scan_bwd": 1, "moe_router": 1, "moe_router_bwd": 1}),
 ])
 def test_train_launches_per_step(arch, replace, want):
     """A forward per layer that runs the kernel, one more for each such
@@ -798,7 +800,8 @@ def test_d112_and_redesign_cases_cover_the_new_routes():
     ("augment_rows<0>", True), ("fa_fwd_kernel<112,64,64>", True),
     ("dkdv_kernel<112,64,32>", True), ("decode_kernel<112,16>", True),
     ("fa_fwd_kernel<64,128,64>", False), ("dq_kernel<128,64,32>", False),
-    ("delta_kernel", False),
+    ("delta_kernel", False), ("causal_conv_fwd_kernel", True), ("causal_conv_bwd_kernel", True),
+    ("causal_conv_bwd_reduce", True),
 ])
 def test_no_spill_rule(kernel, want):
     """Every Hopper redesign's kernel, every backward kernel of the SSD scan

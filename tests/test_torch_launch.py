@@ -143,6 +143,8 @@ def test_roofline_report_keeps_jax_fields():
 def _op_cases():
     """(name, wrapper call on a device, formula FLOPs, plain version call):
     each kernel op at a small shape the kernels take."""
+    from repro_torch.kernels.causal_conv import (causal_conv, causal_conv_bwd,
+                                                 causal_conv_bwd_ref, causal_conv_ref)
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                      flash_attention_bwd_ref, flash_attention_ref)
@@ -198,6 +200,18 @@ def _op_cases():
         mean, std = torch.rand(3, generator=g), torch.rand(3, generator=g) + 0.5
         return [t.to(dev) for t in (img, crops, flips, mean, std)]
 
+    def conv_in(dev):  # (x, B, C) read in place from a (z, x, B, C, dt) row
+        g = torch.Generator().manual_seed(5)
+        zxbcdt = torch.randn((2, L, 2 * H * P + 2 * G * N + H), generator=g).bfloat16()
+        xbc = zxbcdt[..., H * P:2 * H * P + 2 * G * N]
+        return (xbc.to(dev), torch.randn((4, H * P + 2 * G * N), generator=g).to(dev),
+                torch.randn((H * P + 2 * G * N,), generator=g).to(dev))
+
+    def conv_bwd_in(dev):
+        xbc, w, b = conv_in("cpu")
+        outs = causal_conv_ref(xbc, w, b, H * P)
+        return [t.to(dev) for t in (xbc, w, b, *(torch.ones_like(o) for o in outs))]
+
     fl = flops.flash_flops
     kw = dict(causal=True, window=10, q_offset=16)
     return [
@@ -220,6 +234,10 @@ def _op_cases():
          flops.router_bwd_flops(T, k), lambda *t: moe_router_bwd_ref(*t, E)),
         ("fused_augment", augment_in, lambda *t: fused_augment(*t, out_h=8, out_w=6),
          flops.augment_flops(2, 8, 6, 3), lambda *t: fused_augment_ref(*t, 8, 6)),
+        ("causal_conv", conv_in, lambda *t: causal_conv(*t, H * P),
+         flops.conv_flops(2 * L, H * P + 2 * G * N), lambda *t: causal_conv_ref(*t, H * P)),
+        ("causal_conv_bwd", conv_bwd_in, causal_conv_bwd,
+         flops.conv_bwd_flops(2 * L, H * P + 2 * G * N), causal_conv_bwd_ref),
     ]
 
 
@@ -264,10 +282,10 @@ def test_shape_only_ops_refuse_real_tensors():
 
 def test_meta_autograd_reaches_the_backward_ops():
     """A train step on meta runs each kernel's backward op through its
-    ``autograd.Function`` (FlashAttention, SSDScan, MoERouter)."""
+    ``autograd.Function`` (FlashAttention, CausalConv, SSDScan, MoERouter)."""
     rec = dryrun.run_cell("jamba-v0.1-52b", ShapeConfig("t", 64, 2, "train"), reduced=True)
     assert rec["status"] == "OK"
-    for op in ("flash_attention_bwd", "ssd_scan_bwd", "moe_router_bwd"):
+    for op in ("flash_attention_bwd", "causal_conv_bwd", "ssd_scan_bwd", "moe_router_bwd"):
         assert rec["flops_by_op"][f"repro_torch.{op}"] > 0
 
 

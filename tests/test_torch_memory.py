@@ -21,6 +21,8 @@ from repro.train import make_train_step as jax_train_step  # noqa: E402
 from repro.train import optimizer as jax_opt  # noqa: E402
 from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.kernels import _scratch  # noqa: E402
+from repro_torch.kernels.causal_conv import causal_conv, causal_conv_bwd  # noqa: E402
+from repro_torch.kernels.causal_conv import kernel as conv_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: E402
@@ -121,6 +123,7 @@ def test_a_kernel_op_with_no_scratch_function_raises(monkeypatch):
 B, S, HQ, HKV, D = 1, 80, 4, 2, 32
 L, H, P, NS, G = 80, 4, 32, 16, 1
 T, E, K = 70, 8, 2  # three token blocks of the router
+CH = H * P + 2 * G * NS  # the conv's channels at the SSD case's widths
 
 
 def _kernel_cases():
@@ -132,6 +135,9 @@ def _kernel_cases():
     Bm = _empty((1, L, G, NS))
     ids, gates = _empty((T, K), torch.int32), _empty((T, K))
     imgs = _empty((2, 16, 16, 3), torch.uint8)
+    # the conv's (x, B, C) columns read in place from a (z, x, B, C, dt) row
+    xbc = _empty((1, L, H * P + CH + H), torch.bfloat16)[..., H * P:H * P + CH]
+    w4 = _empty((4, CH))
     return [
         ("flash_attention", (q, kv, kv), lambda *t: flash_attention(*t, window=16),
          flash_kernel.fwd_scratch(B, S, S, HQ, D, bf16)),
@@ -154,6 +160,11 @@ def _kernel_cases():
                            _empty((3,)), _empty((3,))),
          lambda *t: fused_augment(*t, out_h=8, out_w=6),
          augment_kernel.fwd_scratch(2, 16, 16, 3, 8, 6)),
+        ("causal_conv", (xbc, w4, w4[0]), lambda *t: causal_conv(*t, H * P),
+         conv_kernel.fwd_scratch(1, L, CH)),
+        ("causal_conv_bwd", (xbc, w4, w4[0], _empty((1, L, H * P)), _empty((1, L, G * NS)),
+                             _empty((1, L, G * NS))), causal_conv_bwd,
+         conv_kernel.bwd_scratch(1, L, CH)),
     ]
 
 
@@ -243,6 +254,12 @@ def _launch_case(name):
                              _empty((H,)), _empty((1, H, NS, P)))
         return (lambda: ssd_kernel.ssd_scan_fwd(x, dt, vec, Bm, Bm, vec, x, h, chunk=16),
                 ssd_kernel.fwd_scratch(1, L, H, P, NS, 16, torch.float32))
+    if name == "causal_conv_bwd":
+        xbc, w, dxs, dbc = (_empty((1, L, CH), torch.bfloat16), _empty((4, CH)),
+                            _empty((1, L, H * P)), _empty((1, L, G * NS)))
+        return (lambda: conv_kernel.causal_conv_bwd_launch(xbc, w, w[0], dxs, dbc, dbc, xbc,
+                                                           w, w[0]),
+                conv_kernel.bwd_scratch(1, L, CH))
     if name == "moe_router":
         logits, ids, gates = _empty((T, E)), _empty((T, K), torch.int32), _empty((T, K))
         return (lambda: router_kernel.moe_router_fwd(logits, ids, gates, ids, K),
@@ -259,7 +276,8 @@ def _launch_case(name):
 
 
 @pytest.mark.parametrize("name", ["flash_attention_bwd_bf16", "flash_attention_bwd_f32",
-                                  "ssd_scan", "moe_router", "decode_attention"])
+                                  "ssd_scan", "moe_router", "decode_attention",
+                                  "causal_conv_bwd"])
 def test_launch_functions_allocate_their_scratch_function(name, monkeypatch):
     """Each CUDA launch function allocates exactly its ``*_scratch`` (its
     kernels replaced by a stub library; meta tensors stand in)."""
@@ -271,7 +289,7 @@ def test_launch_functions_allocate_their_scratch_function(name, monkeypatch):
         seen.append((tuple(shape), kw.get("dtype")))
         return real_empty(shape, *args, **kw)
 
-    for mod in (flash_kernel, ssd_kernel, router_kernel, decode_kernel):
+    for mod in (flash_kernel, ssd_kernel, router_kernel, decode_kernel, conv_kernel):
         monkeypatch.setattr(mod, "_lib", lambda *a: _Lib())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
     monkeypatch.setattr(decode_kernel, "_workspaces", {})
