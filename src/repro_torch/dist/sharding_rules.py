@@ -14,6 +14,10 @@ over ``plan.fsdp_axis``:
     mesh axis);
   * the embedding shards vocab over the model axis, d_model over fsdp;
   * 1-D params (norm scales, biases, A_log/D/dt_bias) replicate.
+  * The port's own leaves (``use_bias``, ``norm_type="layer"``; JAX has
+    none of them): a projection's bias follows its weight's output split
+    (bq/bk/bv and the MLP's b1 over the model axis, bo and b2 over
+    fsdp), and a LayerNorm's scale and shift replicate, stacked or not.
 
 Every axis assignment is divisibility-gated: a dim that the mesh axis does
 not divide is replicated.  Stacked leaves (a repeated group's leading
@@ -53,7 +57,16 @@ _LEAF_RULES: Dict[str, Tuple[_Role, ...]] = {
     "embed": ("M", "F"),  # Megatron vocab-parallel embedding
     "router": ("F", None),
     "conv_w": (None, None),
+    "bq": ("M",),
+    "bk": ("M",),
+    "bv": ("M",),
+    "bo": ("F",),
+    "b1": ("M",),
+    "b2": ("F",),
 }
+
+# a LayerNorm's leaves (``norm_type="layer"``): replicated
+_LAYER_NORM_LEAVES = ("ln1", "ln2", "final_norm", "ln1_bias", "ln2_bias", "final_norm_bias")
 
 _MOE_RULES: Dict[str, Tuple[_Role, ...]] = {
     "w1": ("E", "F", "X"),
@@ -72,8 +85,10 @@ def _path_names(path: Sequence[Any]) -> Tuple[str, ...]:
     return tuple(k for k in path if isinstance(k, str))
 
 
-def _trailing_roles(names: Tuple[str, ...]) -> Optional[Tuple[_Role, ...]]:
+def _trailing_roles(names: Tuple[str, ...], cfg: ModelConfig) -> Optional[Tuple[_Role, ...]]:
     leaf = names[-1] if names else ""
+    if cfg.norm_type == "layer" and leaf in _LAYER_NORM_LEAVES:
+        return (None,)
     if leaf in ("w1", "w2", "w3"):
         return _MOE_RULES[leaf] if "moe" in names else _MLP_RULES[leaf]
     return _LEAF_RULES.get(leaf)
@@ -124,7 +139,7 @@ def param_spec(path: Sequence[Any], leaf: Any, cfg: ModelConfig, plan: ShardingP
     """Sharding of one parameter leaf, identified by its tree path (a
     sequence of dict keys and list indices)."""
     shape = tuple(getattr(leaf, "shape", ()))
-    roles = _trailing_roles(_path_names(path))
+    roles = _trailing_roles(_path_names(path), cfg)
     if roles is None:
         if len(shape) >= 2:  # unknown matrix: generic (fsdp, model) split
             roles = _IN_PROJ

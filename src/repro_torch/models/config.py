@@ -1,7 +1,9 @@
 """Unified model configuration covering all assigned architecture families.
 
 A field-for-field copy of the JAX package's ``repro.models.config`` (the port
-imports nothing of ``repro``), so a config built here equals its JAX twin.
+imports nothing of ``repro``), so a config built here equals its JAX twin,
+plus three fields of the port's own (``norm_type``, ``norm_eps``,
+``use_bias``) whose defaults are the JAX block.
 One ``ModelConfig`` describes dense GQA transformers, MoE, SSM (mamba2/SSD),
 hybrid (jamba), encoder-decoder (whisper) and VLM-backbone (qwen2-vl) models.
 ``repro_torch/configs/<id>.py`` instantiate the exact assigned configs; smoke
@@ -40,6 +42,15 @@ class ModelConfig:
 
     # MLP
     mlp_act: str = "swiglu"  # swiglu | gelu
+
+    # The port's own fields (the JAX config has none of them; their defaults
+    # are its block): the decoder's block norms and final norm, "rms"
+    # (RMSNorm, a scale) or "layer" (LayerNorm, a scale and a shift), their
+    # eps (also the mamba2 mixer's gated RMSNorm's), and biases on q, k, v,
+    # o and both dense MLP projections (starcoder2's published block).
+    norm_type: str = "rms"  # rms | layer
+    norm_eps: float = 1e-6
+    use_bias: bool = False
 
     # MoE
     num_experts: int = 0
@@ -128,6 +139,11 @@ class ModelConfig:
             per_attn += 2 * self.head_dim
         n_mlp_mats = 3 if self.mlp_act == "swiglu" else 2
         per_dense_ffn = n_mlp_mats * d * ff
+        if self.use_bias:  # q, k, v, o; the MLP's up and down projections
+            per_attn += self.q_dim + 2 * self.kv_dim + d
+            per_dense_ffn += ff + d
+        # a norm's parameters: its scale, and a LayerNorm's shift
+        norm = d * (2 if self.norm_type == "layer" else 1)
         per_moe_ffn = self.num_experts * n_mlp_mats * d * ff + d * self.num_experts
         per_active_moe_ffn = self.experts_per_token * n_mlp_mats * d * ff
         di, N, H = self.ssm_d_inner, self.ssm_state, self.ssm_heads
@@ -144,7 +160,7 @@ class ModelConfig:
             mixer = per_attn if self.is_attn_layer(i) else per_ssm
             ffn = per_moe_ffn if self.is_moe_layer(i) else per_dense_ffn
             ffn_active = per_active_moe_ffn if self.is_moe_layer(i) else per_dense_ffn
-            norms = 2 * d
+            norms = 2 * norm
             total += mixer + ffn + norms
             active += mixer + ffn_active + norms
         for _ in range(self.encoder_layers):  # enc-dec: encoder always dense attn

@@ -24,6 +24,11 @@ Conventions:
     wrappers take their inputs local (``kernels/_boundary.py``), and the
     embedding lookup, the MoE routing, scatter and gather and the cache
     writes run on each rank's shard.
+  * The decoder's block and final norms are RMSNorm or, with
+    ``cfg.norm_type == "layer"``, LayerNorm with a shift, at
+    ``cfg.norm_eps`` (``block_norm``); a projection adds its bias where the
+    tree holds one (``proj``; ``cfg.use_bias``: q, k, v, o and the dense
+    MLP's).  Both are the port's own: the JAX block has neither.
   * Gradients: under autograd on a CUDA tensor, ``flash_attention``,
     ``causal_conv``, ``ssd_scan`` and ``moe_router`` run their forward and
     backward kernels (``FlashAttention``, ``CausalConv``, ``SSDScan``,
@@ -73,6 +78,37 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the last dim with scale ``w`` and shift ``b``, in f32
+    as ``rms_norm`` is, back in x's dtype."""
+    return F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps).to(x.dtype)
+
+
+def block_norm(x: torch.Tensor, p: Params, name: str, cfg: ModelConfig) -> torch.Tensor:
+    """The decoder's norm ``name`` of ``p`` (a block's "ln1" or "ln2", the
+    model's "final_norm") at ``cfg.norm_eps``: RMSNorm of the scale
+    ``p[name]``, or with ``cfg.norm_type == "layer"`` LayerNorm of it and
+    the shift ``p[name + "_bias"]``."""
+    if cfg.norm_type == "layer":
+        return layer_norm(x, p[name], p[f"{name}_bias"], cfg.norm_eps)
+    return rms_norm(x, p[name], cfg.norm_eps)
+
+
+def proj(x: torch.Tensor, p: Params, w: str, b: Optional[str] = None) -> torch.Tensor:
+    """``x @ p[w]``, plus the bias ``p[b]`` where the tree holds one (a
+    config with ``use_bias``), both cast to x's dtype.  Off a mesh the bias
+    is added in the product's epilogue (``F.linear``: cuBLAS's bias
+    epilogue on the card)."""
+    weight = p[w].to(x.dtype)
+    bias = p.get(b)
+    if bias is None:
+        return x @ weight
+    bias = bias.to(x.dtype)
+    if isinstance(x, DTensor):
+        return x @ weight + bias
+    return F.linear(x, weight.t(), bias)
+
+
 def assign(dst: torch.Tensor, src: torch.Tensor) -> None:
     """``dst.copy_(src)``, in place (a cache row, a decode state).  On a mesh
     ``src`` is first laid out as ``dst`` and each rank writes its own shard:
@@ -88,15 +124,19 @@ def assign(dst: torch.Tensor, src: torch.Tensor) -> None:
 # Embedding lookup
 # ---------------------------------------------------------------------------
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Rows ``tokens`` (any shape, integer) of ``table`` (V, d) cast to
-    ``dtype``: ``table[tokens]``.  On a mesh whose dim splits the vocabulary
-    it is Megatron's vocab-parallel lookup (``_vocab_parallel_lookup``)."""
+    """Rows ``tokens`` (any shape, integer) of ``table`` (V, d), gathered in
+    the table's dtype and then cast to ``dtype``: ``table[tokens].to(dtype)``.
+    The backward then adds the gradients of repeated ids in the table's
+    dtype (f32 for f32 params; a bf16 table gathered after its cast adds
+    them in bf16, and a frequent id's gradient stalls), and no cast of the
+    whole table is made.  On a mesh whose dim splits the vocabulary it is
+    Megatron's vocab-parallel lookup (``_vocab_parallel_lookup``)."""
     if isinstance(table, DTensor):
         vdims = [i for i, p in enumerate(table.placements)
                  if isinstance(p, Shard) and p.dim == 0 and table.device_mesh.size(i) > 1]
         if len(vdims) == 1:
             return _vocab_parallel_lookup(table, tokens, dtype, vdims[0])
-    return table.to(dtype)[like_mesh(tokens, table).long()]
+    return table[like_mesh(tokens, table).long()].to(dtype)
 
 
 def _vocab_parallel_lookup(table: DTensor, tokens: torch.Tensor, dtype: torch.dtype,
@@ -119,7 +159,7 @@ def _vocab_parallel_lookup(table: DTensor, tokens: torch.Tensor, dtype: torch.dt
     def lookup(tab, tok):
         idx = tok.long() - lo
         inside = (idx >= 0) & (idx < v_local)
-        rows = tab.to(dtype)[idx.clamp(0, v_local - 1)]
+        rows = tab[idx.clamp(0, v_local - 1)].to(dtype)
         return torch.where(inside[..., None], rows, rows.new_zeros(()))
 
     rows = local_map(lookup, out_placements=(out,), in_placements=(table.placements, whole),
@@ -265,9 +305,9 @@ def _qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
     src = x if src is None else src
     B, S, _ = x.shape
     Sk = src.shape[1]
-    q = split_heads(x @ params["wq"].to(x.dtype), cfg.num_heads)
-    k = split_heads(src @ params["wk"].to(x.dtype), cfg.num_kv_heads)
-    v = split_heads(src @ params["wv"].to(x.dtype), cfg.num_kv_heads)
+    q = split_heads(proj(x, params, "wq", "bq"), cfg.num_heads)
+    k = split_heads(proj(src, params, "wk", "bk"), cfg.num_kv_heads)
+    v = split_heads(proj(src, params, "wv", "bv"), cfg.num_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -299,10 +339,11 @@ def attention(
         # The JAX Pallas branch drops cfg.attn_logit_softcap (layers.py:190-195)
         # while its XLA branch applies it; the port passes it on both, which
         # is the same function for every config (all have softcap 0).
+        # causal, window and softcap go by position: a caller that records
+        # the call's positional arguments sees the whole call.
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out = flash_attention(q, k, v, causal=causal, window=cfg.attn_window,
-                              softcap=cfg.attn_logit_softcap)
-    return keep_grad_layout(out.reshape(B, S, cfg.q_dim)) @ params["wo"].to(x.dtype)
+        out = flash_attention(q, k, v, causal, cfg.attn_window, cfg.attn_logit_softcap)
+    return proj(keep_grad_layout(out.reshape(B, S, cfg.q_dim)), params, "wo", "bo")
 
 
 def _decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -354,7 +395,7 @@ def attention_decode(
         lengths = like_mesh(torch.full((B,), pos + 1, dtype=torch.int32, device=x_t.device), q)
         out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths,
                                window=cfg.attn_window)
-    out = out.reshape(B, 1, cfg.q_dim) @ params["wo"].to(x_t.dtype)
+    out = proj(out.reshape(B, 1, cfg.q_dim), params, "wo", "bo")
     return out, cache
 
 
@@ -385,23 +426,24 @@ def cross_attention_decode(
 # FFN
 # ---------------------------------------------------------------------------
 def mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """The dense FFN.  On a mesh its hidden products are pinned to
+    """The dense FFN, with the biases b1 and b2 where the tree holds them
+    (``use_bias``).  On a mesh its hidden products are pinned to
     Megatron's layout, batch over the data axes and the hidden width over
     the model axis ("...h"): the layout the rules give w1, w3 and w2, which
     keeps DTensor from splitting the tokens over the model axis (strided
     shards on which its strategy search takes minutes)."""
     roles = "bsh"[3 - x.ndim:] if x.ndim <= 3 else None
 
-    def up(w):
-        y = x @ params[w].to(x.dtype)
+    def up(w, b=None):
+        y = proj(x, params, w, b)
         return shard_activations(y, roles) if roles else y
 
     if act == "swiglu":
-        h = F.silu(up("w1")) * up("w3")
+        h = F.silu(up("w1", "b1")) * up("w3")
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(up("w1"), approximate="tanh")
-    return h @ params["w2"].to(x.dtype)
+        h = F.gelu(up("w1", "b1"), approximate="tanh")
+    return proj(h, params, "w2", "b2")
 
 
 def _route_top_k(logits: torch.Tensor, k: int):
@@ -608,7 +650,7 @@ def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
         Y = ssd_scan(xs.reshape(B, L, H, P), dt.contiguous(), a, Bc.reshape(B, L, G, N),
                      Cc.reshape(B, L, G, N), params["D"].float().contiguous(), chunk=Q)[0]
     Y = Y.reshape(B, L, di).to(x.dtype)
-    Y = rms_norm(Y * F.silu(z), params["norm_w"])  # gated RMSNorm
+    Y = rms_norm(Y * F.silu(z), params["norm_w"], cfg.norm_eps)  # gated RMSNorm
     return Y @ params["out_proj"].to(x.dtype)
 
 
@@ -641,7 +683,7 @@ def mamba2_decode(
     h = state["h"] * decay[..., None, None] + torch.einsum("bhn,bh,bhp->bhnp", Bh, dt, xh)
     y = torch.einsum("bhn,bhnp->bhp", Ch, h) + xh * params["D"].float()[None, :, None]
     y = y.reshape(B, 1, di).to(x_t.dtype)
-    y = rms_norm(y * F.silu(z[:, None, :]), params["norm_w"])
+    y = rms_norm(y * F.silu(z[:, None, :]), params["norm_w"], cfg.norm_eps)
     out = y @ params["out_proj"].to(x_t.dtype)
     assign(state["h"], h)
     assign(state["conv"], full[:, 1:])
@@ -682,6 +724,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...]
     if cfg.qk_norm:
         for name in ("q_norm", "k_norm"):
             p[name] = torch.ones(lead + (cfg.head_dim,), dtype=pdt(cfg), device=gen.device)
+    if cfg.use_bias:
+        for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd), ("bo", d)):
+            p[name] = torch.zeros(lead + (n,), dtype=pdt(cfg), device=gen.device)
     return p
 
 
@@ -693,6 +738,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ())
     }
     if cfg.mlp_act == "swiglu":
         p["w3"] = _init(gen, lead + (d, ff), 1.0 / math.sqrt(d), pdt(cfg))
+    if cfg.use_bias:  # the up and down projections' (a gated MLP's w3 has none)
+        for name, n in (("b1", ff), ("b2", d)):
+            p[name] = torch.zeros(lead + (n,), dtype=pdt(cfg), device=gen.device)
     return p
 
 

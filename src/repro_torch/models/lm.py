@@ -35,9 +35,11 @@ LayerSpec = Tuple[str, str]  # (mixer: attn|ssm, ffn: dense|moe|none)
 # (``w.astype(x.dtype)``).  Everything else stays as it is: norm scales are
 # read in f32, and the mamba2 leaves conv_w, conv_b, A_log, D, dt_bias and
 # norm_w are used uncast, so with f32 params the conv promotes the SSM's x,
-# B and C to f32 in both frameworks.
+# B and C to f32 in both frameworks.  The projections' biases (``use_bias``,
+# the port's own) are cast at every use as their weights are; a LayerNorm's
+# shift is read in f32 as its scale.
 MATMUL_LEAVES = ("embed", "lm_head", "wq", "wk", "wv", "wo", "w1", "w2", "w3",
-                 "router", "in_proj", "out_proj")
+                 "router", "in_proj", "out_proj", "bq", "bk", "bv", "bo", "b1", "b2")
 
 # ---------------------------------------------------------------------------
 # Layer grouping
@@ -92,7 +94,7 @@ def block_apply(
 ) -> torch.Tensor:
     mixer, ffn = spec
     B, S, d = x.shape
-    h = L.rms_norm(x, p["ln1"])
+    h = L.block_norm(x, p, "ln1", cfg)
     if mixer == "attn":
         h = L.attention(p["attn"], h, cfg, positions, causal=True)
     else:
@@ -100,7 +102,7 @@ def block_apply(
     x = shard_activations(x + h, "bsd")
     if ffn == "none":
         return x
-    h2 = L.rms_norm(x, p["ln2"])
+    h2 = L.block_norm(x, p, "ln2", cfg)
     if ffn == "moe":
         h2 = L.moe_ffn(p["moe"], h2.reshape(B * S, d), cfg).reshape(B, S, d)
     else:
@@ -114,7 +116,7 @@ def block_decode(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     mixer, ffn = spec
     B = x_t.shape[0]
-    h = L.rms_norm(x_t, p["ln1"])
+    h = L.block_norm(x_t, p, "ln1", cfg)
     if mixer == "attn":
         h, c = L.attention_decode(p["attn"], h, c, pos, cfg)
     else:
@@ -122,7 +124,7 @@ def block_decode(
     x_t = x_t + h
     if ffn == "none":
         return x_t, c
-    h2 = L.rms_norm(x_t, p["ln2"])
+    h2 = L.block_norm(x_t, p, "ln2", cfg)
     if ffn == "moe":
         # serving is dropless: capacity-dropping a decode token corrupts its
         # output (as in the JAX block_decode)
@@ -198,6 +200,8 @@ class LanguageModel:
             "embed": L._init(generator, (cfg.vocab_size, cfg.d_model), 0.02, pd),
             "final_norm": torch.ones((cfg.d_model,), dtype=pd, device=dev),
         }
+        if cfg.norm_type == "layer":
+            params["final_norm_bias"] = torch.zeros((cfg.d_model,), dtype=pd, device=dev)
         if not cfg.tie_embeddings:
             params["lm_head"] = L._init(generator, (cfg.d_model, cfg.vocab_size), 0.02, pd)
         for gi, g in enumerate(self.groups):
@@ -213,8 +217,12 @@ class LanguageModel:
         mixer, ffn = spec
         p: Dict[str, Any] = {
             "ln1": torch.ones(lead + (cfg.d_model,), dtype=L.pdt(cfg), device=gen.device)}
+        if cfg.norm_type == "layer":  # a LayerNorm's shift
+            p["ln1_bias"] = torch.zeros_like(p["ln1"])
         if ffn != "none":  # a mamba2 block has no separate FFN and no ln2
             p["ln2"] = p["ln1"].clone()
+            if cfg.norm_type == "layer":
+                p["ln2_bias"] = torch.zeros_like(p["ln1"])
         if mixer == "attn":
             p["attn"] = L.init_attention(gen, cfg, lead)
         else:
@@ -269,7 +277,7 @@ class LanguageModel:
                                    use_reentrant=False, preserve_rng_state=False)
                 else:
                     x = self._repeat_apply(g, rp, x, positions)
-        x = L.rms_norm(x, params["final_norm"])
+        x = L.block_norm(x, params, "final_norm", cfg)
         if last_token_only:  # prefill: only the last position feeds sampling
             x = x[:, -1:, :]
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -329,7 +337,7 @@ class LanguageModel:
                 c = {name: t[r] for name, t in c.items()}
             x, _ = block_decode(cfg, spec, p, c, x, pos)
         cache["pos"] = pos + 1
-        x = L.rms_norm(x, params["final_norm"])
+        x = L.block_norm(x, params, "final_norm", cfg)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         logits = (x @ head.to(x.dtype))[:, 0]
         return logits.float(), cache

@@ -125,12 +125,25 @@ def test_relative_import_resolution():
     assert "repro_torch" in mods and "repro_torch.models.config" in mods
 
 
+# The port's own config fields (the JAX config has none) and the values that
+# are the JAX block: every preset leaves them there.
+PORT_FIELDS = {"norm_type": "rms", "norm_eps": 1e-6, "use_bias": False}
+
+
+def _as_jax(cfg):
+    """The port's config as a dict of the JAX config's fields, after
+    checking that its own fields hold the JAX block."""
+    d = dataclasses.asdict(cfg)
+    assert {k: d.pop(k) for k in PORT_FIELDS} == PORT_FIELDS
+    return d
+
+
 @pytest.mark.parametrize("arch", jax_configs.ARCH_IDS)
 def test_configs_equal_field_by_field(arch):
     want = jax_configs.get_config(arch)
     got = torch_configs.get_config(arch)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert dataclasses.asdict(got.scaled_down()) == dataclasses.asdict(want.scaled_down())
+    assert _as_jax(got) == dataclasses.asdict(want)
+    assert _as_jax(got.scaled_down()) == dataclasses.asdict(want.scaled_down())
     assert got.param_counts() == want.param_counts()
 
 
@@ -138,7 +151,7 @@ def test_registry_equal():
     assert torch_configs.ARCH_IDS == jax_configs.ARCH_IDS
     assert torch_configs._ALIASES == jax_configs._ALIASES
     for alias in jax_configs._ALIASES:
-        assert dataclasses.asdict(torch_configs.get_config(alias)) == dataclasses.asdict(
+        assert _as_jax(torch_configs.get_config(alias)) == dataclasses.asdict(
             jax_configs.get_config(alias))
     assert {k: dataclasses.asdict(v) for k, v in torch_model_config.SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in jax_model_config.SHAPES.items()}
