@@ -98,7 +98,15 @@ every phase passed):
               shape and jamba-v0.1-52b's, and at its edges, bit-equal
               across two runs, beside the plain versions' times, the
               bytes bound and, at the main shapes, the time of the glue
-              they replaced.  Then the memory check of each of the ten kernels
+              they replaced.  Then the RMSNorm's cases (``norm_cases``,
+              ``NORM_SEED``): the plain and gated forms forward and
+              backward against the plain versions in f64 at mamba2-2.7b's
+              and jamba-v0.1-52b's train shapes, qk-norm, decode and the
+              edges of the plan and of the element-wise route, bit-equal
+              across two runs, beside the bytes bound and the plain
+              version's time (the backward's: autograd through it, the
+              glue it replaced).  Then the memory check of each of the
+              twelve kernels
               (``phase_kernel_memory``): one call at its main case after a
               warm-up, its rise of ``max_memory_allocated`` against what
               ``repro_torch.launch.memory.MemoryTracker`` charges the same
@@ -235,6 +243,7 @@ try:
     from repro_torch.launch.flops import (HBM_BYTES_PER_S, PEAK_FLOPS, augment_bound, bound,
                                           conv_bwd_flops, conv_bytes, conv_flops,
                                           decode_bytes, decode_flops, flash_flops,
+                                          norm_bwd_flops, norm_bytes, norm_flops,
                                           router_bwd_flops, router_bytes, router_flops,
                                           ssd_bwd_flops, ssd_bwd_product_flops, ssd_flops,
                                           ssd_product_flops)
@@ -432,6 +441,44 @@ CONV_CASES = (
 # dtype: the kernels sum in f32 in another order than f64 (the f32 forward
 # in the plain version's own order, so within this of it too)
 CONV_TOL = 1e-5
+# (name, leading shape, width D, gate row width (None: the plain form), x
+# dtype, gate dtype, w dtype) of the RMSNorm's cases: mamba2-2.7b's train
+# shape as the benchmark's cell runs it (4 x 2048 rows: the gated norm at
+# 5120 over the scan's f32 y and z read from the 10576-wide in_proj row, the
+# block norm at 2560 in bf16, f32 scales), jamba-v0.1-52b's train run (1 x
+# 4096: the gated norm at 8192 from a 16544-wide row, the block norm at
+# 4096), qwen3-14b's qk-norm (head dim 128 over 40 heads of 4096 tokens: 16
+# threads a row, 8 rows a block), decode at B = 8 (one token a row, y f32 as
+# the recurrence leaves it), then the edges: the whole f32 forms, bf16 y,
+# bf16 scales, the widest width (16384: 8 chunks a thread), kimi's 7168
+# (224 threads), narrow rows whose count is no multiple of a block's rows,
+# and widths and strides no multiple of a chunk (the element-wise route).
+NORM_SEED = 23
+NORM_EPS = 1e-6
+NORM_CASES = (
+    ("mamba2_gated_B4_L2048", (4, 2048), 5120, 10576, "float32", "bfloat16", "float32"),
+    ("mamba2_ln1_B4_L2048", (4, 2048), 2560, None, "bfloat16", None, "float32"),
+    ("jamba_gated_B1_L4096", (1, 4096), 8192, 16544, "float32", "bfloat16", "float32"),
+    ("jamba_ln_B1_L4096", (1, 4096), 4096, None, "bfloat16", None, "float32"),
+    ("qk_norm_D128", (1, 4096, 40), 128, None, "bfloat16", None, "float32"),
+    ("decode_gated_B8", (8, 1), 5120, 10576, "float32", "bfloat16", "float32"),
+    ("decode_ln1_B8", (8, 1), 2560, None, "bfloat16", None, "float32"),
+    ("gated_f32", (2, 300), 1024, 2200, "float32", "float32", "float32"),
+    ("gated_bf16_y", (2, 300), 1024, 2200, "bfloat16", "bfloat16", "float32"),
+    ("plain_f32_bf16_w", (2, 300), 3072, None, "float32", None, "bfloat16"),
+    ("plain_D16384", (2, 64), 16384, None, "bfloat16", None, "bfloat16"),
+    ("plain_D7168", (3, 50), 7168, None, "bfloat16", None, "float32"),
+    ("narrow_D64_13_rows", (13,), 64, None, "bfloat16", None, "float32"),
+    ("gated_unaligned_D250", (3, 70), 250, 517, "float32", "bfloat16", "float32"),
+    ("plain_unaligned_D1001", (5, 7), 1001, None, "bfloat16", None, "float32"),
+)
+# the forward: at least this share of a bf16 output within one bf16 step of
+# the plain version in f64 (bit-equal but where the f32 chain's last bit
+# moves the rounding); an f32 output, and each gradient, within one step of
+# its dtype plus NORM_TOL of its largest entry (``conv_err``'s measure)
+NORM_ULP_SHARE = 0.999
+NORM_MAX_STEPS = 2  # and no bf16 entry further off (a wrong row or tail store)
+NORM_TOL = 1e-5
 FLASH_BWD_CASES_SLICE10 = (
     ("whisper_encoder_bwd_S1500", 8, 1500, 1500, 20, 20, 64, "bfloat16", dict(causal=False)),
     ("whisper_cross_bwd_Sq448_Sk1500", 8, 448, 1500, 20, 20, 64, "bfloat16",
@@ -478,7 +525,8 @@ NO_SPILL_KERNELS = ("decode_kernel", "decode_merge_kernel", "ssd_chunk_state", "
                     "ssd_chunk_out", "route_blocks", "add_prefix", "augment_rows",
                     "ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk",
                     "ssd_bwd_group_sum", "ssd_bwd_head_sum", "route_bwd",
-                    "causal_conv_fwd_kernel", "causal_conv_bwd_kernel", "causal_conv_bwd_reduce")
+                    "causal_conv_fwd_kernel", "causal_conv_bwd_kernel", "causal_conv_bwd_reduce",
+                    "rms_norm_fwd_kernel", "rms_norm_bwd_kernel", "rms_norm_bwd_reduce")
 # bf16 only: largest error in a row over that row's RMS in the f32 plain
 # output.  A bf16 step is 2^-8 of a value, so a right kernel stays near
 # 2^-8 * (row max / row RMS), about 0.015; one key too many or too few in a
@@ -1414,6 +1462,176 @@ def conv_cases():
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 2, last: the RMSNorm, plain and gated, forward and backward
+# ---------------------------------------------------------------------------
+def norm_inputs(lead, D, row, xdt, zdt, wdt, gen):
+    """x (lead + (D,)), the gate read in place from the first D columns of
+    rows ``row`` wide (None for the plain form) and w (D,) near one."""
+    import torch
+
+    x = torch.randn(lead + (D,), generator=gen, device="cuda").to(getattr(torch, xdt))
+    z = None
+    if row is not None:
+        zrow = torch.randn(lead + (row,), generator=gen, device="cuda").to(getattr(torch, zdt))
+        z = zrow[..., :D]
+    w = (1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(getattr(torch, wdt))
+    return x, z, w
+
+
+def ulp_share(got, want64) -> tuple:
+    """(share of entries bit-equal to or one bf16 step from ``want64``
+    rounded to bf16, the most steps any entry is off)."""
+    import torch
+
+    a = got.view(torch.int16).int()
+    b = want64.to(torch.bfloat16).view(torch.int16).int()
+    # bf16 patterns of one sign are ordered as their values; map the negative
+    # half so that one step apart is one apart across zero too
+    a, b = (torch.where(t < 0, -(t & 0x7FFF), t) for t in (a, b))
+    steps = (a - b).abs()
+    return float((steps <= 1).double().mean()), int(steps.max())
+
+
+def norm_fwd_check(got, want64) -> tuple:
+    """(errors, ok) of a forward output against the plain version in f64: a
+    bf16 output within one bf16 step on ``NORM_ULP_SHARE`` of its entries
+    and none more than ``NORM_MAX_STEPS`` away; an f32 output within one
+    step plus ``NORM_TOL`` of its largest entry (``conv_err``)."""
+    import torch
+
+    if got.dtype == torch.bfloat16:
+        share, worst = ulp_share(got, want64)
+        return (dict(ulp_share=share, max_steps=worst),
+                share >= NORM_ULP_SHARE and worst <= NORM_MAX_STEPS)
+    err = conv_err(got, want64)
+    return dict(err_over_allowed=err), err <= 1.0
+
+
+def norm_library(x, w, dout) -> dict:
+    """The one PyTorch call that computes the plain form,
+    ``F.rms_norm(x, (D,), w, eps)``, as (forward, backward) callables:
+    ``library_ms`` with w as it is (w in another dtype than x's keeps it off
+    PyTorch's fused kernel), and ``library_w_cast_ms`` with w cast to x's
+    dtype inside the call (its fused kernel; w rounded, so not quite the
+    same function) where the dtypes differ."""
+    import torch
+    import torch.nn.functional as F
+
+    def call(x_, w_, cast):
+        return F.rms_norm(x_, (x_.shape[-1],), w_.to(x_.dtype) if cast else w_, NORM_EPS)
+
+    out = {}
+    for key, cast in (("library_ms", False), ("library_w_cast_ms", True)):
+        if cast and w.dtype == x.dtype:
+            continue
+        leaves = (x.detach().requires_grad_(), w.detach().requires_grad_())
+        y = call(*leaves, cast)
+        out[key] = (lambda cast=cast: call(x, w, cast),
+                    lambda y=y, leaves=leaves: torch.autograd.grad(
+                        y, leaves, dout.to(y.dtype), retain_graph=True))
+    return out
+
+
+def norm_case(name, lead, D, row, xdt, zdt, wdt, gen=None):
+    """``rms_norm`` and ``rms_norm_bwd`` against their plain versions in f64
+    on the card: the output by ``norm_fwd_check``, every gradient within one
+    step of its dtype plus ``NORM_TOL`` of its largest entry (``conv_err``);
+    the gated product is rounded as the forward rounds it, in the working
+    dtypes, before the f64 norm.  Two runs of each bit-equal.  Times: the
+    kernels (CUDA events over 20 calls and the profiler's device time), the
+    plain version (autograd through it for the backward: the glue the
+    kernel replaced), for the plain form PyTorch's own call
+    (``norm_library``, by events and on the device), bounds at the bytes
+    (``flops.norm_bytes`` at 3.35 TB/s).  Two records: forward, backward."""
+    import torch
+
+    from repro_torch.kernels.rms_norm import (gate_product, rms_norm, rms_norm_bwd,
+                                              rms_norm_bwd_ref, rms_norm_ref, rstd_ref)
+    from repro_torch.kernels.rms_norm.ops import _forward
+
+    x, z, w = norm_inputs(lead, D, row, xdt, zdt, wdt, gen)
+    f64 = torch.float64
+    got, rstd = _forward(x, w, z, NORM_EPS)
+    again = rms_norm(x, w, NORM_EPS, gate=z)
+    want = rms_norm_ref(gate_product(x, z).to(f64), w.to(f64), NORM_EPS)
+    fwd_err, fwd_ok = norm_fwd_check(got, want)
+    fwd_equal = torch.equal(got, again)
+    plain_gap = float((got.double() - rms_norm_ref(x, w, NORM_EPS, z).double()).abs().max())
+    dout = torch.randn(got.shape, generator=gen, device="cuda").to(got.dtype)
+    bgot = rms_norm_bwd(x, w, rstd, dout, z)
+    bagain = rms_norm_bwd(x, w, rstd, dout, z)
+    bwant = rms_norm_bwd_ref(x, w, rstd_ref(x, NORM_EPS, z, acc=f64), dout, z, acc=f64)
+    bwd_errs = {n: conv_err(g, w_) for n, g, w_ in zip(("dx", "dw", "dz"), bgot, bwant)
+                if g is not None}
+    bwd_equal = all(torch.equal(g, a) for g, a in zip(bgot, bagain) if g is not None)
+    del again, want, bgot, bagain, bwant
+    torch.cuda.empty_cache()
+
+    T = x.numel() // D
+    xi, oi = x.element_size(), got.element_size()
+    zi = 0 if z is None else z.element_size()
+    gated = z is not None
+    leaves = [t.detach().requires_grad_() for t in ((x, w, z) if gated else (x, w))]
+    glue = rms_norm_ref(leaves[0], leaves[1], NORM_EPS, *leaves[2:])
+    library = {} if gated else norm_library(x, w, dout)
+    recs = []
+    for i, (kernel, fn, plain_fn, flops_, errs, equal, ok) in enumerate((
+            ("rms_norm", lambda: rms_norm(x, w, NORM_EPS, gate=z),
+             lambda: rms_norm_ref(x, w, NORM_EPS, z), norm_flops(T, D, gated), fwd_err,
+             fwd_equal, fwd_ok),
+            ("rms_norm_bwd", lambda: rms_norm_bwd(x, w, rstd, dout, z),
+             lambda: torch.autograd.grad(glue, leaves, dout, retain_graph=True),
+             norm_bwd_flops(T, D, gated), bwd_errs, bwd_equal,
+             max(bwd_errs.values()) <= 1.0))):
+        kernel_ms = time_ms(fn, 20, 2)
+        dev = device_ms(fn, 20)
+        plain_ms = time_ms(plain_fn, 3, 1)
+        lib_ms = {}
+        for k, fns in library.items():
+            lib_ms[k] = time_ms(fns[i], 20, 2)
+            lib_ms[k.replace("_ms", "_device_ms")] = device_ms(fns[i], 20)
+        nbytes = norm_bytes(T, D, xi, oi, zi, backward=kernel.endswith("bwd"))
+        bound_ms, bound_by = bound(flops_, nbytes, "float32")
+        rec = dict(kernel=kernel, case=name, shape=dict(lead=list(lead), D=D, gate_row=row),
+                   dtype=f"{xdt} x, {zdt} gate, {wdt} w", errs=errs,
+                   max_abs_err=plain_gap if kernel == "rms_norm" else max(errs.values()),
+                   tol=NORM_TOL, bit_equal_across_runs=equal, kernel_ms=kernel_ms,
+                   device_ms=dev, plain_ms=plain_ms, library_ms=lib_ms.get("library_ms"),
+                   library_device_ms=lib_ms.get("library_device_ms"),
+                   library_w_cast_ms=lib_ms.get("library_w_cast_ms"),
+                   library_w_cast_device_ms=lib_ms.get("library_w_cast_device_ms"),
+                   bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes, bound_share=bound_ms / kernel_ms,
+                   device_bound_share=bound_ms / dev if isinstance(dev, float) else None,
+                   ok=ok and equal)
+        if kernel == "rms_norm":
+            rec["plain_max_abs_gap"] = plain_gap
+        log(rec)
+        recs.append(rec)
+    del glue, leaves, library
+    torch.cuda.empty_cache()
+    return recs
+
+
+def norm_cases():
+    """The RMSNorm cases (``NORM_CASES``), on their own generator
+    (``NORM_SEED``), after the conv's: they move no earlier case's inputs."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    g = torch.Generator(device="cuda").manual_seed(NORM_SEED)
+    recs = [r for name, *shape in NORM_CASES for r in norm_case(name, *shape, gen=g)]
+    bad = [(r["kernel"], r["case"], r["errs"]) for r in recs if not r["ok"]]
+    if bad:
+        raise SystemExit(f"rms_norm parity failed: {bad}")
+    log(f"rms_norm parity: {len(recs)} records passed; launches while comparing (not "
+        f"counted as main path): {launch_counts()}")
+    reset_launch_counts()
+    return recs
+
+
 def augment_inputs(B, H, W, C, oh, ow, corners, gen, alternate_flips=False):
     """images, crops, flips, mean, std on the card.  ``corners="random"``:
     each corner within the image, as the JAX suite draws them;
@@ -1682,7 +1900,8 @@ def kernel_memory_cases(gen):
 
     from repro_torch.kernels import (causal_conv, causal_conv_bwd, decode_attention,
                                      flash_attention, flash_attention_bwd, fused_augment,
-                                     moe_router, moe_router_bwd, ssd_scan, ssd_scan_bwd)
+                                     moe_router, moe_router_bwd, rms_norm, rms_norm_bwd,
+                                     ssd_scan, ssd_scan_bwd)
     from repro_torch.kernels.flash_attention import flash_attention_with_lse
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1712,6 +1931,11 @@ def kernel_memory_cases(gen):
     _, B_, L_, di, gn, H_, xdt, wdt = CONV_CASES[0]
     xbc, w, b = conv_inputs(B_, L_, di, gn, H_, xdt, wdt, gen)
     douts = [randn(B_, L_, n) for n in (di, gn, gn)]
+    # the gated norm at the cell's shape, drawn after every earlier input
+    _, lead, Dn, row, ndt, zdt, nwdt = NORM_CASES[0]
+    yn, zn, wn = norm_inputs(lead, Dn, row, ndt, zdt, nwdt, gen)
+    rstd = torch.rand(lead, generator=gen, device="cuda").reshape(-1)
+    dn = randn(*lead, Dn, dtype=zn.dtype)
     return [
         ("flash_attention", (q, k, v), lambda *t: flash_attention(*t, window=4096)),
         ("flash_attention_bwd", (q, k, v, o, lse, dq),
@@ -1726,6 +1950,8 @@ def kernel_memory_cases(gen):
          lambda *t: fused_augment(*t, out_h=224, out_w=224)),
         ("causal_conv", (xbc, w, b), lambda *t: causal_conv(*t, di)),
         ("causal_conv_bwd", (xbc, w, b, *douts), causal_conv_bwd),
+        ("rms_norm", (yn, wn, zn), lambda y_, w_, z_: rms_norm(y_, w_, NORM_EPS, gate=z_)),
+        ("rms_norm_bwd", (yn, wn, rstd, dn, zn), rms_norm_bwd),
     ]
 
 
@@ -2120,22 +2346,51 @@ def expected_launches(cfg):
     """Kernel launches of one forward and of one decode step: one per
     attention layer (flash / decode), per mamba2 layer (causal_conv and
     ssd_scan, forward only: decode runs the recurrence) and per MoE layer
-    (moe_router).  An
+    (moe_router), and one per RMSNorm (``model_norms``).  An
     enc-dec forward runs flash in each encoder layer and twice (self and
     cross) in each decoder layer; its decode step runs decode twice a
     decoder layer."""
     from repro_torch.models.lm import layer_pattern
 
     if cfg.family == "encdec":
-        return ({"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers},
-                {"decode_attention": 2 * cfg.num_layers})
+        return ({"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers,
+                 "rms_norm": sum(model_norms(cfg))},
+                {"decode_attention": 2 * cfg.num_layers,
+                 "rms_norm": sum(model_norms(cfg, decode=True))})
     pattern = layer_pattern(cfg)
     attn = sum(m == "attn" for m, _ in pattern)
     ssm = sum(m == "ssm" for m, _ in pattern)
     moe = sum(f == "moe" for _, f in pattern)
-    forward = {"flash_attention": attn, "causal_conv": ssm, "ssd_scan": ssm, "moe_router": moe}
-    step = {"decode_attention": attn, "moe_router": moe}
+    norms = sum(model_norms(cfg))
+    forward = {"flash_attention": attn, "causal_conv": ssm, "ssd_scan": ssm, "moe_router": moe,
+               "rms_norm": norms}
+    step = {"decode_attention": attn, "moe_router": moe, "rms_norm": norms}
     return ({k: v for k, v in forward.items() if v}, {k: v for k, v in step.items() if v})
+
+
+def layer_norms(cfg, mixer, ffn) -> int:
+    """RMSNorm launches of one decoder layer, forward or decode step: ln1,
+    and ln2 where it has a feed-forward, when the block norms are RMSNorm;
+    q and k norms in an attention layer with qk-norm; the gated norm in a
+    mamba2 layer."""
+    block = cfg.norm_type == "rms"
+    return (block * (1 + (ffn != "none")) + 2 * (cfg.qk_norm and mixer == "attn")
+            + (mixer == "ssm"))
+
+
+def model_norms(cfg, decode=False) -> tuple:
+    """(RMSNorm launches inside the layers of one forward, or of one decode
+    step when ``decode``; those outside them, the final norms, run once a
+    forward and never recomputed).  A decoder layer has ``layer_norms``; an
+    enc-dec's decoder layer has three and its encoder layer two (a decode
+    step runs no encoder), and each of its stacks a final norm."""
+    from repro_torch.models.lm import layer_pattern
+
+    if cfg.family == "encdec":
+        return (3 * cfg.num_layers + (0 if decode else 2 * cfg.encoder_layers),
+                1 if decode else 2)
+    return (sum(layer_norms(cfg, m, f) for m, f in layer_pattern(cfg)),
+            int(cfg.norm_type == "rms"))
 
 
 def require_launches(label, counts, per_call, calls) -> None:
@@ -2616,36 +2871,45 @@ class FamilyBatches(ZipfTokens):
 
 
 # the kernels with a backward: forward, its backward, and the layers that run it
-BACKWARD_OF = (("flash_attention", "flash_attention_bwd", lambda m, f: m == "attn"),
-               ("causal_conv", "causal_conv_bwd", lambda m, f: m == "ssm"),
-               ("ssd_scan", "ssd_scan_bwd", lambda m, f: m == "ssm"),
-               ("moe_router", "moe_router_bwd", lambda m, f: f == "moe"))
+# (its launches in a layer of a config, mixer and feed-forward)
+BACKWARD_OF = (("flash_attention", "flash_attention_bwd", lambda cfg, m, f: m == "attn"),
+               ("causal_conv", "causal_conv_bwd", lambda cfg, m, f: m == "ssm"),
+               ("ssd_scan", "ssd_scan_bwd", lambda cfg, m, f: m == "ssm"),
+               ("moe_router", "moe_router_bwd", lambda cfg, m, f: f == "moe"),
+               ("rms_norm", "rms_norm_bwd", layer_norms))
 
 
 def train_launches_per_step(cfg):
     """Launches of one train step of each kernel with a backward under
     ``remat="block"``: a forward per layer that runs it (attention, mamba2,
-    MoE), one more for each such layer of a repeated group (the
-    recomputation), and a backward per layer.  An enc-dec runs flash once in
-    each encoder layer and twice (self and cross) in each decoder layer, and
-    under remat every one of its layers is recomputed
-    (``EncDecModel._run``)."""
+    MoE; RMSNorm per norm of the layer, ``layer_norms``), one more for each
+    such layer of a repeated group (the recomputation), and a backward per
+    layer; the final norms once each way (``model_norms``).  An enc-dec
+    runs flash once in each encoder layer and twice (self and cross) in
+    each decoder layer, and under remat every one of its layers is
+    recomputed (``EncDecModel._run``)."""
     from repro_torch.models.lm import compute_groups
 
     if cfg.family == "encdec":
         n = cfg.encoder_layers + 2 * cfg.num_layers
-        return {"flash_attention": 2 * n if cfg.remat == "block" else n,
-                "flash_attention_bwd": n}
+        norms, final = model_norms(cfg)
+        again = cfg.remat == "block"
+        return {"flash_attention": 2 * n if again else n, "flash_attention_bwd": n,
+                "rms_norm": norms * (1 + again) + final, "rms_norm_bwd": norms + final}
     out = {}
     for fwd_name, bwd_name, runs in BACKWARD_OF:
         fwd = recompute = 0
         for g in compute_groups(cfg):
-            n = g.repeats * sum(runs(m, f) for m, f in g.subpattern)
+            n = g.repeats * sum(runs(cfg, m, f) for m, f in g.subpattern)
             fwd += n
             if cfg.remat == "block" and g.repeats > 1:
                 recompute += n
         if fwd:
             out[fwd_name], out[bwd_name] = fwd + recompute, fwd
+    final = model_norms(cfg)[1]
+    if final:
+        out["rms_norm"] = out.get("rms_norm", 0) + final
+        out["rms_norm_bwd"] = out.get("rms_norm_bwd", 0) + final
     return out
 
 
@@ -3435,6 +3699,15 @@ KERNEL_META = {
         source="src/repro_torch/kernels/csrc/causal_conv.cu",
         replaces="src/repro/models/layers.py:383",
         note="the port's own kernel: JAX trains through autograd of the jnp mixer (XLA)"),
+    "rms_norm": dict(
+        source="src/repro_torch/kernels/csrc/rms_norm.cu",
+        replaces="src/repro/models/layers.py:41",
+        note="the port's own kernel: no TPU kernel computes it; XLA fuses the JAX norms, the "
+             "mixer's gated one included, eager PyTorch ran them as 8 to 11 kernels"),
+    "rms_norm_bwd": dict(
+        source="src/repro_torch/kernels/csrc/rms_norm.cu",
+        replaces="src/repro/models/layers.py:41",
+        note="the port's own kernel: JAX trains through autograd of the jnp norms (XLA)"),
 }
 # the parity case at the main path's shape that each kernel's line reports.
 # ssd_scan's is f32: mamba2-2.7b's mixer runs its conv with the f32 params
@@ -3444,7 +3717,8 @@ MAIN_CASE = {"flash_attention": f"main_S{PREFILL_S}", "decode_attention": "main_
              "ssd_scan": "mamba2_prefill_mamba2_regime", "moe_router": "moonshot_prefill",
              "fused_augment": "imagenet_B256", "flash_attention_bwd": f"main_S{PREFILL_S}",
              "ssd_scan_bwd": "mamba2_train_S8192", "moe_router_bwd": "moonshot_train_T4096",
-             "causal_conv": "mamba2_train_B4_L2048", "causal_conv_bwd": "mamba2_train_B4_L2048"}
+             "causal_conv": "mamba2_train_B4_L2048", "causal_conv_bwd": "mamba2_train_B4_L2048",
+             "rms_norm": "mamba2_gated_B4_L2048", "rms_norm_bwd": "mamba2_gated_B4_L2048"}
 
 
 def main() -> int:
@@ -3462,6 +3736,7 @@ def main() -> int:
     phase_env()
     recs = phase_kernels(PREFILL_S)
     recs += conv_cases()
+    recs += norm_cases()
     phase_kernel_memory()
     totals = {}
 

@@ -23,10 +23,15 @@ Kernels:
                         bias and SiLU over (x, B, C), read in place from the
                         in_proj output; the port's own (XLA fuses it in JAX)
   causal_conv_bwd     - its backward (dx; dw and db in a fixed order)
+  rms_norm            - RMSNorm over the last dim, plain (block, final and
+                        qk norms) or gated by SiLU (the mamba2 mixer's norm,
+                        the gate read in place from the in_proj output)
+  rms_norm_bwd        - its backward (dx, the gate's gradient; dw in a fixed
+                        order)
 
 Under autograd on a CUDA tensor, ``flash_attention``, ``ssd_scan``,
-``moe_router`` and ``causal_conv`` run their forward and backward kernels through a
-``torch.autograd.Function``.  ``decode_attention`` (serving) has no
+``moe_router``, ``causal_conv`` and ``rms_norm`` run their forward and
+backward kernels through a ``torch.autograd.Function``.  ``decode_attention`` (serving) has no
 backward: on a CUDA tensor that needs a gradient it raises
 (``_grad.refuse_grad``).
 """
@@ -37,13 +42,15 @@ from .decode_attention import decode_attention
 from .flash_attention import flash_attention, flash_attention_bwd
 from .fused_augment import fused_augment
 from .moe_router import moe_router, moe_router_bwd
+from .rms_norm import rms_norm, rms_norm_bwd
 from .ssd_scan import ssd_scan, ssd_scan_bwd
 
 KERNELS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
            "decode_attention": decode_attention, "ssd_scan": ssd_scan,
            "ssd_scan_bwd": ssd_scan_bwd, "moe_router": moe_router,
            "moe_router_bwd": moe_router_bwd, "fused_augment": fused_augment,
-           "causal_conv": causal_conv, "causal_conv_bwd": causal_conv_bwd}
+           "causal_conv": causal_conv, "causal_conv_bwd": causal_conv_bwd,
+           "rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -6,8 +6,9 @@ the functions here, which take them local with
 again on the local tensors - so the local call does exactly what a plain
 call does: the ctypes kernel on CUDA, the plain version on the CPU, the
 ``_shape`` custom op on ``meta``.  The results are wrapped back.  The
-autograd ``Function``s (``FlashAttention``, ``SSDScan``, ``MoERouter``) are
-applied to the local tensors, so their backward kernels run on shards too.
+autograd ``Function``s (``FlashAttention``, ``SSDScan``, ``MoERouter``,
+``CausalConv``, ``RMSNorm``) are applied to the local tensors, so their
+backward kernels run on shards too.
 
 The placements declared are the kernel's own: the batch dim over the data
 axes (when they divide it), the heads over the model axis where the heads
@@ -189,6 +190,36 @@ def causal_conv(fn: Callable, x: Any, w: Any, b: Any, **kw: Any) -> Tuple[Any, A
     ins = [x_pl] + [lay.place(t, None) for t in (w, b)]
     grads = [x_pl] + [lay.place(t, None, grad=True, partial_data=True) for t in (w, b)]
     return _call(lambda *a: fn(*a, **kw), lay, [x, w, b], ins, grads, [x_pl] * 3)
+
+
+def rms_norm(fn: Callable, x: Any, w: Any, gate: Any, **kw: Any) -> Any:
+    """``fn(x, w, gate=gate, **kw)`` on local shards: batch over the data
+    axes, the normalised (last) dim whole, a split of another dim on the
+    model axis kept (qk-norm's heads); the gate laid out as x; w whole, its
+    gradient a sum over the axes that split the rows."""
+    lay = _Layout(x.device_mesh)
+    keep = None
+    if lay.model is not None and lay.m > 1:
+        cur = x.placements[lay.model]
+        if isinstance(cur, Shard) and 0 < cur.dim % x.ndim < x.ndim - 1:
+            keep = cur.dim % x.ndim
+    x_pl = lay.place(x, 0, keep)
+    split = any(isinstance(x_pl[i], Shard) for i in lay.data)
+    w_pl = lay.place(w, None)
+    w_g = lay.place(w, None, grad=True, partial_data=split, partial_model=keep is not None)
+    # x's and the gate's gradients leave whole on a mesh dim of one device,
+    # where a split and a copy hold the same.  Left as x's Shard(0) there,
+    # the batch split reaches the embedding's backward, DTensor's index_put,
+    # on a (1, 1) mesh; torch 2.11's index_put rule maps a Shard(0) of the
+    # (B, S, d) gradient onto the (V, d) table's dim 0 + 2 - 3 = -1 and raises
+    # ("must be normalized").  Above one device the gradient reaches the
+    # embedding as the plain ops hand it (tests/test_torch_rms_norm.py).
+    x_g = [Replicate() if lay.mesh.size(i) == 1 else p for i, p in enumerate(x_pl)]
+    if gate is None:
+        return _call(lambda x_, w_: fn(x_, w_, gate=None, **kw), lay, [x, w], [x_pl, w_pl],
+                     [x_g, w_g], [x_pl])
+    return _call(lambda x_, w_, g_: fn(x_, w_, gate=g_, **kw), lay, [x, w, gate],
+                 [x_pl, w_pl, x_pl], [x_g, w_g, x_g], [x_pl])
 
 
 def replicated(fn: Callable, args: Sequence[Any], n_out: int, **kw: Any) -> Any:

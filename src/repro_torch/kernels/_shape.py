@@ -21,6 +21,7 @@ op's scratch there follows the CUDA launch's ``*_scratch``.
 This module keeps its annotations evaluated (no ``from __future__ import
 annotations``): ``custom_op`` reads its schema from them.
 """
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -170,6 +171,50 @@ def _(xbc, w, b, dxs, dB, dC):
 def _(xbc, w, b, dxs, dB, dC, *args, out_shape=None, **kwargs):
     Bsz, L, Ch = xbc
     return int(F.conv_bwd_flops(Bsz * L, Ch, w[0]))
+
+
+# --- RMSNorm ------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::rms_norm", mutates_args=())
+def rms_norm(x: Tensor, w: Tensor, gate: Optional[Tensor], eps: float) -> Tuple[Tensor, Tensor]:
+    raise _refuse("rms_norm")
+
+
+@rms_norm.register_fake
+def _(x, w, gate, eps):
+    out = (x if gate is None else gate).dtype
+    return (x.new_empty(x.shape, dtype=out),
+            x.new_empty((x.numel() // x.shape[-1],), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.rms_norm)
+def _(x, w, gate, eps, *args, out_shape=None, **kwargs):
+    return int(F.norm_flops(math.prod(x[:-1]), x[-1], gated=gate is not None))
+
+
+@torch.library.custom_op("repro_torch::rms_norm_bwd", mutates_args=())
+def rms_norm_bwd_op(x: Tensor, w: Tensor, rstd: Tensor, dout: Tensor,
+                    gate: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    raise _refuse("rms_norm_bwd")
+
+
+@rms_norm_bwd_op.register_fake
+def _(x, w, rstd, dout, gate):
+    # the plain form has no gate: its gradient is an empty stand-in
+    dz = (0,) if gate is None else gate.shape
+    return (x.new_empty(x.shape), torch.empty_like(w, memory_format=torch.contiguous_format),
+            x.new_empty(dz, dtype=(x if gate is None else gate).dtype))
+
+
+@register_flop_formula(torch.ops.repro_torch.rms_norm_bwd)
+def _(x, w, rstd, dout, gate, *args, out_shape=None, **kwargs):
+    return int(F.norm_bwd_flops(math.prod(x[:-1]), x[-1], gated=gate is not None))
+
+
+def rms_norm_bwd(x: Tensor, w: Tensor, rstd: Tensor, dout: Tensor,
+                 gate: Optional[Tensor]) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """(dx, dw, dgate) of the shape-only backward, dgate None without a gate."""
+    dx, dw, dz = rms_norm_bwd_op(x, w, rstd, dout, gate)
+    return dx, dw, None if gate is None else dz
 
 
 # --- MoE router ----------------------------------------------------------------

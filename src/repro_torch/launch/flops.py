@@ -131,6 +131,35 @@ def conv_bytes(T: int, Ch: int, x_item: int, out_item: int, backward: bool = Fal
 
 
 # ---------------------------------------------------------------------------
+# RMSNorm (plain, and the mamba2 mixer's norm gated by SiLU)
+# ---------------------------------------------------------------------------
+def norm_flops(T: int, D: int, gated: bool = False) -> float:
+    """RMSNorm of T rows of D: a square and a sum, then two scalings, a value
+    (4 T D); the gate adds its SiLU (an exp, an add and a divide) and the
+    product (4 T D)."""
+    return (8.0 if gated else 4.0) * T * D
+
+
+def norm_bwd_flops(T: int, D: int, gated: bool = False) -> float:
+    """Its backward: dout w, the row's sum of dn p, the scale's partial sums
+    and dp = r dn - p c, 9 a value; the gate adds its recomputation (4), dy
+    (1) and dz with SiLU's derivative (4)."""
+    return (18.0 if gated else 9.0) * T * D
+
+
+def norm_bytes(T: int, D: int, x_item: int, out_item: int, z_item: int = 0,
+               backward: bool = False) -> float:
+    """Forward: x (and the gate, ``z_item`` > 0) read once, the output
+    written once, each row's f32 rstd written.  Backward: x, the gate and the
+    output's gradient read, dx (and dz) written, rstd read.  The scale and
+    the backward's partials (under 5% at the models' shapes) not counted."""
+    n = float(T * D)
+    if backward:
+        return n * (2 * x_item + 2 * z_item + out_item) + 4.0 * T
+    return n * (x_item + z_item + out_item) + 4.0 * T
+
+
+# ---------------------------------------------------------------------------
 # MoE router
 # ---------------------------------------------------------------------------
 def router_flops(T: int, E: int, k: int) -> float:

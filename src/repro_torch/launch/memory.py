@@ -27,8 +27,8 @@ does not collect them.  Two kinds of allocation are not an op's output:
   op's outputs, freed when the op returns.  Decode's split workspace is
   persistent (one a device and stream, grown to the largest call's need and
   never freed): it is charged when a call grows it and stays live.
-  ``fused_augment`` and the causal conv's forward have none, and their
-  entries say so.  A ``repro_torch`` op with no entry raises rather than
+  ``fused_augment`` and the forwards of the causal conv and the RMSNorm have
+  none, and their entries say so.  A ``repro_torch`` op with no entry raises rather than
   count as zero;
 * the temporaries PyTorch's own CUDA kernels allocate inside one op, below
   the dispatcher (``HIDDEN_TEMPORARIES``: ``logsumexp``'s shifted copy of its
@@ -105,6 +105,18 @@ def _conv_bwd(xbc, w, b, dxs, dB, dC) -> Scratch:
     return bwd_scratch(*xbc.shape)
 
 
+def _norm_fwd(x, w, gate, eps) -> Scratch:
+    from ..kernels.rms_norm.kernel import fwd_scratch
+
+    return fwd_scratch(x.numel() // x.shape[-1], x.shape[-1])
+
+
+def _norm_bwd(x, w, rstd, dout, gate) -> Scratch:
+    from ..kernels.rms_norm.kernel import bwd_scratch
+
+    return bwd_scratch(x.numel() // x.shape[-1], x.shape[-1])
+
+
 def _router_fwd(logits, k) -> Scratch:
     from ..kernels.moe_router.kernel import fwd_scratch
 
@@ -146,6 +158,8 @@ KERNEL_SCRATCH: Dict[str, Callable[..., Scratch]] = {
     "ssd_scan_bwd": _ssd_bwd,
     "causal_conv": _conv_fwd,
     "causal_conv_bwd": _conv_bwd,
+    "rms_norm": _norm_fwd,
+    "rms_norm_bwd": _norm_bwd,
     "moe_router": _router_fwd,
     "moe_router_bwd": _router_bwd,
     "fused_augment": _augment,

@@ -10,7 +10,8 @@ Conventions:
     for prefill/forward attention, self and cross, ``decode_attention`` for
     each decode step and each cross-attention decode step,
     ``causal_conv`` and ``ssd_scan`` in ``mamba2_mixer``, ``moe_router`` in
-    ``moe_ffn``): the port has no XLA, so ``attn_impl`` "xla" and "pallas"
+    ``moe_ffn``, ``rms_norm`` for every RMSNorm, the mixer's gated one
+    included): the port has no XLA, so ``attn_impl`` "xla" and "pallas"
     name the same thing on the card.  On a CPU tensor, "xla" runs the twin
     of the JAX formulation (``_attn_chunked``, the conv's loop over its taps
     and the chunked SSD einsums, ``top_k`` plus cumsum) and "pallas*" the
@@ -30,12 +31,13 @@ Conventions:
     tree holds one (``proj``; ``cfg.use_bias``: q, k, v, o and the dense
     MLP's).  Both are the port's own: the JAX block has neither.
   * Gradients: under autograd on a CUDA tensor, ``flash_attention``,
-    ``causal_conv``, ``ssd_scan`` and ``moe_router`` run their forward and
-    backward kernels (``FlashAttention``, ``CausalConv``, ``SSDScan``,
-    ``MoERouter``), so the dense, MoE, SSM and hybrid families train on the
-    card; ``decode_attention`` (serving) has no backward kernel and raises
-    rather than return a tensor that cuts the gradient off.  On the CPU
-    every route trains through autograd of the plain versions.
+    ``causal_conv``, ``ssd_scan``, ``moe_router`` and ``rms_norm`` run their
+    forward and backward kernels (``FlashAttention``, ``CausalConv``,
+    ``SSDScan``, ``MoERouter``, ``RMSNorm``), so the dense, MoE, SSM and
+    hybrid families train on the card; ``decode_attention`` (serving) has no
+    backward kernel and raises rather than return a tensor that cuts the
+    gradient off.  On the CPU every route trains through autograd of the
+    plain versions.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention
 from ..kernels.moe_router import moe_router
 from ..kernels.moe_router.ref import exclusive_slots
+from ..kernels.rms_norm import rms_norm as kernel_rms_norm
 from ..kernels.ssd_scan import ssd_scan
 from .config import ModelConfig
 
@@ -72,10 +75,13 @@ def pdt(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+             gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMSNorm over the last dim with scale ``w`` in f32, back in x's dtype;
+    with a ``gate`` z (the mamba2 mixer's gated norm) of ``x.to(z.dtype) *
+    silu(z)``, in z's dtype.  The kernel ``rms_norm`` on a CUDA tensor, its
+    plain version (this formulation) on the CPU."""
+    return kernel_rms_norm(x, w, eps, gate)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
@@ -629,7 +635,9 @@ def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     writes the three contiguous tensors the scan takes, and the scan, with
     D, to ``ssd_scan``: the kernel adds ``D * x`` itself, so it is not added
     again here, and it reads the G groups of B and C in place (no
-    ``repeat_interleave``)."""
+    ``repeat_interleave``).  The gated norm takes Y in f32 and z in place
+    (``rms_norm(..., gate=z)``): on the card one kernel rounds, gates and
+    normalises each row."""
     B, L, d = x.shape
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
     di = cfg.ssm_d_inner
@@ -649,8 +657,8 @@ def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
         xs, Bc, Cc = causal_conv(xbc, params["conv_w"], params["conv_b"], di)
         Y = ssd_scan(xs.reshape(B, L, H, P), dt.contiguous(), a, Bc.reshape(B, L, G, N),
                      Cc.reshape(B, L, G, N), params["D"].float().contiguous(), chunk=Q)[0]
-    Y = Y.reshape(B, L, di).to(x.dtype)
-    Y = rms_norm(Y * F.silu(z), params["norm_w"], cfg.norm_eps)  # gated RMSNorm
+    # gated RMSNorm of Y by SiLU(z): Y (f32) rounded to z's dtype in the kernel
+    Y = rms_norm(Y.reshape(B, L, di), params["norm_w"], cfg.norm_eps, gate=z)
     return Y @ params["out_proj"].to(x.dtype)
 
 
@@ -682,8 +690,7 @@ def mamba2_decode(
     decay = torch.exp(dt * a[None, :])
     h = state["h"] * decay[..., None, None] + torch.einsum("bhn,bh,bhp->bhnp", Bh, dt, xh)
     y = torch.einsum("bhn,bhnp->bhp", Ch, h) + xh * params["D"].float()[None, :, None]
-    y = y.reshape(B, 1, di).to(x_t.dtype)
-    y = rms_norm(y * F.silu(z[:, None, :]), params["norm_w"], cfg.norm_eps)
+    y = rms_norm(y.reshape(B, 1, di), params["norm_w"], cfg.norm_eps, gate=z[:, None, :])
     out = y @ params["out_proj"].to(x_t.dtype)
     assign(state["h"], h)
     assign(state["conv"], full[:, 1:])

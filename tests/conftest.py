@@ -20,6 +20,10 @@ def _shm_segments():
         return set()
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture(autouse=True)
 def threads_leaked():
     """Fail any test that leaks a non-daemon thread, a child process, or a

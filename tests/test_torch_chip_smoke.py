@@ -387,30 +387,42 @@ def test_split_invariance_checks_the_card_plan():
 @pytest.mark.parametrize(
     "arch,replace,forward,step",
     [
-        ("starcoder2-3b", {}, {"flash_attention": 30}, {"decode_attention": 30}),
-        ("mamba2-2.7b", {}, {"causal_conv": 64, "ssd_scan": 64}, {}),
-        ("moonshot-v1-16b-a3b", {}, {"flash_attention": 48, "moe_router": 47},
-         {"decode_attention": 48, "moe_router": 47}),
-        ("moonshot-v1-16b-a3b", {"num_layers": 4}, {"flash_attention": 4, "moe_router": 3},
-         {"decode_attention": 4, "moe_router": 3}),
+        # RMSNorm: ln1 and ln2 a layer (ln1 alone in a mamba2 block), the
+        # mixer's gated norm, and the final norm
+        ("starcoder2-3b", {}, {"flash_attention": 30, "rms_norm": 61},
+         {"decode_attention": 30, "rms_norm": 61}),
+        ("mamba2-2.7b", {}, {"causal_conv": 64, "ssd_scan": 64, "rms_norm": 129},
+         {"rms_norm": 129}),
+        ("moonshot-v1-16b-a3b", {}, {"flash_attention": 48, "moe_router": 47, "rms_norm": 97},
+         {"decode_attention": 48, "moe_router": 47, "rms_norm": 97}),
+        ("moonshot-v1-16b-a3b", {"num_layers": 4},
+         {"flash_attention": 4, "moe_router": 3, "rms_norm": 9},
+         {"decode_attention": 4, "moe_router": 3, "rms_norm": 9}),
         # kimi-k2 as the run cuts it: 1 dense + 1 MoE layer, its f32 check dense only
-        ("kimi-k2-1t-a32b", {"num_layers": 2}, {"flash_attention": 2, "moe_router": 1},
-         {"decode_attention": 2, "moe_router": 1}),
-        ("kimi-k2-1t-a32b", {"num_layers": 1}, {"flash_attention": 1}, {"decode_attention": 1}),
-        ("qwen2-vl-2b", {}, {"flash_attention": 28}, {"decode_attention": 28}),
+        ("kimi-k2-1t-a32b", {"num_layers": 2}, {"flash_attention": 2, "moe_router": 1,
+                                                "rms_norm": 5},
+         {"decode_attention": 2, "moe_router": 1, "rms_norm": 5}),
+        ("kimi-k2-1t-a32b", {"num_layers": 1}, {"flash_attention": 1, "rms_norm": 3},
+         {"decode_attention": 1, "rms_norm": 3}),
+        ("qwen2-vl-2b", {}, {"flash_attention": 28, "rms_norm": 57},
+         {"decode_attention": 28, "rms_norm": 57}),
         # whisper: flash in each encoder layer, self and cross in each decoder
-        # layer; decode self and cross in each decoder layer
-        ("whisper-large-v3", {}, {"flash_attention": 96}, {"decode_attention": 64}),
-        ("whisper-large-v3", {"encoder_layers": 2, "num_layers": 2}, {"flash_attention": 6},
-         {"decode_attention": 4}),
+        # layer; decode self and cross in each decoder layer; RMSNorm 2 an
+        # encoder layer, 3 a decoder layer, the encoder's and the final norm
+        ("whisper-large-v3", {}, {"flash_attention": 96, "rms_norm": 162},
+         {"decode_attention": 64, "rms_norm": 97}),
+        ("whisper-large-v3", {"encoder_layers": 2, "num_layers": 2},
+         {"flash_attention": 6, "rms_norm": 12}, {"decode_attention": 4, "rms_norm": 7}),
         # jamba served at one 7:1 period: 7 mamba2 layers, 1 attention, MoE
         # on every 2nd layer; its f32 check at the 2-layer cut
         ("jamba-v0.1-52b", {"num_layers": 8},
-         {"flash_attention": 1, "causal_conv": 7, "ssd_scan": 7, "moe_router": 4},
-         {"decode_attention": 1, "moe_router": 4}),
+         {"flash_attention": 1, "causal_conv": 7, "ssd_scan": 7, "moe_router": 4,
+          "rms_norm": 24},
+         {"decode_attention": 1, "moe_router": 4, "rms_norm": 24}),
         ("jamba-v0.1-52b", {"num_layers": 2, "attn_period": 2, "attn_offset": 1},
-         {"flash_attention": 1, "causal_conv": 1, "ssd_scan": 1, "moe_router": 1},
-         {"decode_attention": 1, "moe_router": 1}),
+         {"flash_attention": 1, "causal_conv": 1, "ssd_scan": 1, "moe_router": 1,
+          "rms_norm": 6},
+         {"decode_attention": 1, "moe_router": 1, "rms_norm": 6}),
     ],
 )
 def test_expected_launches_follow_the_layers(arch, replace, forward, step):
@@ -433,9 +445,11 @@ def test_require_launches_fails_a_whisper_step_without_its_cross_decode():
 
     _, per_step = chip_smoke.expected_launches(get_config(chip_smoke.WHISPER))
     steps = chip_smoke.WHISPER_STEPS
-    chip_smoke.require_launches("ok", {"decode_attention": 64 * steps}, per_step, steps)
+    norms = {"rms_norm": 97 * steps}  # 3 a decoder layer and the final norm
+    chip_smoke.require_launches("ok", {"decode_attention": 64 * steps, **norms}, per_step, steps)
     with pytest.raises(SystemExit, match="decode_attention"):
-        chip_smoke.require_launches("no cross", {"decode_attention": 32 * steps}, per_step, steps)
+        chip_smoke.require_launches("no cross", {"decode_attention": 32 * steps, **norms},
+                                    per_step, steps)
 
 
 def test_whisper_cell_is_the_published_config():
@@ -554,30 +568,44 @@ def test_encdec_vlm_cases_cover_the_new_routes(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,replace,want", [
-    ("starcoder2-3b", {}, {"flash_attention": 60, "flash_attention_bwd": 30}),
-    ("starcoder2-3b", {"num_layers": 2}, {"flash_attention": 4, "flash_attention_bwd": 2}),
-    ("starcoder2-3b", {"remat": "none"}, {"flash_attention": 30, "flash_attention_bwd": 30}),
+    # RMSNorm: each layer's norms twice under remat and once backward, the
+    # final norm once each way
+    ("starcoder2-3b", {}, {"flash_attention": 60, "flash_attention_bwd": 30, "rms_norm": 121,
+                           "rms_norm_bwd": 61}),
+    ("starcoder2-3b", {"num_layers": 2}, {"flash_attention": 4, "flash_attention_bwd": 2,
+                                          "rms_norm": 9, "rms_norm_bwd": 5}),
+    ("starcoder2-3b", {"remat": "none"}, {"flash_attention": 30, "flash_attention_bwd": 30,
+                                          "rms_norm": 61, "rms_norm_bwd": 61}),
+    # the benchmark cell's 257 and 129: 2 x 64 gated, 2 x 64 ln1, the final
     ("mamba2-2.7b", {}, {"causal_conv": 128, "causal_conv_bwd": 64, "ssd_scan": 128,
-                         "ssd_scan_bwd": 64}),
+                         "ssd_scan_bwd": 64, "rms_norm": 257, "rms_norm_bwd": 129}),
     ("mamba2-2.7b", {"num_layers": 2}, {"causal_conv": 4, "causal_conv_bwd": 2, "ssd_scan": 4,
-                                        "ssd_scan_bwd": 2}),
+                                        "ssd_scan_bwd": 2, "rms_norm": 9, "rms_norm_bwd": 5}),
     # 1 dense layer (a group of its own, not recomputed) + 3 MoE layers
     ("moonshot-v1-16b-a3b", {"num_layers": 4}, {"flash_attention": 7, "flash_attention_bwd": 4,
-                                                "moe_router": 6, "moe_router_bwd": 3}),
+                                                "moe_router": 6, "moe_router_bwd": 3,
+                                                "rms_norm": 15, "rms_norm_bwd": 9}),
     ("moonshot-v1-16b-a3b", {"num_layers": 2}, {"flash_attention": 2, "flash_attention_bwd": 2,
-                                                "moe_router": 1, "moe_router_bwd": 1}),
+                                                "moe_router": 1, "moe_router_bwd": 1,
+                                                "rms_norm": 5, "rms_norm_bwd": 5}),
     # whisper: 32 encoder layers + 2 x 32 decoder layers (self and cross) =
     # 96 flash forwards, the same again recomputed (every layer is
-    # checkpointed), 96 backwards; at the check's 2 + 2 layers 6, 6, 6
-    ("whisper-large-v3", {}, {"flash_attention": 192, "flash_attention_bwd": 96}),
-    ("whisper-large-v3", {"remat": "none"}, {"flash_attention": 96, "flash_attention_bwd": 96}),
+    # checkpointed), 96 backwards; at the check's 2 + 2 layers 6, 6, 6;
+    # RMSNorm 2 an encoder layer and 3 a decoder layer, recomputed, and the
+    # encoder's and the final norm once
+    ("whisper-large-v3", {}, {"flash_attention": 192, "flash_attention_bwd": 96,
+                              "rms_norm": 322, "rms_norm_bwd": 162}),
+    ("whisper-large-v3", {"remat": "none"}, {"flash_attention": 96, "flash_attention_bwd": 96,
+                                             "rms_norm": 162, "rms_norm_bwd": 162}),
     ("whisper-large-v3", {"encoder_layers": 2, "num_layers": 2},
-     {"flash_attention": 12, "flash_attention_bwd": 6}),
-    ("qwen2-vl-2b", {}, {"flash_attention": 56, "flash_attention_bwd": 28}),
+     {"flash_attention": 12, "flash_attention_bwd": 6, "rms_norm": 22, "rms_norm_bwd": 12}),
+    ("qwen2-vl-2b", {}, {"flash_attention": 56, "flash_attention_bwd": 28, "rms_norm": 113,
+                         "rms_norm_bwd": 57}),
     # jamba's cut: one group of 2 layers, not repeated, so nothing recomputed
     ("jamba-v0.1-52b", {"num_layers": 2, "attn_period": 2, "attn_offset": 1},
      {"flash_attention": 1, "flash_attention_bwd": 1, "causal_conv": 1, "causal_conv_bwd": 1,
-      "ssd_scan": 1, "ssd_scan_bwd": 1, "moe_router": 1, "moe_router_bwd": 1}),
+      "ssd_scan": 1, "ssd_scan_bwd": 1, "moe_router": 1, "moe_router_bwd": 1, "rms_norm": 6,
+      "rms_norm_bwd": 6}),
 ])
 def test_train_launches_per_step(arch, replace, want):
     """A forward per layer that runs the kernel, one more for each such
@@ -801,7 +829,8 @@ def test_d112_and_redesign_cases_cover_the_new_routes():
     ("dkdv_kernel<112,64,32>", True), ("decode_kernel<112,16>", True),
     ("fa_fwd_kernel<64,128,64>", False), ("dq_kernel<128,64,32>", False),
     ("delta_kernel", False), ("causal_conv_fwd_kernel", True), ("causal_conv_bwd_kernel", True),
-    ("causal_conv_bwd_reduce", True),
+    ("causal_conv_bwd_reduce", True), ("rms_norm_fwd_kernel", True),
+    ("rms_norm_bwd_kernel", True), ("rms_norm_bwd_reduce", True),
 ])
 def test_no_spill_rule(kernel, want):
     """Every Hopper redesign's kernel, every backward kernel of the SSD scan
@@ -1590,3 +1619,99 @@ def test_tree_bytes_walks_tuples_lists_and_dicts():
 
     t = torch.empty((4, 8), dtype=torch.bfloat16, device="meta")
     assert chip_smoke.tree_bytes((t, [t, {"a": t, "pos": 3}], None)) == 3 * 64
+
+
+def test_ulp_share_counts_bf16_steps_across_zero():
+    """``ulp_share`` counts how many bf16 steps a kernel's output lies from
+    the f64 plain version rounded to bf16, across zero too: one step passes
+    as bit-equal does, two do not."""
+    import torch
+
+    want = torch.tensor([1.0, -1.5, 3.0e-3, 0.0], dtype=torch.float64)
+    got = want.to(torch.bfloat16)
+    assert chip_smoke.ulp_share(got, want) == (1.0, 0)
+    bits = got.view(torch.int16).clone()
+    bits[0] += 1  # one step up from 1.0
+    assert chip_smoke.ulp_share(bits.view(torch.bfloat16), want) == (1.0, 1)
+    bits[1] += 2  # two steps away from -1.5
+    assert chip_smoke.ulp_share(bits.view(torch.bfloat16), want) == (0.75, 2)
+    # -0 is zero's own step, the least negative value one step from zero
+    below = torch.tensor([-32768, -32767], dtype=torch.int16).view(torch.bfloat16)
+    assert chip_smoke.ulp_share(below, torch.zeros(2, dtype=torch.float64)) == (1.0, 1)
+
+
+def test_norm_forward_check_bounds_the_worst_entry_besides_the_share():
+    """A bf16 output passes within one step on ``NORM_ULP_SHARE`` of its
+    entries and with no entry more than ``NORM_MAX_STEPS`` away: a few far
+    entries (one wrong row of many) fail it though the share holds.  An f32
+    output is held by ``conv_err``."""
+    import torch
+
+    want = torch.linspace(-3.0, 3.0, 20000, dtype=torch.float64)
+    got = want.to(torch.bfloat16)
+    assert chip_smoke.norm_fwd_check(got, want) == (dict(ulp_share=1.0, max_steps=0), True)
+    bits = got.view(torch.int16).clone()
+    bits[:10] += 1
+    errs, ok = chip_smoke.norm_fwd_check(bits.view(torch.bfloat16), want)
+    assert ok and errs["max_steps"] == 1
+    bits[10:12] += chip_smoke.NORM_MAX_STEPS + 1  # 0.01% of the entries, far off
+    errs, ok = chip_smoke.norm_fwd_check(bits.view(torch.bfloat16), want)
+    assert errs["ulp_share"] >= chip_smoke.NORM_ULP_SHARE and not ok
+    f32 = want.float()
+    assert chip_smoke.norm_fwd_check(f32, want)[1]
+    assert not chip_smoke.norm_fwd_check(f32 + 1e-3, want)[1]
+
+
+def test_norm_library_is_the_one_pytorch_call_of_the_plain_form():
+    """``library_ms`` times ``F.rms_norm`` with w as it is, forward and
+    backward; ``library_w_cast_ms`` casts w to x's dtype only where they
+    differ."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 64), generator=g).bfloat16()
+    w = 1 + 0.1 * torch.randn((64,), generator=g)
+    dout = torch.randn((3, 64), generator=g).bfloat16()
+    lib = chip_smoke.norm_library(x, w, dout)
+    assert sorted(lib) == ["library_ms", "library_w_cast_ms"]
+    fwd, bwd = lib["library_ms"]
+    assert torch.equal(fwd(), F.rms_norm(x, (64,), w, chip_smoke.NORM_EPS))
+    dx, dw = bwd()
+    assert (dx.shape, dx.dtype, dw.shape, dw.dtype) == ((3, 64), x.dtype, (64,), w.dtype)
+    assert torch.equal(lib["library_w_cast_ms"][0](),
+                       F.rms_norm(x, (64,), w.bfloat16(), chip_smoke.NORM_EPS))
+    assert sorted(chip_smoke.norm_library(x, w.bfloat16(), dout)) == ["library_ms"]
+
+
+@pytest.mark.parametrize("arch,replace,forward,decode", [
+    ("mamba2-2.7b", {}, (128, 1), (128, 1)),  # ln1 and the gated norm, and the final
+    ("starcoder2-3b", {"norm_type": "layer"}, (0, 0), (0, 0)),
+    ("qwen3-14b", {}, (4 * 40, 1), (4 * 40, 1)),  # ln1, ln2, q and k norms
+    ("whisper-large-v3", {}, (2 * 32 + 3 * 32, 2), (3 * 32, 1)),
+])
+def test_model_norms_count_the_layers_and_the_final_norms(arch, replace, forward, decode):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(**replace)
+    assert chip_smoke.model_norms(cfg) == forward
+    assert chip_smoke.model_norms(cfg, decode=True) == decode
+
+
+def test_norm_cases_cover_the_main_path_and_the_plan():
+    """The RMSNorm's cases hold the benchmark cell's two norms at their
+    shapes (gated at 5120 from the 10576-wide in_proj row, the block norm at
+    2560), jamba's, qk-norm at 128, decode at B = 8, the widest widths both
+    forms take, a width no multiple of a chunk, and a gate whose row stride is
+    no multiple of a chunk (the element-wise route)."""
+    from repro_torch.kernels.rms_norm.kernel import MAX_GATED_WIDTH, MAX_WIDTH
+
+    cases = {name: (lead, D, row, x) for name, lead, D, row, x, *_ in chip_smoke.NORM_CASES}
+    assert cases[chip_smoke.MAIN_CASE["rms_norm"]] == ((4, 2048), 5120, 10576, "float32")
+    assert cases["mamba2_ln1_B4_L2048"][:3] == ((4, 2048), 2560, None)
+    assert cases["qk_norm_D128"][1] == 128 and cases["decode_gated_B8"][0] == (8, 1)
+    widths = {(D, row is None) for _, D, row, _ in cases.values()}
+    assert (MAX_WIDTH, True) in widths and (MAX_GATED_WIDTH, False) in widths
+    assert any(D % 8 for D, _ in widths)
+    assert any(row is not None and row % 8 for _, _, row, _ in cases.values())
+    assert chip_smoke.MAIN_CASE["rms_norm_bwd"] == chip_smoke.MAIN_CASE["rms_norm"]

@@ -151,6 +151,8 @@ def _op_cases():
     from repro_torch.kernels.fused_augment import fused_augment, fused_augment_ref
     from repro_torch.kernels.moe_router import moe_router, moe_router_bwd, moe_router_bwd_ref
     from repro_torch.kernels.moe_router import moe_router_ref
+    from repro_torch.kernels.rms_norm import (rms_norm, rms_norm_bwd, rms_norm_bwd_ref,
+                                              rms_norm_ref, rstd_ref)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref
 
     B, Sq, Sk, Hq, Hkv, D = 2, 24, 40, 4, 2, 32
@@ -212,6 +214,17 @@ def _op_cases():
         outs = causal_conv_ref(xbc, w, b, H * P)
         return [t.to(dev) for t in (xbc, w, b, *(torch.ones_like(o) for o in outs))]
 
+    def norm_in(dev):  # the gated norm: y in f32, z read in place from a (z, x, B, C, dt) row
+        g = torch.Generator().manual_seed(6)
+        zxbcdt = torch.randn((2, L, 2 * H * P + 2 * G * N + H), generator=g).bfloat16()
+        return (torch.randn((2, L, H * P), generator=g).to(dev),
+                torch.randn((H * P,), generator=g).to(dev), zxbcdt[..., :H * P].to(dev))
+
+    def norm_bwd_in(dev):
+        y, w, z = norm_in("cpu")
+        out = rms_norm_ref(y, w, 1e-6, z)
+        return [t.to(dev) for t in (y, w, rstd_ref(y, 1e-6, z), torch.ones_like(out), z)]
+
     fl = flops.flash_flops
     kw = dict(causal=True, window=10, q_offset=16)
     return [
@@ -238,6 +251,10 @@ def _op_cases():
          flops.conv_flops(2 * L, H * P + 2 * G * N), lambda *t: causal_conv_ref(*t, H * P)),
         ("causal_conv_bwd", conv_bwd_in, causal_conv_bwd,
          flops.conv_bwd_flops(2 * L, H * P + 2 * G * N), causal_conv_bwd_ref),
+        ("rms_norm", norm_in, lambda y, w, z: rms_norm(y, w, 1e-6, gate=z),
+         flops.norm_flops(2 * L, H * P, gated=True), lambda y, w, z: rms_norm_ref(y, w, 1e-6, z)),
+        ("rms_norm_bwd", norm_bwd_in, rms_norm_bwd,
+         flops.norm_bwd_flops(2 * L, H * P, gated=True), rms_norm_bwd_ref),
     ]
 
 
@@ -282,10 +299,12 @@ def test_shape_only_ops_refuse_real_tensors():
 
 def test_meta_autograd_reaches_the_backward_ops():
     """A train step on meta runs each kernel's backward op through its
-    ``autograd.Function`` (FlashAttention, CausalConv, SSDScan, MoERouter)."""
+    ``autograd.Function`` (FlashAttention, CausalConv, SSDScan, MoERouter,
+    RMSNorm)."""
     rec = dryrun.run_cell("jamba-v0.1-52b", ShapeConfig("t", 64, 2, "train"), reduced=True)
     assert rec["status"] == "OK"
-    for op in ("flash_attention_bwd", "causal_conv_bwd", "ssd_scan_bwd", "moe_router_bwd"):
+    for op in ("flash_attention_bwd", "causal_conv_bwd", "ssd_scan_bwd", "moe_router_bwd",
+               "rms_norm_bwd"):
         assert rec["flops_by_op"][f"repro_torch.{op}"] > 0
 
 

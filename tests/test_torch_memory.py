@@ -31,6 +31,9 @@ from repro_torch.kernels.fused_augment import fused_augment  # noqa: E402
 from repro_torch.kernels.fused_augment import kernel as augment_kernel  # noqa: E402
 from repro_torch.kernels.moe_router import kernel as router_kernel  # noqa: E402
 from repro_torch.kernels.moe_router import moe_router, moe_router_bwd  # noqa: E402
+from repro_torch.kernels.rms_norm import kernel as norm_kernel  # noqa: E402
+from repro_torch.kernels.rms_norm import ops as norm_ops  # noqa: E402
+from repro_torch.kernels.rms_norm import rms_norm_bwd  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
 from repro_torch.launch import dryrun, memory, report  # noqa: E402
@@ -124,6 +127,7 @@ B, S, HQ, HKV, D = 1, 80, 4, 2, 32
 L, H, P, NS, G = 80, 4, 32, 16, 1
 T, E, K = 70, 8, 2  # three token blocks of the router
 CH = H * P + 2 * G * NS  # the conv's channels at the SSD case's widths
+NB = 4  # rows of 80 tokens of the norm's backward: more rows than its blocks (BWD_PARTS)
 
 
 def _kernel_cases():
@@ -138,6 +142,9 @@ def _kernel_cases():
     # the conv's (x, B, C) columns read in place from a (z, x, B, C, dt) row
     xbc = _empty((1, L, H * P + CH + H), torch.bfloat16)[..., H * P:H * P + CH]
     w4 = _empty((4, CH))
+    # the gated norm: y in f32, z read in place from the same row
+    row = _empty((NB, L, H * P + CH + H), torch.bfloat16)
+    y, z, wn = _empty((NB, L, H * P)), row[..., :H * P], _empty((H * P,))
     return [
         ("flash_attention", (q, kv, kv), lambda *t: flash_attention(*t, window=16),
          flash_kernel.fwd_scratch(B, S, S, HQ, D, bf16)),
@@ -165,6 +172,12 @@ def _kernel_cases():
         ("causal_conv_bwd", (xbc, w4, w4[0], _empty((1, L, H * P)), _empty((1, L, G * NS)),
                              _empty((1, L, G * NS))), causal_conv_bwd,
          conv_kernel.bwd_scratch(1, L, CH)),
+        # the op's outputs, each row's rstd with the output (the wrapper keeps
+        # rstd for autograd only)
+        ("rms_norm", (y, wn, z), lambda y_, w_, z_: norm_ops._forward(y_, w_, z_, 1e-6),
+         norm_kernel.fwd_scratch(NB * L, H * P)),
+        ("rms_norm_bwd", (y, wn, _empty((NB * L,)), _empty((NB, L, H * P), torch.bfloat16), z),
+         rms_norm_bwd, norm_kernel.bwd_scratch(NB * L, H * P)),
     ]
 
 
@@ -260,6 +273,11 @@ def _launch_case(name):
         return (lambda: conv_kernel.causal_conv_bwd_launch(xbc, w, w[0], dxs, dbc, dbc, xbc,
                                                            w, w[0]),
                 conv_kernel.bwd_scratch(1, L, CH))
+    if name == "rms_norm_bwd":
+        y, z, w, rstd = (_empty((NB * L, H * P)), _empty((NB * L, H * P), torch.bfloat16),
+                         _empty((H * P,)), _empty((NB * L,)))
+        return (lambda: norm_kernel.rms_norm_bwd_launch(y, w, z, rstd, z, y, w, z),
+                norm_kernel.bwd_scratch(NB * L, H * P))
     if name == "moe_router":
         logits, ids, gates = _empty((T, E)), _empty((T, K), torch.int32), _empty((T, K))
         return (lambda: router_kernel.moe_router_fwd(logits, ids, gates, ids, K),
@@ -277,7 +295,7 @@ def _launch_case(name):
 
 @pytest.mark.parametrize("name", ["flash_attention_bwd_bf16", "flash_attention_bwd_f32",
                                   "ssd_scan", "moe_router", "decode_attention",
-                                  "causal_conv_bwd"])
+                                  "causal_conv_bwd", "rms_norm_bwd"])
 def test_launch_functions_allocate_their_scratch_function(name, monkeypatch):
     """Each CUDA launch function allocates exactly its ``*_scratch`` (its
     kernels replaced by a stub library; meta tensors stand in)."""
@@ -289,7 +307,8 @@ def test_launch_functions_allocate_their_scratch_function(name, monkeypatch):
         seen.append((tuple(shape), kw.get("dtype")))
         return real_empty(shape, *args, **kw)
 
-    for mod in (flash_kernel, ssd_kernel, router_kernel, decode_kernel, conv_kernel):
+    for mod in (flash_kernel, ssd_kernel, router_kernel, decode_kernel, conv_kernel,
+                norm_kernel):
         monkeypatch.setattr(mod, "_lib", lambda *a: _Lib())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
     monkeypatch.setattr(decode_kernel, "_workspaces", {})
