@@ -2,9 +2,10 @@
 PyTorch version and a launch counter.
 
 Layout per kernel: ``<name>/kernel.py`` (ctypes binding of ``csrc/<name>.cu``),
-``<name>/ops.py`` (public wrapper: CUDA tensor -> kernel, CPU tensor -> plain
-version), ``<name>/ref.py`` (the plain version).  ``_build.py`` compiles the
-CUDA sources with nvcc on first use.
+``<name>/ops.py`` (public wrapper), ``<name>/ref.py`` (the plain version).
+``_route.py`` decides which of them serves a call, ``_shape.py`` holds each
+shape-only op and its launch's scratch, ``_build.py`` compiles every
+``csrc/*.cu`` with nvcc on first use.
 
 Kernels:
   flash_attention     - blocked causal/windowed GQA attention, online softmax
@@ -60,3 +61,6 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+reset_launch_counts()

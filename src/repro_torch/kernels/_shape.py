@@ -1,36 +1,38 @@
 """The kernels' shape-only route: what each kernel op returns on the
-``meta`` device, and the FLOPs ``torch.utils.flop_counter.FlopCounterMode``
-charges it.
+``meta`` device, and the scratch its CUDA launch allocates.
 
 Each op is a ``torch.library.custom_op`` whose only implementation is its
 fake one: on ``meta`` tensors it returns empty outputs of the kernel's
 shapes and dtypes and computes no numbers, so it is no fallback (a CPU or
-CUDA tensor never reaches it: the wrappers in ``<kernel>/ops.py`` send a
-CPU tensor to the plain version and a CUDA tensor to the kernel).  Its FLOP
-formula is the one of ``repro_torch.launch.flops``.  The dry run
+CUDA tensor never reaches it: the route rule, ``_route``, sends a CPU
+tensor to the plain version and a CUDA tensor to the kernel).  The dry run
 (``repro_torch.launch.dryrun``) builds a whole step on ``meta`` through
 these ops, autograd's backward included.
 
-Decode's FLOPs depend on ``lengths``, which a ``meta`` tensor does not
-hold: the op is charged every row of a full cache (the window's rows with a
-window), the most a call can read, which is what a decode step over a
-seq_len-deep cache reads.  Its ``num_splits`` (-1: the card's plan) sizes the
-split workspace the memory analysis charges (``launch.memory``), as each
-op's scratch there follows the CUDA launch's ``*_scratch``.
+Beside each fake, ``<op>_scratch`` names the buffers the op's CUDA launch
+allocates around its kernels (the ``*_scratch`` of its ``kernel.py``); the
+memory analysis (``launch.memory``) charges them while the op runs.  Decode's split workspace is persistent, not scratch
+(``decode_workspace``, sized by the op's ``num_splits``, -1 for the card's
+plan): one a device and stream, grown to the largest call's need.  The
+FLOPs each op is charged are registered by ``repro_torch.launch.flops``.
 
 This module keeps its annotations evaluated (no ``from __future__ import
 annotations``): ``custom_op`` reads its schema from them.
 """
-import math
 from typing import Optional, Tuple
 
 import torch
-from torch.utils.flop_counter import register_flop_formula
 
-from ..launch import flops as F
+from ._scratch import Scratch
+from .causal_conv import kernel as conv_kernel
+from .decode_attention import kernel as decode_kernel
+from .flash_attention import kernel as flash_kernel
+from .fused_augment import kernel as augment_kernel
+from .moe_router import kernel as router_kernel
+from .rms_norm import kernel as norm_kernel
+from .ssd_scan import kernel as ssd_kernel
 
 Tensor = torch.Tensor
-
 
 def _refuse(name: str) -> RuntimeError:
     return RuntimeError(f"repro_torch::{name} is the shape-only route of a kernel; it takes "
@@ -53,10 +55,9 @@ def _(q, k, v, causal, window, q_offset, with_lse):
     return torch.empty_like(q), q.new_empty(lse, dtype=torch.float32)
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
-def _(q, k, v, causal, window, q_offset, with_lse, *args, out_shape=None, **kwargs):
-    B, Sq, Hq, D = q
-    return int(F.flash_flops(B, Sq, k[1], Hq, D, causal, window, q_offset))
+def flash_attention_fwd_scratch(q, k, v, causal, window, q_offset, with_lse):
+    B, Sq, Hq, D = q.shape
+    return flash_kernel.fwd_scratch(B, Sq, k.shape[1], Hq, D, q.dtype)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
@@ -70,10 +71,9 @@ def _(q, k, v, o, lse, do, causal, window, q_offset):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
-def _(q, k, v, o, lse, do, causal, window, q_offset, *args, out_shape=None, **kwargs):
-    B, Sq, Hq, D = q
-    return int(F.flash_flops(B, Sq, k[1], Hq, D, causal, window, q_offset, backward=True))
+def flash_attention_bwd_scratch(q, k, v, o, lse, do, causal, window, q_offset):
+    B, Sq, Hq, D = q.shape
+    return flash_kernel.bwd_scratch(B, Sq, k.shape[1], Hq, D, q.dtype)
 
 
 # --- decode attention ----------------------------------------------------------
@@ -88,10 +88,15 @@ def _(q, k_cache, v_cache, lengths, window, num_splits):
     return torch.empty_like(q)
 
 
-@register_flop_formula(torch.ops.repro_torch.decode_attention)
-def _(q, k_cache, v_cache, lengths, window, num_splits, *args, out_shape=None, **kwargs):
-    B, Hq, D = q
-    return int(F.decode_flops(Hq, D, F.decode_visible(B, k_cache[1], window)))
+def decode_workspace(q, k_cache, v_cache, lengths, window, num_splits, *, sms: int) -> Scratch:
+    """The split workspace a decode call needs (``num_splits`` -1: the
+    card's plan over ``sms`` SMs)."""
+    from .decode_attention.ops import plan
+
+    B, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    rows, ns = plan(q.dtype, B, S, Hq, Hkv, None if num_splits < 0 else num_splits, sms)
+    return decode_kernel.workspace_scratch(B, Hq, Hkv, D, rows, ns)
 
 
 # --- SSD scan ------------------------------------------------------------------
@@ -107,10 +112,9 @@ def _(x, dt, a, Bm, Cm, D, chunk):
     return torch.empty_like(x), x.new_empty((Bsz, H, Bm.shape[3], P), dtype=torch.float32)
 
 
-@register_flop_formula(torch.ops.repro_torch.ssd_scan)
-def _(x, dt, a, Bm, Cm, D, chunk, *args, out_shape=None, **kwargs):
-    Bsz, L, H, P = x
-    return int(F.ssd_flops(Bsz, L, H, P, Bm[3], chunk, Bm[2]))
+def ssd_scan_scratch(x, dt, a, Bm, Cm, D, chunk):
+    Bsz, L, H, P = x.shape
+    return ssd_kernel.fwd_scratch(Bsz, L, H, P, Bm.shape[3], chunk, x.dtype)
 
 
 @torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
@@ -128,10 +132,9 @@ def _(x, dt, a, Bm, Cm, D, dy, dh_final):
             torch.empty_like(Bm), torch.empty_like(Cm), a.new_empty((H,), **f32))
 
 
-@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
-def _(x, dt, a, Bm, Cm, D, dy, dh_final, *args, out_shape=None, **kwargs):
-    Bsz, L, H, P = x
-    return int(F.ssd_bwd_flops(Bsz, L, H, P, Bm[3], groups=Bm[2]))
+def ssd_scan_bwd_scratch(x, dt, a, Bm, Cm, D, dy, dh_final):
+    Bsz, L, H, P = x.shape
+    return ssd_kernel.bwd_scratch(Bsz, L, H, Bm.shape[2], P, Bm.shape[3], x.dtype)
 
 
 # --- causal conv ---------------------------------------------------------------
@@ -149,10 +152,8 @@ def _(xbc, w, b, d_inner):
             xbc.new_empty((Bsz, L, gn), dtype=dt))
 
 
-@register_flop_formula(torch.ops.repro_torch.causal_conv)
-def _(xbc, w, b, d_inner, *args, out_shape=None, **kwargs):
-    Bsz, L, Ch = xbc
-    return int(F.conv_flops(Bsz * L, Ch, w[0]))
+def causal_conv_scratch(xbc, w, b, d_inner):
+    return conv_kernel.fwd_scratch(*xbc.shape)
 
 
 @torch.library.custom_op("repro_torch::causal_conv_bwd", mutates_args=())
@@ -167,10 +168,8 @@ def _(xbc, w, b, dxs, dB, dC):
             torch.empty_like(b, memory_format=torch.contiguous_format))
 
 
-@register_flop_formula(torch.ops.repro_torch.causal_conv_bwd)
-def _(xbc, w, b, dxs, dB, dC, *args, out_shape=None, **kwargs):
-    Bsz, L, Ch = xbc
-    return int(F.conv_bwd_flops(Bsz * L, Ch, w[0]))
+def causal_conv_bwd_scratch(xbc, w, b, dxs, dB, dC):
+    return conv_kernel.bwd_scratch(*xbc.shape)
 
 
 # --- RMSNorm ------------------------------------------------------------------
@@ -186,9 +185,8 @@ def _(x, w, gate, eps):
             x.new_empty((x.numel() // x.shape[-1],), dtype=torch.float32))
 
 
-@register_flop_formula(torch.ops.repro_torch.rms_norm)
-def _(x, w, gate, eps, *args, out_shape=None, **kwargs):
-    return int(F.norm_flops(math.prod(x[:-1]), x[-1], gated=gate is not None))
+def rms_norm_scratch(x, w, gate, eps):
+    return norm_kernel.fwd_scratch(x.numel() // x.shape[-1], x.shape[-1])
 
 
 @torch.library.custom_op("repro_torch::rms_norm_bwd", mutates_args=())
@@ -205,9 +203,8 @@ def _(x, w, rstd, dout, gate):
             x.new_empty(dz, dtype=(x if gate is None else gate).dtype))
 
 
-@register_flop_formula(torch.ops.repro_torch.rms_norm_bwd)
-def _(x, w, rstd, dout, gate, *args, out_shape=None, **kwargs):
-    return int(F.norm_bwd_flops(math.prod(x[:-1]), x[-1], gated=gate is not None))
+def rms_norm_bwd_scratch(x, w, rstd, dout, gate):
+    return norm_kernel.bwd_scratch(x.numel() // x.shape[-1], x.shape[-1])
 
 
 def rms_norm_bwd(x: Tensor, w: Tensor, rstd: Tensor, dout: Tensor,
@@ -231,10 +228,8 @@ def _(logits, k):
             logits.new_empty((T, k), dtype=torch.int32))
 
 
-@register_flop_formula(torch.ops.repro_torch.moe_router)
-def _(logits, k, *args, out_shape=None, **kwargs):
-    T, E = logits
-    return int(F.router_flops(T, E, k))
+def moe_router_scratch(logits, k):
+    return router_kernel.fwd_scratch(*logits.shape)
 
 
 @torch.library.custom_op("repro_torch::moe_router_bwd", mutates_args=())
@@ -247,10 +242,8 @@ def _(ids, gates, dgates, E):
     return gates.new_empty((ids.shape[0], E), dtype=torch.float32)
 
 
-@register_flop_formula(torch.ops.repro_torch.moe_router_bwd)
-def _(ids, gates, dgates, E, *args, out_shape=None, **kwargs):
-    T, k = ids
-    return int(F.router_bwd_flops(T, k))
+def moe_router_bwd_scratch(ids, gates, dgates, E):
+    return router_kernel.bwd_scratch(ids.shape[0], E, ids.shape[1])
 
 
 # --- fused augment ---------------------------------------------------------------
@@ -266,7 +259,5 @@ def _(images, crops, flips, mean, std, out_h, out_w):
     return mean.new_empty((B, out_h, out_w, C), dtype=torch.float32)
 
 
-@register_flop_formula(torch.ops.repro_torch.fused_augment)
-def _(images, crops, flips, mean, std, out_h, out_w, *args, out_shape=None, **kwargs):
-    B, _, _, C = images
-    return int(F.augment_flops(B, out_h, out_w, C))
+def fused_augment_scratch(images, crops, flips, mean, std, out_h, out_w):
+    return augment_kernel.fwd_scratch(*images.shape, out_h, out_w)

@@ -1,29 +1,18 @@
-"""Public wrappers of the mamba2 mixer's causal-conv kernels.
+"""Public wrappers of the mamba2 mixer's causal-conv kernels; which one serves a
+call is the route rule's (``kernels._route``).
 
 ``causal_conv``: the depthwise causal conv of width 4, bias and SiLU over the
 (x, B, C) columns of the in_proj output, read in place (a (B, L, Ch) view
 with any batch and row stride, unit channel stride), written as the three
-contiguous tensors ``ssd_scan`` takes.  On a CUDA tensor it launches the
-hand-written Hopper kernel (``csrc/causal_conv.cu``) or raises; when autograd
-records the call (grad mode on and an input that needs a gradient) it goes
-through ``CausalConv``, a ``torch.autograd.Function`` whose backward is
-``causal_conv_bwd``.  On a CPU tensor it computes the plain version
-``causal_conv_ref``, through which autograd runs as usual.
+contiguous tensors ``ssd_scan`` takes: ``csrc/causal_conv.cu``, its plain
+version ``causal_conv_ref``, under autograd ``CausalConv``.  On a mesh the
+batch splits over the data axes, time and channels whole.
 
-``causal_conv_bwd``: on a CUDA tensor it launches the hand-written backward
-(dx, then the weights' partials reduced by a second launch) or raises; on a
-CPU tensor it computes ``causal_conv_bwd_ref`` (the same math, in f32).
+``causal_conv_bwd``: dx, then the weights' partials reduced by a second
+launch; plain version ``causal_conv_bwd_ref`` (the same math, in f32).
 
-On a mesh, ``causal_conv`` takes ``DTensor``s local (``kernels._boundary``):
-batch over the data axes, time and channels whole.
-
-On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
-empty outputs of the kernels' shapes, charged their FLOPs under
-``FlopCounterMode``, with no launch counted.
-
-Both check their inputs on every device: the conv's width must be 4.
-``causal_conv.launches`` and ``causal_conv_bwd.launches`` count wrapper
-calls that launched their kernels (one per call).
+Both check their inputs on every device: the conv's width must be 4.  Each
+call that launches counts one in ``.launches``.
 """
 from __future__ import annotations
 
@@ -31,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from .. import _boundary, _shape
+from .. import _boundary, _route, _shape
 from .kernel import DTYPES, TAPS, causal_conv_bwd_launch, causal_conv_fwd
 from .ref import causal_conv_bwd_ref, causal_conv_ref
 
@@ -67,16 +56,17 @@ def _check(xbc, w, b, d_inner) -> int:
 
 
 def _forward(xbc, w, b, d_inner) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    if xbc.device.type == "meta":
-        return _shape.causal_conv(xbc, w, b, d_inner)
-    Bsz, L, Ch = xbc.shape
-    gn = (Ch - d_inner) // 2
-    out = dict(dtype=torch.promote_types(xbc.dtype, w.dtype), device=xbc.device)
-    xs = torch.empty((Bsz, L, d_inner), **out)
-    bo, co = torch.empty((Bsz, L, gn), **out), torch.empty((Bsz, L, gn), **out)
-    causal_conv_fwd(xbc, w, b, xs, bo, co)
-    causal_conv.launches += 1
-    return xs, bo, co
+    def launch():
+        Bsz, L, Ch = xbc.shape
+        gn = (Ch - d_inner) // 2
+        out = dict(dtype=torch.promote_types(xbc.dtype, w.dtype), device=xbc.device)
+        xs = torch.empty((Bsz, L, d_inner), **out)
+        bo, co = torch.empty((Bsz, L, gn), **out), torch.empty((Bsz, L, gn), **out)
+        causal_conv_fwd(xbc, w, b, xs, bo, co)
+        return xs, bo, co
+
+    return _route.device(causal_conv, xbc, lambda: _shape.causal_conv(xbc, w, b, d_inner),
+                         launch)
 
 
 class CausalConv(torch.autograd.Function):
@@ -108,16 +98,12 @@ def causal_conv(
     ``d_inner + G N``: xs (B, L, d_inner) and B and C (B, L, G N), each
     contiguous, in promote(xbc, w), the taps summed in f32 (in that dtype on
     the CPU).  ``DTensor``s are taken local (``_boundary``)."""
-    if isinstance(xbc, _boundary.DTensor):
-        return _boundary.causal_conv(causal_conv, xbc, w, b, d_inner=d_inner)
-    _check(xbc, w, b, d_inner)
-    if xbc.device.type == "cpu":
-        return causal_conv_ref(xbc, w, b, d_inner)
-    if xbc.device.type not in ("cuda", "meta"):
-        raise ValueError(f"causal_conv: no kernel for device {xbc.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xbc, w, b)):
-        return CausalConv.apply(xbc, w, b, d_inner)
-    return _forward(xbc, w, b, d_inner)
+    return _route.call(
+        causal_conv, xbc, (w, b), check=lambda: _check(xbc, w, b, d_inner),
+        boundary=lambda: _boundary.causal_conv(causal_conv, xbc, w, b, d_inner=d_inner),
+        plain=lambda: causal_conv_ref(xbc, w, b, d_inner),
+        function=lambda: CausalConv.apply(xbc, w, b, d_inner),
+        device=lambda: _forward(xbc, w, b, d_inner))
 
 
 def causal_conv_bwd(
@@ -132,7 +118,7 @@ def causal_conv_bwd(
     dtype (summed in f32, rounded once), dw (4, Ch) and db (Ch,) in w's."""
     d_inner = dxs.shape[-1]
     gn = _check(xbc, w, b, d_inner)
-    Bsz, L, Ch = xbc.shape
+    Bsz, L, _ = xbc.shape
     want = torch.promote_types(xbc.dtype, w.dtype)
     for name, t, width in (("dxs", dxs, d_inner), ("dB", dB, gn), ("dC", dC, gn)):
         if (tuple(t.shape) != (Bsz, L, width) or t.dtype != want or t.device != xbc.device
@@ -140,18 +126,15 @@ def causal_conv_bwd(
             raise ValueError(f"causal_conv_bwd: {name} must be a contiguous {want} "
                              f"{(Bsz, L, width)} on {xbc.device}; got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if xbc.device.type == "cpu":
-        return causal_conv_bwd_ref(xbc, w, b, dxs, dB, dC)
-    if xbc.device.type not in ("cuda", "meta"):
-        raise ValueError(f"causal_conv_bwd: no kernel for device {xbc.device}")
-    if xbc.device.type == "meta":
-        return _shape.causal_conv_bwd(xbc, w, b, dxs, dB, dC)
-    dx = torch.empty((Bsz, L, Ch), dtype=xbc.dtype, device=xbc.device)
-    dw, db = torch.empty_like(w), torch.empty_like(b)
-    causal_conv_bwd_launch(xbc, w, b, dxs, dB, dC, dx, dw, db)
-    causal_conv_bwd.launches += 1
-    return dx, dw, db
 
+    def launch():
+        dx = torch.empty(xbc.shape, dtype=xbc.dtype, device=xbc.device)
+        dw, db = torch.empty_like(w), torch.empty_like(b)
+        causal_conv_bwd_launch(xbc, w, b, dxs, dB, dC, dx, dw, db)
+        return dx, dw, db
 
-causal_conv.launches = 0
-causal_conv_bwd.launches = 0
+    return _route.call(
+        causal_conv_bwd, xbc,
+        plain=lambda: causal_conv_bwd_ref(xbc, w, b, dxs, dB, dC),
+        device=lambda: _route.device(
+            causal_conv_bwd, xbc, lambda: _shape.causal_conv_bwd(xbc, w, b, dxs, dB, dC), launch))

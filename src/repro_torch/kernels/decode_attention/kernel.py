@@ -53,11 +53,6 @@ def _workspace(device: torch.device, stream: int, spec: Scratch) -> torch.Tensor
     return ws
 
 
-def workspace_bytes() -> int:
-    """Bytes of the workspaces this process holds."""
-    return sum(ws.numel() * ws.element_size() for ws in _workspaces.values())
-
-
 def release_workspaces() -> None:
     """Drops every workspace; the next call allocates its own again."""
     _workspaces.clear()

@@ -1,13 +1,10 @@
-"""Public wrapper of the split-K decode-attention kernel.
-
-On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/decode_attention.cu``) or raises; on a CPU tensor it computes the
-plain version ``decode_attention_ref``; ``DTensor``s on a mesh are taken
-local (``kernels._boundary``: batch over the data axes, kv heads over the
-model axis, or each rank's kv head); on a ``meta`` tensor, the shape-only
-route (``kernels._shape``, no launch counted).  ``decode_attention.launches`` counts
-calls that launched the kernel (one per call, with the split merge's
-launch when there is more than one split).
+"""Public wrapper of the split-K decode-attention kernel
+(``csrc/decode_attention.cu``, plain version ``decode_attention_ref``; the
+route: ``kernels._route``).  On a mesh the batch splits over the data axes,
+the kv heads over the model axis, or each rank takes its kv head.  It has no
+backward: on its device route it raises when a gradient would pass (``_grad``).
+``decode_attention.launches`` counts calls that launched the kernel (one per
+call, with the split merge's launch when there is more than one split).
 
 The split plan: the kernel splits each (sequence, kv head, row block)'s
 visible keys on the card into ``num_splits`` equal shares of 64-key tiles
@@ -22,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _boundary, _shape
+from .. import _boundary, _route, _shape
 from .._grad import refuse_grad
 from .kernel import DTYPES, HEAD_DIMS, MAX_GROUP, decode_attention_fwd
 from .ref import decode_attention_ref
@@ -117,6 +114,25 @@ def _check(q, k_cache, v_cache, lengths) -> None:
             raise ValueError(f"decode_attention: {name} must be contiguous and 16-byte aligned")
 
 
+def _device(q, k_cache, v_cache, lengths, window, num_splits) -> torch.Tensor:
+    refuse_grad("decode_attention", q, k_cache, v_cache)
+    _check(q, k_cache, v_cache, lengths)
+
+    def launch():
+        B, Hq, _ = q.shape
+        S, Hkv = k_cache.shape[1], k_cache.shape[2]
+        rows, ns = plan(q.dtype, B, S, Hq, Hkv, num_splits, _sm_count(q.device.index or 0))
+        out = torch.empty_like(q)
+        decode_attention_fwd(q, k_cache, v_cache, lengths, out, rows=rows, num_splits=ns,
+                             window=window)
+        return out
+
+    return _route.device(
+        decode_attention, q,
+        lambda: _shape.decode_attention(q, k_cache, v_cache, lengths, window,
+                                        -1 if num_splits is None else int(num_splits)), launch)
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, Hq, D)
     k_cache: torch.Tensor,  # (B, S, Hkv, D)
@@ -135,29 +151,10 @@ def decode_attention(
     kernel's tiles are 64 keys).  The plain version ignores both.
     ``DTensor``s are taken local (``_boundary``).
     """
-    if isinstance(q, _boundary.DTensor):
-        return _boundary.grouped_heads(decode_attention, q, (k_cache, v_cache), 1, 2,
-                                       tail=(lengths,), window=window, num_splits=num_splits,
-                                       block_s=block_s)
-    if q.device.type == "cpu":
-        if k_cache.device.type != "cpu" or v_cache.device.type != "cpu":
-            raise ValueError("decode_attention: q on the CPU but a cache elsewhere")
-        return decode_attention_ref(q, k_cache, v_cache, lengths, window=window)
-    if q.device.type not in ("cuda", "meta"):
-        raise ValueError(f"decode_attention: no kernel for device {q.device}")
-    refuse_grad("decode_attention", q, k_cache, v_cache)
-    _check(q, k_cache, v_cache, lengths)
-    if q.device.type == "meta":
-        return _shape.decode_attention(q, k_cache, v_cache, lengths, window,
-                                       -1 if num_splits is None else int(num_splits))
-    B, Hq, _ = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    rows, ns = plan(q.dtype, B, S, Hq, Hkv, num_splits, _sm_count(q.device.index or 0))
-    out = torch.empty_like(q)
-    decode_attention_fwd(q, k_cache, v_cache, lengths, out, rows=rows, num_splits=ns,
-                         window=window)
-    decode_attention.launches += 1
-    return out
-
-
-decode_attention.launches = 0
+    return _route.call(
+        decode_attention, q, (k_cache, v_cache), mixed="q on the CPU but a cache elsewhere",
+        boundary=lambda: _boundary.grouped_heads(
+            decode_attention, q, (k_cache, v_cache), 1, 2, tail=(lengths,), window=window,
+            num_splits=num_splits, block_s=block_s),
+        plain=lambda: decode_attention_ref(q, k_cache, v_cache, lengths, window=window),
+        device=lambda: _device(q, k_cache, v_cache, lengths, window, num_splits))

@@ -1,30 +1,18 @@
-"""Public wrappers of the flash-attention kernels.
+"""Public wrappers of the flash-attention kernels; which one serves a call is
+the route rule's (``kernels._route``).
 
-``flash_attention``: on a CUDA tensor it launches the hand-written Hopper
-forward (``csrc/flash_attention.cu``: the wgmma/TMA kernel for bf16, the
-scalar kernel for f32) or raises; when autograd records the
-call (grad mode on and an input that needs a gradient) it goes through
-``FlashAttention``, a ``torch.autograd.Function`` whose forward also keeps
-the rows' log-sum-exp and whose backward is ``flash_attention_bwd``.  On a
-CPU tensor it computes the plain version ``flash_attention_ref``, through
-which autograd runs as usual.
+``flash_attention``: ``csrc/flash_attention.cu`` (the wgmma/TMA kernel for
+bf16, the scalar kernel for f32), plain version ``flash_attention_ref``,
+under autograd ``FlashAttention``, whose forward also keeps the rows'
+log-sum-exp and whose backward is ``flash_attention_bwd``.  On a mesh the
+batch splits over the data axes, the heads over the model axis, and each
+rank takes its kv heads when only the q heads split.
 
-``flash_attention_bwd``: on a CUDA tensor it launches the hand-written
-backward (``csrc/flash_attention_bwd.cu``) or raises; on a CPU tensor it
-computes ``flash_attention_bwd_ref`` (the same math, in f32).
+``flash_attention_bwd``: ``csrc/flash_attention_bwd.cu``, plain version
+``flash_attention_bwd_ref`` (the same math, in f32).
 
-On a mesh, ``flash_attention`` takes ``DTensor``s local
-(``kernels._boundary``): batch over the data axes, heads over the model
-axis, and each rank's kv heads when only the q heads split.
-
-On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
-empty outputs of the kernel's shapes, charged their FLOPs under
-``FlopCounterMode``, with no launch counted; autograd on ``meta`` reaches the
-backward's through ``FlashAttention``.
-
-``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-kernel launches (the backward's kernels, three for f32 and four for bf16,
-count as one launch).
+``.launches`` counts kernel launches (the backward's kernels, three for f32
+and four for bf16, count as one launch).
 """
 from __future__ import annotations
 
@@ -32,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _boundary, _shape
+from .. import _boundary, _route, _shape
 from .kernel import DTYPES, HEAD_DIMS, TILES, flash_attention_bwd_launch
 from .kernel import flash_attention_fwd as _launch_fwd
 from .ref import flash_attention_bwd_ref, flash_attention_ref
@@ -82,18 +70,22 @@ def _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k,
              with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check(q, k, v)
     block_q, block_k = resolve_tile(q.dtype, q.shape[3], block_q, block_k)
-    if q.device.type == "meta":
+
+    def shape():
         o, lse = _shape.flash_attention_fwd(q, k, v, causal, window, q_offset, with_lse)
         return o, (lse if with_lse else None)
-    o = torch.empty_like(q)
-    lse = None
-    if with_lse:
-        B, Sq, Hq, _ = q.shape
-        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    _launch_fwd(q, k, v, o, lse, causal=causal, window=window, softcap=softcap,
-                q_offset=q_offset, block_q=block_q, block_k=block_k)
-    flash_attention.launches += 1
-    return o, lse
+
+    def launch():
+        o = torch.empty_like(q)
+        lse = None
+        if with_lse:
+            B, Sq, Hq, _ = q.shape
+            lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        _launch_fwd(q, k, v, o, lse, causal=causal, window=window, softcap=softcap,
+                    q_offset=q_offset, block_q=block_q, block_k=block_k)
+        return o, lse
+
+    return _route.device(flash_attention, q, shape, launch)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -134,20 +126,17 @@ def flash_attention(
     The result does not depend on the tile beyond rounding; the plain
     version ignores it.  ``DTensor``s are taken local (``_boundary``).
     """
-    if isinstance(q, _boundary.DTensor):
-        return _boundary.grouped_heads(flash_attention, q, (k, v), 2, 2, causal=causal,
-                                       window=window, softcap=softcap, q_offset=q_offset,
-                                       block_q=block_q, block_k=block_k)
-    if q.device.type == "cpu":
-        if k.device.type != "cpu" or v.device.type != "cpu":
-            raise ValueError("flash_attention: q on the CPU but k or v elsewhere")
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, q_offset=q_offset)
-    if q.device.type not in ("cuda", "meta"):
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, window, softcap, q_offset, block_q, block_k)
-    return _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k, False)[0]
+    return _route.call(
+        flash_attention, q, (k, v), mixed="q on the CPU but k or v elsewhere",
+        boundary=lambda: _boundary.grouped_heads(
+            flash_attention, q, (k, v), 2, 2, causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset, block_q=block_q, block_k=block_k),
+        plain=lambda: flash_attention_ref(q, k, v, causal=causal, window=window,
+                                          softcap=softcap, q_offset=q_offset),
+        function=lambda: FlashAttention.apply(q, k, v, causal, window, softcap, q_offset,
+                                              block_q, block_k),
+        device=lambda: _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k,
+                                False)[0])
 
 
 def flash_attention_with_lse(
@@ -160,6 +149,31 @@ def flash_attention_with_lse(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_with_lse: no kernel for device {q.device}")
     return _forward(q, k, v, causal, window, softcap, q_offset, block_q, block_k, True)
+
+
+def _backward(q, k, v, o, lse, do, causal, window, softcap, q_offset):
+    _check(q, k, v)
+    B, Sq, Hq, _ = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must match q; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous and 16-byte aligned")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, Sq) or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 ({B}, {Hq}, {Sq}); "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+
+    def launch():
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        flash_attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, causal=causal,
+                                   window=window, softcap=softcap, q_offset=q_offset)
+        return dq, dk, dv
+
+    return _route.device(
+        flash_attention_bwd, q,
+        lambda: _shape.flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_offset), launch)
 
 
 def flash_attention_bwd(
@@ -176,33 +190,9 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention``, in the inputs' dtype; dk and dv
     are summed over each GQA group."""
-    if q.device.type == "cpu":
-        if any(t.device.type != "cpu" for t in (k, v, o, lse, do)):
-            raise ValueError("flash_attention_bwd: q on the CPU but another input elsewhere")
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
-                                       softcap=softcap, q_offset=q_offset)
-    if q.device.type not in ("cuda", "meta"):
-        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
-    _check(q, k, v)
-    B, Sq, Hq, _ = q.shape
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"flash_attention_bwd: {name} must match q; got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_bwd: {name} must be contiguous and 16-byte aligned")
-    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, Sq) or lse.device != q.device
-            or not lse.is_contiguous()):
-        raise ValueError(f"flash_attention_bwd: lse must be contiguous float32 ({B}, {Hq}, {Sq}); "
-                         f"got {lse.dtype} {tuple(lse.shape)}")
-    if q.device.type == "meta":
-        return _shape.flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_offset)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    flash_attention_bwd_launch(q, k, v, o, lse, do, dq, dk, dv, causal=causal, window=window,
-                               softcap=softcap, q_offset=q_offset)
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
-
-
-flash_attention.launches = 0
-flash_attention_bwd.launches = 0
+    return _route.call(
+        flash_attention_bwd, q, (k, v, o, lse, do),
+        mixed="q on the CPU but another input elsewhere",
+        plain=lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
+                                              softcap=softcap, q_offset=q_offset),
+        device=lambda: _backward(q, k, v, o, lse, do, causal, window, softcap, q_offset))

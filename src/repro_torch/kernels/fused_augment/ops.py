@@ -1,17 +1,13 @@
-"""Public wrapper of the fused crop + flip + normalise kernel.
-
-On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/fused_augment.cu``) or raises; on a CPU tensor it computes the plain
-version ``fused_augment_ref``; on a ``meta`` tensor, the shape-only route
-(``kernels._shape``, no launch counted).  ``fused_augment.launches`` counts kernel
-launches.  No model path calls it, in either package: it is the standalone op
-of the JAX package's ``repro.kernels.fused_augment``.
+"""Public wrapper of the fused crop + flip + normalise kernel
+(``csrc/fused_augment.cu``, plain version ``fused_augment_ref``; the route:
+``kernels._route``).  No model path calls it, in either package: it is the
+standalone op of the JAX package's ``repro.kernels.fused_augment``.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import _boundary, _shape
+from .. import _boundary, _route, _shape
 from .kernel import MAX_CHANNELS, fused_augment_fwd
 from .ref import fused_augment_ref
 
@@ -43,6 +39,20 @@ def _check(images, crops, flips, mean, std, out_h: int, out_w: int) -> None:
             raise ValueError(f"fused_augment: {name} must be contiguous")
 
 
+def _device(images, crops, flips, mean, std, out_h: int, out_w: int) -> torch.Tensor:
+    _check(images, crops, flips, mean, std, out_h, out_w)
+
+    def launch():
+        B, _, _, C = images.shape
+        out = torch.empty((B, out_h, out_w, C), dtype=torch.float32, device=images.device)
+        fused_augment_fwd(images, crops, flips, mean, std, out)
+        return out
+
+    return _route.device(
+        fused_augment, images,
+        lambda: _shape.fused_augment(images, crops, flips, mean, std, out_h, out_w), launch)
+
+
 def fused_augment(
     images: torch.Tensor,  # (B, H, W, C) uint8
     crops: torch.Tensor,  # (B, 2) int32 (y0, x0) top-left corners
@@ -58,23 +68,10 @@ def fused_augment(
     wrapped once by the dimension, then clamped so the crop fits).
     ``DTensor``s are taken local (``_boundary``): images, crops and flips
     over the data axes, mean and std whole."""
-    if isinstance(images, _boundary.DTensor):
-        return _boundary.batched(fused_augment, (images, crops, flips, mean, std), 3,
-                                 out_h=out_h, out_w=out_w)
-    if images.device.type == "cpu":
-        if any(t.device.type != "cpu" for t in (crops, flips, mean, std)):
-            raise ValueError("fused_augment: images on the CPU but another input elsewhere")
-        return fused_augment_ref(images, crops, flips, mean, std, out_h, out_w)
-    if images.device.type not in ("cuda", "meta"):
-        raise ValueError(f"fused_augment: no kernel for device {images.device}")
-    _check(images, crops, flips, mean, std, out_h, out_w)
-    if images.device.type == "meta":
-        return _shape.fused_augment(images, crops, flips, mean, std, out_h, out_w)
-    B, _, _, C = images.shape
-    out = torch.empty((B, out_h, out_w, C), dtype=torch.float32, device=images.device)
-    fused_augment_fwd(images, crops, flips, mean, std, out)
-    fused_augment.launches += 1
-    return out
-
-
-fused_augment.launches = 0
+    return _route.call(
+        fused_augment, images, (crops, flips, mean, std),
+        mixed="images on the CPU but another input elsewhere",
+        boundary=lambda: _boundary.batched(fused_augment, (images, crops, flips, mean, std), 3,
+                                           out_h=out_h, out_w=out_w),
+        plain=lambda: fused_augment_ref(images, crops, flips, mean, std, out_h, out_w),
+        device=lambda: _device(images, crops, flips, mean, std, out_h, out_w))

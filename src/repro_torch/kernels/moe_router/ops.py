@@ -1,21 +1,13 @@
-"""Public wrappers of the fused MoE-router kernels.
+"""Public wrappers of the fused MoE-router kernels; which one serves a call is
+the route rule's (``kernels._route``).
 
-``moe_router``: on a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/moe_router.cu``: token blocks routed in parallel, then the prefix
-of the earlier blocks' expert counts added to the slots; ``ref.
-moe_router_blocked_model`` is its plain model) or raises; when autograd
-records the call it goes through ``MoERouter``, a ``torch.autograd.Function``
-whose backward is ``moe_router_bwd`` (the gates' gradient; ids and slots
-have none).  On a CPU tensor it computes the plain version
-``moe_router_ref``, through which autograd runs as usual.
+``moe_router``: ``csrc/moe_router.cu`` (token blocks routed in parallel,
+then the prefix of the earlier blocks' expert counts added to the slots;
+``ref.moe_router_blocked_model`` is its plain model), plain version
+``moe_router_ref``, under autograd ``MoERouter``, whose backward is
+``moe_router_bwd`` (the gates' gradient; ids and slots have none).
 
-``moe_router_bwd``: on a CUDA tensor it launches ``route_bwd`` or raises; on
-a CPU tensor it computes ``moe_router_bwd_ref``.
-
-On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
-empty outputs of the kernels' shapes, charged their FLOPs under
-``FlopCounterMode``, with no launch counted; autograd on ``meta`` reaches the
-backward's through ``MoERouter``.
+``moe_router_bwd``: ``route_bwd``, plain version ``moe_router_bwd_ref``.
 
 ``moe_router.launches`` counts calls that launched the forward (its two
 launches count as one), ``moe_router_bwd.launches`` those of the backward.
@@ -26,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from .. import _boundary, _shape
+from .. import _boundary, _route, _shape
 from .kernel import MAX_EXPERTS, MAX_K, moe_router_bwd_launch, moe_router_fwd
 from .ref import moe_router_bwd_ref, moe_router_ref
 
@@ -46,15 +38,16 @@ def _check(logits: torch.Tensor, k: int) -> None:
 
 def _forward(logits: torch.Tensor, k: int):
     _check(logits, k)
-    if logits.device.type == "meta":
-        return _shape.moe_router(logits, k)
-    T = logits.shape[0]
-    ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)
-    gates = torch.empty((T, k), dtype=torch.float32, device=logits.device)
-    slots = torch.empty((T, k), dtype=torch.int32, device=logits.device)
-    moe_router_fwd(logits, ids, gates, slots, k)
-    moe_router.launches += 1
-    return ids, gates, slots
+
+    def launch():
+        T = logits.shape[0]
+        ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)
+        gates = torch.empty((T, k), dtype=torch.float32, device=logits.device)
+        slots = torch.empty((T, k), dtype=torch.int32, device=logits.device)
+        moe_router_fwd(logits, ids, gates, slots, k)
+        return ids, gates, slots
+
+    return _route.device(moe_router, logits, lambda: _shape.moe_router(logits, k), launch)
 
 
 class MoERouter(torch.autograd.Function):
@@ -86,30 +79,14 @@ def moe_router(
     A ``DTensor`` is taken local whole on every rank (``_boundary``): the
     slots are a prefix over all T tokens and top-k reads every expert.
     """
-    if isinstance(logits, _boundary.DTensor):
-        return _boundary.replicated(moe_router, (logits, k), 3)
-    if logits.device.type == "cpu":
-        return moe_router_ref(logits, k)
-    if logits.device.type not in ("cuda", "meta"):
-        raise ValueError(f"moe_router: no kernel for device {logits.device}")
-    if torch.is_grad_enabled() and logits.requires_grad:
-        return MoERouter.apply(logits, k)
-    return _forward(logits, k)
+    return _route.call(moe_router, logits,
+                       boundary=lambda: _boundary.replicated(moe_router, (logits, k), 3),
+                       plain=lambda: moe_router_ref(logits, k),
+                       function=lambda: MoERouter.apply(logits, k),
+                       device=lambda: _forward(logits, k))
 
 
-def moe_router_bwd(
-    ids: torch.Tensor,  # (T, k) int32
-    gates: torch.Tensor,  # (T, k) f32, the forward's gates
-    dgates: torch.Tensor,  # (T, k) f32, their gradient
-    E: int,
-) -> torch.Tensor:
-    """The gradient of the logits, (T, E) f32, for the gates' gradient."""
-    if ids.device.type == "cpu":
-        if gates.device.type != "cpu" or dgates.device.type != "cpu":
-            raise ValueError("moe_router_bwd: ids on the CPU but gates elsewhere")
-        return moe_router_bwd_ref(ids, gates, dgates, E)
-    if ids.device.type not in ("cuda", "meta"):
-        raise ValueError(f"moe_router_bwd: no kernel for device {ids.device}")
+def _backward(ids, gates, dgates, E) -> torch.Tensor:
     if ids.dim() != 2 or gates.shape != ids.shape or dgates.shape != ids.shape:
         raise ValueError(f"moe_router_bwd: want ids, gates, dgates (T, k); got "
                          f"{tuple(ids.shape)}, {tuple(gates.shape)}, {tuple(dgates.shape)}")
@@ -125,13 +102,24 @@ def moe_router_bwd(
         raise ValueError("moe_router_bwd: inputs on different devices")
     if not all(t.is_contiguous() for t in (ids, gates, dgates)):
         raise ValueError("moe_router_bwd: ids, gates and dgates must be contiguous")
-    if ids.device.type == "meta":
-        return _shape.moe_router_bwd(ids, gates, dgates, E)
-    dlogits = torch.empty((T, E), dtype=torch.float32, device=ids.device)
-    moe_router_bwd_launch(ids, gates, dgates, dlogits)
-    moe_router_bwd.launches += 1
-    return dlogits
+
+    def launch():
+        dlogits = torch.empty((T, E), dtype=torch.float32, device=ids.device)
+        moe_router_bwd_launch(ids, gates, dgates, dlogits)
+        return dlogits
+
+    return _route.device(moe_router_bwd, ids,
+                         lambda: _shape.moe_router_bwd(ids, gates, dgates, E), launch)
 
 
-moe_router.launches = 0
-moe_router_bwd.launches = 0
+def moe_router_bwd(
+    ids: torch.Tensor,  # (T, k) int32
+    gates: torch.Tensor,  # (T, k) f32, the forward's gates
+    dgates: torch.Tensor,  # (T, k) f32, their gradient
+    E: int,
+) -> torch.Tensor:
+    """The gradient of the logits, (T, E) f32, for the gates' gradient."""
+    return _route.call(moe_router_bwd, ids, (gates, dgates),
+                       mixed="ids on the CPU but gates elsewhere",
+                       plain=lambda: moe_router_bwd_ref(ids, gates, dgates, E),
+                       device=lambda: _backward(ids, gates, dgates, E))

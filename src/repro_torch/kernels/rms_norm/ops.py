@@ -1,4 +1,5 @@
-"""Public wrappers of the port's RMSNorm kernels.
+"""Public wrappers of the port's RMSNorm kernels; which one serves a call is
+the route rule's (``kernels._route``).
 
 ``rms_norm``: RMSNorm over the last dim with scale ``w``, of ``x`` itself
 (the plain form: the block, final, encoder-decoder and qk norms) or, given a
@@ -6,29 +7,17 @@
 mixer's norm, x the scan's y in f32 or in z's dtype).  x and the gate are
 read in place: any layout whose leading dims collapse to one row stride, with
 unit stride along the normalised dim (the mixer's z is a column slice of the
-in_proj output).  On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/rms_norm.cu``) or raises; when autograd records the call (grad mode
-on and an input that needs a gradient) it goes through ``RMSNorm``, a
-``torch.autograd.Function`` whose backward is ``rms_norm_bwd``.  On a CPU
-tensor it computes the plain version ``rms_norm_ref`` (the models' own
-formulation), through which autograd runs as usual.
-
-``rms_norm_bwd``: on a CUDA tensor it launches the hand-written backward (dx,
-dz and the scale's partials, then their reduction) or raises; on a CPU tensor
-it computes ``rms_norm_bwd_ref`` (the same math, in f32).
-
-On a mesh, ``rms_norm`` takes ``DTensor``s local (``kernels._boundary``):
-the normalised dim whole.  CPU ``DTensor``s take the plain version as
+in_proj output).  ``csrc/rms_norm.cu``, plain version ``rms_norm_ref`` (the
+models' own formulation), under autograd ``RMSNorm``.  On a mesh the
+normalised dim stays whole; CPU ``DTensor``s take the plain version as
 ``DTensor`` ops, so a mesh's CPU step keeps the unsharded step's numbers bit
 for bit (the local region would sum x's gradients in another order).
 
-On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
-empty outputs of the kernels' shapes, charged their FLOPs under
-``FlopCounterMode``, with no launch counted.
+``rms_norm_bwd``: dx, dz and the scale's partials, then their reduction;
+plain version ``rms_norm_bwd_ref`` (the same math, in f32).
 
-Both check their inputs on every device.  ``rms_norm.launches`` and
-``rms_norm_bwd.launches`` count wrapper calls that launched their kernels
-(one per call).
+Both check their inputs on every device.  Each call that launches counts one
+in ``.launches``.
 """
 from __future__ import annotations
 
@@ -36,7 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _boundary, _shape
+from .. import _boundary, _route, _shape
 from .kernel import DTYPES, MAX_GATED_WIDTH, MAX_WIDTH, rms_norm_bwd_launch, rms_norm_fwd
 from .ref import rms_norm_bwd_ref, rms_norm_ref
 
@@ -87,15 +76,15 @@ def _check(x, w, gate) -> None:
 def _forward(x, w, gate, eps) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, rstd) of the kernel: out in x's shape and the gate's dtype (x's
     without one), contiguous; rstd (rows,) f32."""
-    if x.device.type == "meta":
-        return _shape.rms_norm(x, w, gate, eps)
-    D = x.shape[-1]
-    out = torch.empty(x.shape, dtype=(x if gate is None else gate).dtype, device=x.device)
-    rstd = torch.empty((x.numel() // D,), dtype=torch.float32, device=x.device)
-    rms_norm_fwd(_row_view(x, "x"), w, None if gate is None else _row_view(gate, "the gate"),
-                 eps, out.view(-1, D), rstd)
-    rms_norm.launches += 1
-    return out, rstd
+    def launch():
+        D = x.shape[-1]
+        out = torch.empty(x.shape, dtype=(x if gate is None else gate).dtype, device=x.device)
+        rstd = torch.empty((x.numel() // D,), dtype=torch.float32, device=x.device)
+        rms_norm_fwd(_row_view(x, "x"), w, None if gate is None else _row_view(gate, "the gate"),
+                     eps, out.view(-1, D), rstd)
+        return out, rstd
+
+    return _route.device(rms_norm, x, lambda: _shape.rms_norm(x, w, gate, eps), launch)
 
 
 class RMSNorm(torch.autograd.Function):
@@ -125,18 +114,12 @@ def rms_norm(
     dim with scale w, in x's dtype (the gate's): squares summed in f32,
     ``p32 * rsqrt(mean + eps) * w32`` rounded once.  ``DTensor``s are taken
     local (``_boundary``)."""
-    if isinstance(x, _boundary.DTensor):
-        if x.device.type == "cpu":  # the plain version in DTensor ops, as the models had it
-            return rms_norm_ref(x, w, eps, gate)
-        return _boundary.rms_norm(rms_norm, x, w, gate, eps=eps)
-    _check(x, w, gate)
-    if x.device.type == "cpu":
-        return rms_norm_ref(x, w, eps, gate)
-    if x.device.type not in ("cuda", "meta"):
-        raise ValueError(f"rms_norm: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, gate)):
-        return RMSNorm.apply(x, w, gate, eps)
-    return _forward(x, w, gate, eps)[0]
+    return _route.call(
+        rms_norm, x, (w, gate), check=lambda: _check(x, w, gate), plain_cpu_dtensor=True,
+        boundary=lambda: _boundary.rms_norm(rms_norm, x, w, gate, eps=eps),
+        plain=lambda: rms_norm_ref(x, w, eps, gate),
+        function=lambda: RMSNorm.apply(x, w, gate, eps),
+        device=lambda: _forward(x, w, gate, eps)[0])
 
 
 def rms_norm_bwd(
@@ -159,23 +142,20 @@ def rms_norm_bwd(
             or not dout.is_contiguous()):
         raise ValueError(f"rms_norm_bwd: dout must be a contiguous {want} {tuple(x.shape)} on "
                          f"{x.device}; got {dout.dtype} {tuple(dout.shape)} on {dout.device}")
-    if x.device.type == "cpu":
-        return rms_norm_bwd_ref(x, w, rstd, dout, gate)
-    if x.device.type not in ("cuda", "meta"):
-        raise ValueError(f"rms_norm_bwd: no kernel for device {x.device}")
-    if x.device.type == "meta":
-        return _shape.rms_norm_bwd(x, w, rstd, dout, gate)
-    D = x.shape[-1]
-    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    dw = torch.empty_like(w)
-    dz = None if gate is None else torch.empty(gate.shape, dtype=gate.dtype, device=x.device)
-    rms_norm_bwd_launch(_row_view(x, "x"), w,
-                        None if gate is None else _row_view(gate, "the gate"), rstd,
-                        dout.view(-1, D), dx.view(-1, D), dw,
-                        None if dz is None else dz.view(-1, D))
-    rms_norm_bwd.launches += 1
-    return dx, dw, dz
 
+    def launch():
+        D = x.shape[-1]
+        dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        dw = torch.empty_like(w)
+        dz = None if gate is None else torch.empty(gate.shape, dtype=gate.dtype, device=x.device)
+        rms_norm_bwd_launch(_row_view(x, "x"), w,
+                            None if gate is None else _row_view(gate, "the gate"), rstd,
+                            dout.view(-1, D), dx.view(-1, D), dw,
+                            None if dz is None else dz.view(-1, D))
+        return dx, dw, dz
 
-rms_norm.launches = 0
-rms_norm_bwd.launches = 0
+    return _route.call(
+        rms_norm_bwd, x,
+        plain=lambda: rms_norm_bwd_ref(x, w, rstd, dout, gate),
+        device=lambda: _route.device(
+            rms_norm_bwd, x, lambda: _shape.rms_norm_bwd(x, w, rstd, dout, gate), launch))

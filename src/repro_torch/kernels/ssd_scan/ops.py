@@ -1,27 +1,16 @@
-"""Public wrappers of the mamba2 SSD-scan kernels.
+"""Public wrappers of the mamba2 SSD-scan kernels; which one serves a call is
+the route rule's (``kernels._route``).
 
-``ssd_scan``: on a CUDA tensor it launches the hand-written Hopper kernels
-(``csrc/ssd_scan.cu``: chunk states, state passing, chunk output) or
-raises; when autograd records the call (grad mode on and an input that
-needs a gradient) it goes through ``SSDScan``, a ``torch.autograd.Function``
-whose backward is ``ssd_scan_bwd``.  On a CPU tensor it computes the plain
-version ``ssd_scan_ref``, through which autograd runs as usual.
+``ssd_scan``: ``csrc/ssd_scan.cu`` (chunk states, state passing, chunk
+output), plain version ``ssd_scan_ref``, under autograd ``SSDScan``, whose
+backward is ``ssd_scan_bwd``.  On a mesh the batch splits over the data
+axes, heads (and B/C groups) over the model axis.
 
-``ssd_scan_bwd``: on a CUDA tensor it launches the hand-written backward
-(``csrc/ssd_scan_bwd.cu``, after the forward's first two kernels recompute
-the states entering each chunk) or raises; on a CPU tensor it computes
+``ssd_scan_bwd``: ``csrc/ssd_scan_bwd.cu``, after the forward's first two
+kernels recompute the states entering each chunk; plain version
 ``ssd_scan_bwd_ref`` (the same math, in f32).
 
-On a mesh, ``ssd_scan`` takes ``DTensor``s local (``kernels._boundary``):
-batch over the data axes, heads (and B/C groups) over the model axis.
-
-On a ``meta`` tensor both take the shape-only route (``kernels._shape``):
-empty outputs of the kernels' shapes, charged their FLOPs under
-``FlopCounterMode``, with no launch counted; autograd on ``meta`` reaches the
-backward's through ``SSDScan``.
-
-``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count wrapper calls
-that launched their kernels (one per call).
+Each call that launches counts one in ``.launches``.
 """
 from __future__ import annotations
 
@@ -29,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _boundary, _shape
+from .. import _boundary, _route, _shape
 from .kernel import (BWD_CHUNK, DTYPES, HEAD_DIMS, MAX_CHUNK, MAX_STATE, ssd_scan_bwd_launch,
                      ssd_scan_fwd)
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
@@ -71,14 +60,16 @@ def _check(x, dt, a, Bm, Cm, D, chunk) -> None:
 def _forward(x, dt, a, Bm, Cm, D, chunk) -> Tuple[torch.Tensor, torch.Tensor]:
     chunk = min(chunk, x.shape[1])
     _check(x, dt, a, Bm, Cm, D, chunk)
-    if x.device.type == "meta":
-        return _shape.ssd_scan(x, dt, a, Bm, Cm, D, chunk)
-    Bsz, L, H, P = x.shape
-    y = torch.empty_like(x)
-    h = torch.empty((Bsz, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
-    ssd_scan_fwd(x, dt, a, Bm, Cm, D, y, h, chunk=chunk)
-    ssd_scan.launches += 1
-    return y, h
+
+    def launch():
+        Bsz, L, H, P = x.shape
+        y = torch.empty_like(x)
+        h = torch.empty((Bsz, H, Bm.shape[3], P), dtype=torch.float32, device=x.device)
+        ssd_scan_fwd(x, dt, a, Bm, Cm, D, y, h, chunk=chunk)
+        return y, h
+
+    return _route.device(ssd_scan, x, lambda: _shape.ssd_scan(x, dt, a, Bm, Cm, D, chunk),
+                         launch)
 
 
 class SSDScan(torch.autograd.Function):
@@ -122,17 +113,39 @@ def ssd_scan(
     multiple of 16); other shapes raise.  ``DTensor``s are taken local
     (``_boundary``).
     """
-    if isinstance(x, _boundary.DTensor):
-        return _boundary.ssd_heads(ssd_scan, x, dt, a, Bm, Cm, D, chunk=chunk)
-    if x.device.type == "cpu":
-        if any(t.device.type != "cpu" for t in (dt, a, Bm, Cm, D)):
-            raise ValueError("ssd_scan: x on the CPU but another input elsewhere")
-        return ssd_scan_ref(x, dt, a, Bm, Cm, D)
-    if x.device.type not in ("cuda", "meta"):
-        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, Bm, Cm, D)):
-        return SSDScan.apply(x, dt, a, Bm, Cm, D, chunk)
-    return _forward(x, dt, a, Bm, Cm, D, chunk)
+    return _route.call(
+        ssd_scan, x, (dt, a, Bm, Cm, D), mixed="x on the CPU but another input elsewhere",
+        boundary=lambda: _boundary.ssd_heads(ssd_scan, x, dt, a, Bm, Cm, D, chunk=chunk),
+        plain=lambda: ssd_scan_ref(x, dt, a, Bm, Cm, D),
+        function=lambda: SSDScan.apply(x, dt, a, Bm, Cm, D, chunk),
+        device=lambda: _forward(x, dt, a, Bm, Cm, D, chunk))
+
+
+def _backward(x, dt, a, Bm, Cm, D, dy, dh_final) -> Tuple[torch.Tensor, ...]:
+    Bsz, L, H, P = x.shape
+    _check(x, dt, a, Bm, Cm, D, min(BWD_CHUNK, L))
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or not (
+            dy.is_contiguous()) or dy.data_ptr() % 16:
+        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous, 16-byte aligned {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}; got {dy.dtype} {tuple(dy.shape)} on "
+                         f"{dy.device}")
+    want_h = (Bsz, H, Bm.shape[3], P)
+    if dh_final is not None and (tuple(dh_final.shape) != want_h or dh_final.dtype
+                                 != torch.float32 or dh_final.device != x.device
+                                 or not dh_final.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: dh_final must be a contiguous float32 {want_h}; got "
+                         f"{dh_final.dtype} {tuple(dh_final.shape)}")
+
+    def launch():
+        f32 = dict(dtype=torch.float32, device=x.device)
+        dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
+        ddt = torch.empty((Bsz, L, H), **f32)
+        da, dD = torch.empty((H,), **f32), torch.empty((H,), **f32)
+        ssd_scan_bwd_launch(x, dt, a, Bm, Cm, D, dy, dh_final, dx, ddt, da, dB, dC, dD)
+        return dx, ddt, da, dB, dC, dD
+
+    return _route.device(
+        ssd_scan_bwd, x, lambda: _shape.ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh_final), launch)
 
 
 def ssd_scan_bwd(
@@ -149,35 +162,7 @@ def ssd_scan_bwd(
     dtype (computed in f32), dB and dC summed over each group's heads; ddt,
     da and dD in f32.  The kernels run at their own chunk (``BWD_CHUNK``)
     whatever the forward's was; the shapes the forward refuses raise."""
-    if x.device.type == "cpu":
-        if any(t.device.type != "cpu" for t in (dt, a, Bm, Cm, D, dy)):
-            raise ValueError("ssd_scan_bwd: x on the CPU but another input elsewhere")
-        return ssd_scan_bwd_ref(x, dt, a, Bm, Cm, D, dy, dh_final)
-    if x.device.type not in ("cuda", "meta"):
-        raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
-    Bsz, L, H, P = x.shape
-    _check(x, dt, a, Bm, Cm, D, min(BWD_CHUNK, L))
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or not (
-            dy.is_contiguous()) or dy.data_ptr() % 16:
-        raise ValueError(f"ssd_scan_bwd: dy must be a contiguous, 16-byte aligned {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}; got {dy.dtype} {tuple(dy.shape)} on "
-                         f"{dy.device}")
-    want_h = (Bsz, H, Bm.shape[3], P)
-    if dh_final is not None and (tuple(dh_final.shape) != want_h or dh_final.dtype
-                                 != torch.float32 or dh_final.device != x.device
-                                 or not dh_final.is_contiguous()):
-        raise ValueError(f"ssd_scan_bwd: dh_final must be a contiguous float32 {want_h}; got "
-                         f"{dh_final.dtype} {tuple(dh_final.shape)}")
-    if x.device.type == "meta":
-        return _shape.ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy, dh_final)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx, dB, dC = torch.empty_like(x), torch.empty_like(Bm), torch.empty_like(Cm)
-    ddt = torch.empty((Bsz, L, H), **f32)
-    da, dD = torch.empty((H,), **f32), torch.empty((H,), **f32)
-    ssd_scan_bwd_launch(x, dt, a, Bm, Cm, D, dy, dh_final, dx, ddt, da, dB, dC, dD)
-    ssd_scan_bwd.launches += 1
-    return dx, ddt, da, dB, dC, dD
-
-
-ssd_scan.launches = 0
-ssd_scan_bwd.launches = 0
+    return _route.call(
+        ssd_scan_bwd, x, (dt, a, Bm, Cm, D, dy), mixed="x on the CPU but another input elsewhere",
+        plain=lambda: ssd_scan_bwd_ref(x, dt, a, Bm, Cm, D, dy, dh_final),
+        device=lambda: _backward(x, dt, a, Bm, Cm, D, dy, dh_final))

@@ -5,6 +5,6 @@ plan over them (``mesh``), the dry run on one card or the production meshes
 (``dryrun``) with its H100 roofline (``roofline``) and tables (``report``),
 and the training launcher (``train``: ``python -m repro_torch.launch.train``).
 
-This package file imports nothing, so the kernels can take their formulas
-from ``flops`` without loading the rest.
+This package file imports nothing.  The layer points one way: ``launch``
+imports ``kernels``, never the other way round.
 """

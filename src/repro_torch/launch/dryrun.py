@@ -8,7 +8,7 @@ and no numbers, and counts:
 
 * FLOPs with ``torch.utils.flop_counter.FlopCounterMode``: PyTorch's own
   formulas for the products, and each kernel op's formula for its
-  shape-only route (``kernels._shape``, from ``launch.flops``);
+  shape-only route (``kernels._shape``), registered by ``launch.flops``;
 * bytes as the operand and result bytes of every op that is not a view: an
   unfused upper estimate of XLA's "bytes accessed" (an eager step fuses
   nothing, and an in-place op counts its operand twice).
@@ -90,6 +90,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from ..models.config import SHAPES, ShapeConfig
+from . import flops  # noqa: F401  (the kernel ops' FLOP formulas)
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 OUT_DIR = os.path.join(SRC, "..", "experiments", "dryrun_torch")

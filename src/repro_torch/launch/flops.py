@@ -1,6 +1,7 @@
 """The FLOPs and bytes each kernel op is charged: one copy, read by the
-kernels' shape-only ``meta`` route (``FlopCounterMode`` counts an op with
-these formulas), by the dry run and by ``chip_smoke.py``'s bounds.
+dry run (importing this module registers each shape-only op of
+``kernels._shape`` with ``FlopCounterMode`` under its formula) and by
+``chip_smoke.py``'s bounds.
 
 Every count is the least work the function needs on the call's data: the
 attention counts cover the visible (query, key) pairs only, the SSD counts
@@ -9,9 +10,14 @@ into the least time one H100 could take.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from ..kernels import _shape  # noqa: F401  (defines the ops charged below)
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores, tf32 tensor
 # cores, f32 outside the tensor cores, and HBM bandwidth.
@@ -197,3 +203,81 @@ def augment_bytes(B: int, oh: int, ow: int, C: int) -> float:
 def augment_bound(B: int, oh: int, ow: int, C: int) -> Tuple[float, str]:
     return bound(augment_flops(B, oh, ow, C), augment_bytes(B, oh, ow, C), "float32")
 
+
+
+# ---------------------------------------------------------------------------
+# each shape-only op of kernels._shape, charged its formula by FlopCounterMode;
+# decode's reads every row of a full cache (the window's with a window), the
+# most a call can read: ``lengths`` is not on a meta tensor
+# ---------------------------------------------------------------------------
+_ops = torch.ops.repro_torch
+
+
+@register_flop_formula(_ops.flash_attention_fwd)
+def _(q, k, v, causal, window, q_offset, with_lse, *args, out_shape=None, **kwargs):
+    B, Sq, Hq, D = q
+    return int(flash_flops(B, Sq, k[1], Hq, D, causal, window, q_offset))
+
+
+@register_flop_formula(_ops.flash_attention_bwd)
+def _(q, k, v, o, lse, do, causal, window, q_offset, *args, out_shape=None, **kwargs):
+    B, Sq, Hq, D = q
+    return int(flash_flops(B, Sq, k[1], Hq, D, causal, window, q_offset, backward=True))
+
+
+@register_flop_formula(_ops.decode_attention)
+def _(q, k_cache, v_cache, lengths, window, num_splits, *args, out_shape=None, **kwargs):
+    B, Hq, D = q
+    return int(decode_flops(Hq, D, decode_visible(B, k_cache[1], window)))
+
+
+@register_flop_formula(_ops.ssd_scan)
+def _(x, dt, a, Bm, Cm, D, chunk, *args, out_shape=None, **kwargs):
+    Bsz, L, H, P = x
+    return int(ssd_flops(Bsz, L, H, P, Bm[3], chunk, Bm[2]))
+
+
+@register_flop_formula(_ops.ssd_scan_bwd)
+def _(x, dt, a, Bm, Cm, D, dy, dh_final, *args, out_shape=None, **kwargs):
+    Bsz, L, H, P = x
+    return int(ssd_bwd_flops(Bsz, L, H, P, Bm[3], groups=Bm[2]))
+
+
+@register_flop_formula(_ops.causal_conv)
+def _(xbc, w, b, d_inner, *args, out_shape=None, **kwargs):
+    Bsz, L, Ch = xbc
+    return int(conv_flops(Bsz * L, Ch, w[0]))
+
+
+@register_flop_formula(_ops.causal_conv_bwd)
+def _(xbc, w, b, dxs, dB, dC, *args, out_shape=None, **kwargs):
+    Bsz, L, Ch = xbc
+    return int(conv_bwd_flops(Bsz * L, Ch, w[0]))
+
+
+@register_flop_formula(_ops.rms_norm)
+def _(x, w, gate, eps, *args, out_shape=None, **kwargs):
+    return int(norm_flops(math.prod(x[:-1]), x[-1], gated=gate is not None))
+
+
+@register_flop_formula(_ops.rms_norm_bwd)
+def _(x, w, rstd, dout, gate, *args, out_shape=None, **kwargs):
+    return int(norm_bwd_flops(math.prod(x[:-1]), x[-1], gated=gate is not None))
+
+
+@register_flop_formula(_ops.moe_router)
+def _(logits, k, *args, out_shape=None, **kwargs):
+    T, E = logits
+    return int(router_flops(T, E, k))
+
+
+@register_flop_formula(_ops.moe_router_bwd)
+def _(ids, gates, dgates, E, *args, out_shape=None, **kwargs):
+    T, k = ids
+    return int(router_bwd_flops(T, k))
+
+
+@register_flop_formula(_ops.fused_augment)
+def _(images, crops, flips, mean, std, out_h, out_w, *args, out_shape=None, **kwargs):
+    B, _, _, C = images
+    return int(augment_flops(B, out_h, out_w, C))

@@ -20,16 +20,16 @@ does not collect them.  Two kinds of allocation are not an op's output:
 
 * a kernel's scratch.  A CUDA launch function allocates buffers around its
   kernels (``<kernel>/kernel.py``'s ``*_scratch``) that the kernel's
-  shape-only op (``kernels._shape``) does not: a ``TorchDispatchMode`` does
-  not see the ``torch.empty`` calls inside a fake implementation.  The
-  tracker charges them from its own table, ``KERNEL_SCRATCH``, which calls
-  the launch function's own ``*_scratch``: a transient peak on top of the
-  op's outputs, freed when the op returns.  Decode's split workspace is
-  persistent (one a device and stream, grown to the largest call's need and
-  never freed): it is charged when a call grows it and stays live.
-  ``fused_augment`` and the forwards of the causal conv and the RMSNorm have
-  none, and their entries say so.  A ``repro_torch`` op with no entry raises rather than
-  count as zero;
+  shape-only op does not: a ``TorchDispatchMode`` does not see the
+  ``torch.empty`` calls inside a fake implementation.  The tracker charges
+  what each op declares beside its fake (``kernels._shape.<op>_scratch``,
+  which calls the launch function's own ``*_scratch``): a transient peak on top
+  of the op's outputs, freed when the op returns.  Decode's split workspace
+  is persistent (``kernels._shape.decode_workspace``: one a device and
+  stream, grown to the largest call's need and never freed): it is charged
+  when a call grows it and stays live.  ``fused_augment`` and the forwards
+  of the causal conv and the RMSNorm have none, and their entries say so.
+  A ``repro_torch`` op with no entry raises rather than count as zero;
 * the temporaries PyTorch's own CUDA kernels allocate inside one op, below
   the dispatcher (``HIDDEN_TEMPORARIES``: ``logsumexp``'s shifted copy of its
   input), charged the same way.
@@ -58,112 +58,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from ..kernels import _shape
 from ..kernels._scratch import Scratch
 from ..kernels._scratch import nbytes as scratch_nbytes
 
 H100_SMS = 132  # SMs of an H100 SXM: the decode split plan on meta
 BLOCK_ROUND = 512  # the CUDA caching allocator's rounding of a block
-
-
-def _flash_fwd(q, k, v, causal, window, q_offset, with_lse) -> Scratch:
-    from ..kernels.flash_attention.kernel import fwd_scratch
-
-    B, Sq, Hq, D = q.shape
-    return fwd_scratch(B, Sq, k.shape[1], Hq, D, q.dtype)
-
-
-def _flash_bwd(q, k, v, o, lse, do, causal, window, q_offset) -> Scratch:
-    from ..kernels.flash_attention.kernel import bwd_scratch
-
-    B, Sq, Hq, D = q.shape
-    return bwd_scratch(B, Sq, k.shape[1], Hq, D, q.dtype)
-
-
-def _ssd_fwd(x, dt, a, Bm, Cm, D, chunk) -> Scratch:
-    from ..kernels.ssd_scan.kernel import fwd_scratch
-
-    Bsz, L, H, P = x.shape
-    return fwd_scratch(Bsz, L, H, P, Bm.shape[3], chunk, x.dtype)
-
-
-def _ssd_bwd(x, dt, a, Bm, Cm, D, dy, dh_final) -> Scratch:
-    from ..kernels.ssd_scan.kernel import bwd_scratch
-
-    Bsz, L, H, P = x.shape
-    return bwd_scratch(Bsz, L, H, Bm.shape[2], P, Bm.shape[3], x.dtype)
-
-
-def _conv_fwd(xbc, w, b, d_inner) -> Scratch:
-    from ..kernels.causal_conv.kernel import fwd_scratch
-
-    return fwd_scratch(*xbc.shape)
-
-
-def _conv_bwd(xbc, w, b, dxs, dB, dC) -> Scratch:
-    from ..kernels.causal_conv.kernel import bwd_scratch
-
-    return bwd_scratch(*xbc.shape)
-
-
-def _norm_fwd(x, w, gate, eps) -> Scratch:
-    from ..kernels.rms_norm.kernel import fwd_scratch
-
-    return fwd_scratch(x.numel() // x.shape[-1], x.shape[-1])
-
-
-def _norm_bwd(x, w, rstd, dout, gate) -> Scratch:
-    from ..kernels.rms_norm.kernel import bwd_scratch
-
-    return bwd_scratch(x.numel() // x.shape[-1], x.shape[-1])
-
-
-def _router_fwd(logits, k) -> Scratch:
-    from ..kernels.moe_router.kernel import fwd_scratch
-
-    return fwd_scratch(*logits.shape)
-
-
-def _router_bwd(ids, gates, dgates, E) -> Scratch:
-    from ..kernels.moe_router.kernel import bwd_scratch
-
-    return bwd_scratch(ids.shape[0], E, ids.shape[1])
-
-
-def _augment(images, crops, flips, mean, std, out_h, out_w) -> Scratch:
-    from ..kernels.fused_augment.kernel import fwd_scratch
-
-    return fwd_scratch(*images.shape, out_h, out_w)
-
-
-def decode_workspace(q, k_cache, v_cache, lengths, window, num_splits,
-                     sms: int = H100_SMS) -> Scratch:
-    """The split workspace a decode call needs (``num_splits`` -1: the
-    card's plan over ``sms`` SMs)."""
-    from ..kernels.decode_attention.kernel import workspace_scratch
-    from ..kernels.decode_attention.ops import plan
-
-    B, Hq, D = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    rows, ns = plan(q.dtype, B, S, Hq, Hkv, None if num_splits < 0 else num_splits, sms)
-    return workspace_scratch(B, Hq, Hkv, D, rows, ns)
-
-
-# each kernel op's scratch by its name in the ``repro_torch`` namespace:
-# transient, freed when the op returns (decode's persistent workspace,
-# ``decode_workspace``, is charged apart)
-KERNEL_SCRATCH: Dict[str, Callable[..., Scratch]] = {
-    "flash_attention_fwd": _flash_fwd,
-    "flash_attention_bwd": _flash_bwd,
-    "ssd_scan": _ssd_fwd,
-    "ssd_scan_bwd": _ssd_bwd,
-    "causal_conv": _conv_fwd,
-    "causal_conv_bwd": _conv_bwd,
-    "rms_norm": _norm_fwd,
-    "rms_norm_bwd": _norm_bwd,
-    "moe_router": _router_fwd,
-    "moe_router_bwd": _router_bwd,
-    "fused_augment": _augment,
-}
 
 
 def _logsumexp(self, dim, keepdim=False) -> Scratch:
@@ -272,7 +172,7 @@ class MemoryTracker(TorchDispatchMode):
         name = func.overloadpacket.__name__
         if func.namespace == "repro_torch":
             if name == "decode_attention":
-                (shape, _), = decode_workspace(*args, **kwargs, sms=self.sms).values()
+                (shape, _), = _shape.decode_workspace(*args, **kwargs, sms=self.sms).values()
                 need = self._round(shape[0] * 4)
                 if need <= self.workspace:
                     return 0
@@ -281,10 +181,11 @@ class MemoryTracker(TorchDispatchMode):
                 self.scratch_allocations += 1
                 self.live += grown
                 return need - grown
-            if name not in KERNEL_SCRATCH:
+            scratch = getattr(_shape, f"{name}_scratch", None)
+            if scratch is None:
                 raise RuntimeError(f"MemoryTracker: the kernel op {func} has no scratch "
-                                   "function in KERNEL_SCRATCH")
-            spec = KERNEL_SCRATCH[name](*args, **kwargs)
+                                   f"function, kernels._shape.{name}_scratch")
+            spec = scratch(*args, **kwargs)
         elif name in HIDDEN_TEMPORARIES:
             spec = HIDDEN_TEMPORARIES[name](*args, **kwargs)
         else:

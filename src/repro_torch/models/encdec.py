@@ -155,7 +155,7 @@ class EncDecModel:
         x = L.rms_norm(x, params["final_norm"])
         if last_token_only:
             x = x[:, -1:, :]
-        logits = x @ params["embed"].T.to(x.dtype)  # whisper ties embeddings
+        logits = L.linear(x, params["embed"].T)  # whisper ties embeddings
         return logits.float() if cfg.logits_fp32 else logits
 
     # -- decode -------------------------------------------------------------

@@ -101,18 +101,49 @@ def block_norm(x: torch.Tensor, p: Params, name: str, cfg: ModelConfig) -> torch
 
 
 def proj(x: torch.Tensor, p: Params, w: str, b: Optional[str] = None) -> torch.Tensor:
-    """``x @ p[w]``, plus the bias ``p[b]`` where the tree holds one (a
-    config with ``use_bias``), both cast to x's dtype.  Off a mesh the bias
+    """``linear(x, p[w])`` plus the bias ``p[b]`` where the tree holds one (a
+    config with ``use_bias``)."""
+    return linear(x, p[w], p.get(b))
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ weight (+ bias)``, both cast to x's dtype.  Off a mesh the bias
     is added in the product's epilogue (``F.linear``: cuBLAS's bias
-    epilogue on the card)."""
-    weight = p[w].to(x.dtype)
-    bias = p.get(b)
-    if bias is None:
-        return x @ weight
-    bias = bias.to(x.dtype)
-    if isinstance(x, DTensor):
-        return x @ weight + bias
-    return F.linear(x, weight.t(), bias)
+    epilogue on the card).  On a mesh, a product of an activation whose
+    sequence a mesh dim splits runs on each rank's own tokens with the
+    weight gathered whole, the result in x's layout: what XLA's partitioner
+    emits for the reference (DTensor's own product would flatten the split
+    batch and sequence into strided shards, whose strategy search takes
+    minutes a layer).  Any other product keeps its gradient in its output's
+    layout, so a consumer that splits the sequence hands its backward no
+    strided shards either."""
+    weight = weight.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
+    if not isinstance(x, DTensor):
+        return x @ weight if bias is None else F.linear(x, weight.t(), bias)
+    if not _splits_sequence(x):
+        return keep_grad_layout(x @ weight if bias is None else x @ weight + bias)
+    mesh = x.device_mesh
+    summed = [Partial() if isinstance(p, Shard) else Replicate() for p in x.placements]
+
+    def whole(t):  # its gradient: a sum over the ranks' tokens
+        t = like_mesh(t, x).redistribute(mesh, [Replicate()] * mesh.ndim)
+        return t.to_local(grad_placements=summed)
+
+    y = x.to_local() @ whole(weight)
+    y = y if bias is None else y + whole(bias)
+    return DTensor.from_local(y, mesh, x.placements, run_check=False)
+
+
+def _splits_sequence(x: DTensor) -> bool:
+    """Whether a mesh dim splits a middle dim of x (the sequence of a
+    (B, S, d) activation) and none splits its last dim or holds a sum."""
+    live = [p for i, p in enumerate(x.placements) if x.device_mesh.size(i) > 1]
+    if any(isinstance(p, Partial) or isinstance(p, Shard) and p.dim % x.ndim == x.ndim - 1
+           for p in live):
+        return False
+    return any(isinstance(p, Shard) and p.dim % x.ndim > 0 for p in live)
 
 
 def assign(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -644,7 +675,7 @@ def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     Q = min(cfg.ssm_chunk, L)
 
     # (B, L, 2di + 2GN + H); on a mesh its pieces' widths need it whole
-    zxbcdt = unshard_dim(x @ params["in_proj"].to(x.dtype), -1)
+    zxbcdt = unshard_dim(linear(x, params["in_proj"]), -1)
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float())
     a = -torch.exp(params["A_log"].float())  # (H,)
@@ -659,7 +690,7 @@ def mamba2_mixer(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Ten
                      Cc.reshape(B, L, G, N), params["D"].float().contiguous(), chunk=Q)[0]
     # gated RMSNorm of Y by SiLU(z): Y (f32) rounded to z's dtype in the kernel
     Y = rms_norm(Y.reshape(B, L, di), params["norm_w"], cfg.norm_eps, gate=z)
-    return Y @ params["out_proj"].to(x.dtype)
+    return linear(Y, params["out_proj"])
 
 
 def mamba2_decode(

@@ -281,7 +281,7 @@ class LanguageModel:
         if last_token_only:  # prefill: only the last position feeds sampling
             x = x[:, -1:, :]
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = x @ head.to(x.dtype)
+        logits = L.linear(x, head)
         if cfg.logits_fp32:
             logits = logits.float()
         return logits

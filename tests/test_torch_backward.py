@@ -38,9 +38,9 @@ import torch
 from repro.kernels.moe_router.ref import moe_router_ref as jax_moe_router_ref
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
 from repro_torch.configs import get_config
-from repro_torch.kernels.moe_router import moe_router_bwd, moe_router_bwd_ref, moe_router_ref
+from repro_torch.kernels.moe_router import moe_router_bwd_ref, moe_router_ref
 from repro_torch.kernels.moe_router import ops as router_ops
-from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref, ssd_scan_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_bwd_chunked_model
@@ -324,21 +324,6 @@ def test_router_function_wiring(monkeypatch):
     lr = logits.clone().requires_grad_()
     want = torch.autograd.grad((moe_router_ref(lr, 4)[1] * dg).sum(), lr)[0]
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=GATE_TOL, rtol=GATE_TOL)
-
-
-def test_backward_wrappers_take_the_plain_version_on_the_cpu():
-    """On CPU tensors the wrappers compute the plain versions and launch
-    nothing."""
-    x, dt, a, Bm, Cm, D, dy, _ = (None if t is None else torch.from_numpy(t)
-                                  for t in _ssd_inputs(2, 1, 20, 4, 32, 16, 1))
-    before = (ssd_scan_bwd.launches, moe_router_bwd.launches)
-    for g, w in zip(ssd_scan_bwd(x, dt, a, Bm, Cm, D, dy),
-                    ssd_scan_bwd_ref(x, dt, a, Bm, Cm, D, dy)):
-        assert torch.equal(g, w)
-    ids, gates, _ = moe_router_ref(torch.randn(10, 8), 2)
-    dg = torch.randn(10, 2)
-    assert torch.equal(moe_router_bwd(ids, gates, dg, 8), moe_router_bwd_ref(ids, gates, dg, 8))
-    assert (ssd_scan_bwd.launches, moe_router_bwd.launches) == before
 
 
 def test_train_runs_fit_the_card():

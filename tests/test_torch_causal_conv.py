@@ -94,15 +94,6 @@ def test_plain_backward_against_autograd_of_the_plain_forward(xdt, wdt, L):
         assert float((g_.double() - w_).abs().max()) <= tol * float(w_.abs().max())
 
 
-def test_wrapper_backward_takes_the_plain_version_on_the_cpu():
-    di, gn, H = TEST_WIDTHS[0]
-    xbc, w, b = _inputs(1, 9, di, gn, H, BF16, F32, seed=7)
-    douts = [torch.ones((1, 9, n)) for n in (di, gn, gn)]
-    for got, want in zip(causal_conv_bwd(xbc, w, b, *douts),
-                         causal_conv_bwd_ref(xbc, w, b, *douts)):
-        assert torch.equal(got, want)
-
-
 def _bad_calls():
     di, gn, H = 8, 4, 2
     xbc, w, b = _inputs(1, 6, di, gn, H, F32, F32)

@@ -1563,10 +1563,10 @@ def _ssd_bwd_args():
 def _plant_gap(monkeypatch):
     """Drops the chunk states from the tracker's reckoning of the SSD
     backward's scratch (the launch still allocates them)."""
-    from repro_torch.launch import memory
+    from repro_torch.kernels import _shape
 
-    full = memory.KERNEL_SCRATCH["ssd_scan_bwd"]
-    monkeypatch.setitem(memory.KERNEL_SCRATCH, "ssd_scan_bwd",
+    full = _shape.ssd_scan_bwd_scratch
+    monkeypatch.setattr(_shape, "ssd_scan_bwd_scratch",
                         lambda *a: {k: v for k, v in full(*a).items() if k != "rstate"})
 
 

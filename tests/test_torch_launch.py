@@ -26,7 +26,7 @@ from repro.models import build_model as jax_build  # noqa: E402
 from repro.models.config import SHAPES as JAX_SHAPES  # noqa: E402
 from repro_torch.bridge import flatten_with_paths  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
-from repro_torch.kernels import _shape, launch_counts  # noqa: E402
+from repro_torch.kernels import KERNELS, _shape, launch_counts  # noqa: E402
 from repro_torch.launch import dryrun, flops, roofline, specs  # noqa: E402
 from repro_torch.models import SHAPES, build_model  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
@@ -140,9 +140,10 @@ def test_roofline_report_keeps_jax_fields():
 # ---------------------------------------------------------------------------
 # the kernels' meta route
 # ---------------------------------------------------------------------------
-def _op_cases():
+def _op_cases(alt: bool = False):
     """(name, wrapper call on a device, formula FLOPs, plain version call):
-    each kernel op at a small shape the kernels take."""
+    each kernel op at a small shape the kernels take; ``alt``: a second
+    shape (one sequence of 9 steps, one B/C group, 10 routed tokens)."""
     from repro_torch.kernels.causal_conv import (causal_conv, causal_conv_bwd,
                                                  causal_conv_bwd_ref, causal_conv_ref)
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
@@ -156,8 +157,9 @@ def _op_cases():
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref, ssd_scan_ref
 
     B, Sq, Sk, Hq, Hkv, D = 2, 24, 40, 4, 2, 32
-    L, H, P, N, G = 40, 4, 32, 16, 2
-    T, E, k = 20, 8, 2
+    Bs, L, H, P, N, G = (1, 9, 4, 32, 16, 1) if alt else (2, 40, 4, 32, 16, 2)
+    T, E, k = (10, 8, 2) if alt else (20, 8, 2)
+    seed = 7 if alt else 0
 
     def flash_in(dev):
         g = torch.Generator().manual_seed(0)
@@ -179,7 +181,7 @@ def _op_cases():
                 torch.tensor([Sk, 7], dtype=torch.int32).to(dev))
 
     def ssd_in(dev):
-        g = torch.Generator().manual_seed(2)
+        g = torch.Generator().manual_seed(seed + 2)
         x = torch.randn((1, L, H, P), generator=g)
         dt = torch.rand((1, L, H), generator=g) * 0.1
         a = -torch.rand((H,), generator=g)
@@ -188,7 +190,7 @@ def _op_cases():
         return [t.to(dev) for t in (x, dt, a, Bm, Cm, D_)]
 
     def router_in(dev):
-        return torch.randn((T, E), generator=torch.Generator().manual_seed(3)).to(dev)
+        return torch.randn((T, E), generator=torch.Generator().manual_seed(seed + 3)).to(dev)
 
     def router_bwd_in(dev):
         ids, gates, _ = moe_router_ref(router_in("cpu"), k)
@@ -203,8 +205,8 @@ def _op_cases():
         return [t.to(dev) for t in (img, crops, flips, mean, std)]
 
     def conv_in(dev):  # (x, B, C) read in place from a (z, x, B, C, dt) row
-        g = torch.Generator().manual_seed(5)
-        zxbcdt = torch.randn((2, L, 2 * H * P + 2 * G * N + H), generator=g).bfloat16()
+        g = torch.Generator().manual_seed(seed + 5)
+        zxbcdt = torch.randn((Bs, L, 2 * H * P + 2 * G * N + H), generator=g).bfloat16()
         xbc = zxbcdt[..., H * P:2 * H * P + 2 * G * N]
         return (xbc.to(dev), torch.randn((4, H * P + 2 * G * N), generator=g).to(dev),
                 torch.randn((H * P + 2 * G * N,), generator=g).to(dev))
@@ -215,9 +217,9 @@ def _op_cases():
         return [t.to(dev) for t in (xbc, w, b, *(torch.ones_like(o) for o in outs))]
 
     def norm_in(dev):  # the gated norm: y in f32, z read in place from a (z, x, B, C, dt) row
-        g = torch.Generator().manual_seed(6)
-        zxbcdt = torch.randn((2, L, 2 * H * P + 2 * G * N + H), generator=g).bfloat16()
-        return (torch.randn((2, L, H * P), generator=g).to(dev),
+        g = torch.Generator().manual_seed(seed + 6)
+        zxbcdt = torch.randn((Bs, L, 2 * H * P + 2 * G * N + H), generator=g).bfloat16()
+        return (torch.randn((Bs, L, H * P), generator=g).to(dev),
                 torch.randn((H * P,), generator=g).to(dev), zxbcdt[..., :H * P].to(dev))
 
     def norm_bwd_in(dev):
@@ -248,47 +250,49 @@ def _op_cases():
         ("fused_augment", augment_in, lambda *t: fused_augment(*t, out_h=8, out_w=6),
          flops.augment_flops(2, 8, 6, 3), lambda *t: fused_augment_ref(*t, 8, 6)),
         ("causal_conv", conv_in, lambda *t: causal_conv(*t, H * P),
-         flops.conv_flops(2 * L, H * P + 2 * G * N), lambda *t: causal_conv_ref(*t, H * P)),
+         flops.conv_flops(Bs * L, H * P + 2 * G * N), lambda *t: causal_conv_ref(*t, H * P)),
         ("causal_conv_bwd", conv_bwd_in, causal_conv_bwd,
-         flops.conv_bwd_flops(2 * L, H * P + 2 * G * N), causal_conv_bwd_ref),
+         flops.conv_bwd_flops(Bs * L, H * P + 2 * G * N), causal_conv_bwd_ref),
         ("rms_norm", norm_in, lambda y, w, z: rms_norm(y, w, 1e-6, gate=z),
-         flops.norm_flops(2 * L, H * P, gated=True), lambda y, w, z: rms_norm_ref(y, w, 1e-6, z)),
+         flops.norm_flops(Bs * L, H * P, gated=True), lambda y, w, z: rms_norm_ref(y, w, 1e-6, z)),
         ("rms_norm_bwd", norm_bwd_in, rms_norm_bwd,
-         flops.norm_bwd_flops(2 * L, H * P, gated=True), rms_norm_bwd_ref),
+         flops.norm_bwd_flops(Bs * L, H * P, gated=True), rms_norm_bwd_ref),
     ]
-
-
-OP_NAMES = [c[0] for c in _op_cases()]
 
 
 def _as_tuple(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
-@pytest.mark.parametrize("name", OP_NAMES)
-def test_meta_route_returns_shapes_and_charges_its_formula(name):
+# every wrapper of kernels.KERNELS on each device, and the backward wrappers
+# on the CPU at the second shape
+ROUTE_CASES = [(n, dev) for n in KERNELS for dev in ("cpu", "meta")] + [
+    (n, "cpu-alt") for n in ("ssd_scan_bwd", "moe_router_bwd", "causal_conv_bwd", "rms_norm_bwd")]
+
+
+@pytest.mark.parametrize("name,route", ROUTE_CASES)
+def test_cpu_takes_the_plain_version_and_meta_the_shape_op(name, route):
+    """On CPU tensors the wrapper computes its plain version (not the
+    shape-only op, which refuses real tensors); on meta tensors it returns
+    the shape op's outputs, the plain version's shapes and dtypes, charged
+    its formula under ``FlopCounterMode``.  Neither launches anything."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    _, inputs, op, want_flops, plain = next(c for c in _op_cases() if c[0] == name)
-    args = inputs("meta")
+    _, inputs, op, want_flops, plain = next(
+        c for c in _op_cases(alt=route == "cpu-alt") if c[0] == name)
     before = launch_counts()
-    with FlopCounterMode(display=False) as fc:
-        got = _as_tuple(op(*args))
-    assert fc.get_total_flops() == int(want_flops) > 0
-    assert launch_counts() == before  # a shape-only call launches nothing
     want = _as_tuple(plain(*inputs("cpu")))
-    assert [(tuple(t.shape), t.dtype) for t in got] == [(tuple(t.shape), t.dtype) for t in want]
-    assert all(t.device.type == "meta" for t in got)
-
-
-@pytest.mark.parametrize("name", OP_NAMES)
-def test_cpu_call_takes_the_plain_version(name):
-    """On a CPU tensor the wrapper computes the plain version, not the
-    shape-only op (which refuses real tensors), and launches nothing."""
-    _, inputs, op, _, plain = next(c for c in _op_cases() if c[0] == name)
-    before = launch_counts()
-    for got, want in zip(_as_tuple(op(*inputs("cpu"))), _as_tuple(plain(*inputs("cpu")))):
-        assert torch.equal(got, want)
+    if route == "meta":
+        args = inputs("meta")
+        with FlopCounterMode(display=False) as fc:
+            got = _as_tuple(op(*args))
+        assert fc.get_total_flops() == int(want_flops) > 0
+        assert [(tuple(t.shape), t.dtype) for t in got] == [(tuple(t.shape), t.dtype)
+                                                            for t in want]
+        assert all(t.device.type == "meta" for t in got)
+    else:
+        got = _as_tuple(op(*inputs("cpu")))
+        assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
     assert launch_counts() == before
 
 

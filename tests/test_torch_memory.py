@@ -20,7 +20,7 @@ from repro.train import AdamWConfig as JaxAdamW  # noqa: E402
 from repro.train import make_train_step as jax_train_step  # noqa: E402
 from repro.train import optimizer as jax_opt  # noqa: E402
 from repro_torch.configs import ARCH_IDS  # noqa: E402
-from repro_torch.kernels import _scratch  # noqa: E402
+from repro_torch.kernels import _scratch, _shape  # noqa: E402
 from repro_torch.kernels.causal_conv import causal_conv, causal_conv_bwd  # noqa: E402
 from repro_torch.kernels.causal_conv import kernel as conv_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
@@ -36,7 +36,7 @@ from repro_torch.kernels.rms_norm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rms_norm import rms_norm_bwd  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd  # noqa: E402
-from repro_torch.launch import dryrun, memory, report  # noqa: E402
+from repro_torch.launch import dryrun, report  # noqa: E402
 from repro_torch.launch.memory import MemoryTracker  # noqa: E402
 from repro_torch.models.config import SHAPES, ShapeConfig  # noqa: E402
 
@@ -114,7 +114,7 @@ def test_an_output_with_no_storage_raises():
 
 
 def test_a_kernel_op_with_no_scratch_function_raises(monkeypatch):
-    monkeypatch.delitem(memory.KERNEL_SCRATCH, "moe_router")
+    monkeypatch.delattr(_shape, "moe_router_scratch")
     with MemoryTracker():
         with pytest.raises(RuntimeError, match="no scratch function"):
             moe_router(_empty((70, 8)), 2)
@@ -197,7 +197,7 @@ def test_kernel_op_charge_is_its_outputs_plus_its_scratch(name):
     persistent = scratch if name == "decode_attention" else 0
     assert mt.live == _bytes(outs) + persistent
     if name == "fused_augment":
-        assert memory.KERNEL_SCRATCH["fused_augment"] is not None and spec == {}
+        assert _shape.fused_augment_scratch is not None and spec == {}
 
 
 def test_scratch_at_the_main_paths_shapes():

@@ -7,6 +7,8 @@
   (``repro.core``, ``repro.data``) and nothing else of it, no ``jax``, and
   importing one loads no ``jax`` module.
 * The port's config registry equals the JAX one field by field.
+* The kernel layer imports nothing of the launch layer, and its wrappers
+  leave the device decision to the one route rule (``kernels/_route.py``).
 """
 import ast
 import dataclasses
@@ -78,6 +80,17 @@ def test_scan_covers_the_port():
     assert {f"src/repro_torch/dist/{n}" for n in dist} <= names
     examples = {p.relative_to(ROOT).as_posix() for p in EXAMPLES}
     assert {"examples/train_e2e_torch.py", "examples/device_feed_torch.py"} <= examples
+
+
+def test_kernels_import_no_launch_and_route_in_one_place():
+    kernels = sorted((PORT / "kernels").rglob("*.py"))
+    assert len(kernels) > 20
+    bad = {p.relative_to(PORT).as_posix(): m for p in kernels for m in _imported_modules(p)
+           if m.startswith("repro_torch.launch")}
+    assert not bad, bad
+    for ops in (PORT / "kernels").glob("*/ops.py"):
+        text = ops.read_text()
+        assert '("cuda", "meta")' not in text and ".launches += 1" not in text, ops
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

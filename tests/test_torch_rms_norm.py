@@ -113,14 +113,6 @@ def test_plain_backward_against_autograd_of_the_plain_forward(gated, dtype):
         assert float((g_.double() - w_.double()).abs().max()) <= tol * float(w_.abs().max())
 
 
-def test_wrapper_backward_takes_the_plain_version_on_the_cpu():
-    y, z, w = _gated_inputs(1, 9, 32, 2, 4, BF16, seed=7)
-    dout = torch.ones((1, 9, 32), dtype=BF16)
-    rstd = rstd_ref(y, EPS, z)
-    got, want = rms_norm_bwd(y, w, rstd, dout, z), rms_norm_bwd_ref(y, w, rstd, dout, z)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-
-
 def _bad_calls():
     y, z, w = _gated_inputs(2, 6, 32, 2, 4, BF16)
     x = y.to(BF16)

@@ -413,17 +413,39 @@ def test_refuse_grad_raises_only_while_recording_a_gradient():
         _grad.refuse_grad("decode_attention", x * 2)  # an activation downstream of a parameter
 
 
+def _route_order():
+    """Positions, in the route rule's source, of its CPU branch, its
+    autograd test, the ``Function`` and the device route."""
+    import inspect
+
+    from repro_torch.kernels import _route
+
+    src = inspect.getsource(_route.call)
+    return [src.index(t) for t in ('device.type == "cpu"', "torch.is_grad_enabled()",
+                                   "return function()", "return device()")]
+
+
 @pytest.mark.parametrize("module", ["decode_attention"])
 def test_kernels_without_backward_guard_their_cuda_route(module):
-    """Each such wrapper calls the guard on its CUDA route, after the device
-    dispatch and before the launch."""
+    """Each such wrapper calls the guard on its CUDA route (the route rule's
+    device route, after its device dispatch) before the launch: a call that
+    autograd records raises on ``meta`` as on CUDA, and takes the plain
+    version on the CPU."""
     import importlib
     import inspect
 
     ops = importlib.import_module(f"repro_torch.kernels.{module}.ops")
-    src = inspect.getsource(getattr(ops, module))
-    cpu, guard = src.index('device.type == "cpu"'), src.index(f'refuse_grad("{module}"')
-    assert cpu < guard < src.index("_fwd(")
+    cpu, _, _, device = _route_order()
+    assert cpu < device
+    assert "device=lambda: _device(" in inspect.getsource(getattr(ops, module))
+    src = inspect.getsource(ops._device)
+    assert src.index(f'refuse_grad("{module}"') < src.index("_fwd(")
+    q, k = torch.randn(2, 4, 32, requires_grad=True), torch.randn(2, 8, 2, 32)
+    lengths = torch.tensor([8, 3], dtype=torch.int32)
+    assert getattr(ops, module)(q, k, k, lengths).requires_grad  # the plain version
+    with pytest.raises(RuntimeError, match="no backward"):
+        getattr(ops, module)(q.detach().to("meta").requires_grad_(), k.to("meta"),
+                             k.to("meta"), lengths.to("meta"))
 
 
 @pytest.mark.parametrize("module,function", [("ssd_scan", "SSDScan"),
@@ -439,11 +461,21 @@ def test_kernels_with_backward_take_their_function_on_the_cuda_route(module, fun
     ops = importlib.import_module(f"repro_torch.kernels.{module}.ops")
     src = inspect.getsource(getattr(ops, module))
     assert "refuse_grad" not in inspect.getsource(ops)
-    cpu, record = src.index('device.type == "cpu"'), src.index("torch.is_grad_enabled()")
-    assert cpu < record < src.index(f"{function}.apply(") < src.index("return _forward(")
+    cpu, record, apply, device = _route_order()
+    assert cpu < record < apply < device
+    assert f"function=lambda: {function}.apply(" in src and "device=lambda: _forward(" in src
     fn = getattr(ops, function)
     assert issubclass(fn, torch.autograd.Function)
     assert f"{module}_bwd(" in inspect.getsource(fn.backward)
+    if module == "ssd_scan":
+        args = [torch.empty(s, device="meta") for s in
+                ((1, 16, 4, 32), (1, 16, 4), (4,), (1, 16, 1, 16), (1, 16, 1, 16), (4,))]
+        call = lambda *a: ops.ssd_scan(*a, chunk=16)[0]  # noqa: E731
+    else:
+        args, call = [torch.empty((8, 4), device="meta")], lambda t: ops.moe_router(t, 2)[1]
+    assert call(*args).grad_fn is None
+    out = call(args[0].requires_grad_(), *args[1:])
+    assert out.device.type == "meta" and type(out.grad_fn).__name__ == f"{function}Backward"
 
 
 # ---------------------------------------------------------------------------
