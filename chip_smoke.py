@@ -105,8 +105,14 @@ every phase passed):
               edges of the plan and of the element-wise route, bit-equal
               across two runs, beside the bytes bound and the plain
               version's time (the backward's: autograd through it, the
-              glue it replaced).  Then the memory check of each of the
-              twelve kernels
+              glue it replaced).  Then the AdamW update's cases
+              (``adamw_cases``, ``ADAMW_SEED``): ptxas compiled all eight
+              dtype instantiations with no spill; the kernel against its
+              expression in f64 at the largest leaf of each benchmark cell,
+              a clipped step, a 1-D leaf and bf16 leaves, gradients and
+              moments, bit-equal across two runs, beside the bytes bound,
+              the plain version's time and PyTorch's fused AdamW's.  Then
+              the memory check of each of the thirteen kernels
               (``phase_kernel_memory``): one call at its main case after a
               warm-up, its rise of ``max_memory_allocated`` against what
               ``repro_torch.launch.memory.MemoryTracker`` charges the same
@@ -240,8 +246,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # The card's peaks (H100 SXM, dense) and the FLOP and byte formulas of the
 # kernels, one copy in the port (``repro_torch.launch.flops``).
 try:
-    from repro_torch.launch.flops import (HBM_BYTES_PER_S, PEAK_FLOPS, augment_bound, bound,
-                                          conv_bwd_flops, conv_bytes, conv_flops,
+    from repro_torch.launch.flops import (HBM_BYTES_PER_S, PEAK_FLOPS, adamw_bytes,
+                                          adamw_flops, augment_bound, bound, conv_bwd_flops,
+                                          conv_bytes, conv_flops,
                                           decode_bytes, decode_flops, flash_flops,
                                           norm_bwd_flops, norm_bytes, norm_flops,
                                           router_bwd_flops, router_bytes, router_flops,
@@ -479,6 +486,29 @@ NORM_CASES = (
 NORM_ULP_SHARE = 0.999
 NORM_MAX_STEPS = 2  # and no bf16 entry further off (a wrong row or tail store)
 NORM_TOL = 1e-5
+# (name, leaf shape, p dtype, g dtype, moment dtype, clip scale) of the AdamW
+# update's cases: the largest leaf of each benchmark cell (mamba2-2.7b's
+# stacked in_proj, 64 x 2560 x 10576, and starcoder2-3b's w1, 30 x 3072 x
+# 12288, both trained in f32), a clipped step, a 1-D leaf (not decayed), bf16
+# moments, bf16 leaves and gradients, and sizes no multiple of a chunk (the
+# scalar tail).  Hyperparameters of a third step, lr 1e-3 so that the step
+# stands well above the rounding of p.
+ADAMW_SEED = 24
+ADAMW_CASES = (
+    ("mamba2_in_proj", (64, 2560, 10576), "float32", "float32", "float32", 1.0),
+    ("starcoder2_w1", (30, 3072, 12288), "float32", "float32", "float32", 0.25),
+    ("vector_1d", (2560,), "float32", "float32", "float32", 1.0),
+    ("bf16_moments", (1000, 1003), "float32", "float32", "bfloat16", 0.5),
+    ("bf16_leaf_grad", (1000, 1003), "bfloat16", "bfloat16", "float32", 1.0),
+    ("bf16_all_odd", (77, 13), "bfloat16", "bfloat16", "bfloat16", 0.5),
+    ("f32_odd", (7, 9), "float32", "float32", "float32", 1.0),
+)
+ADAMW_HYPER = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, c1=0.271, c2=0.142625,
+                   weight_decay=0.1)
+# of the largest entry (of the step lr * delta, for p), beside one step of
+# the output's dtype: a few f32 roundings of the terms against f64
+ADAMW_TOL = 1e-6
+ADAMW_INSTANTIATIONS = 8  # p, g and the moments each f32 or bf16
 FLASH_BWD_CASES_SLICE10 = (
     ("whisper_encoder_bwd_S1500", 8, 1500, 1500, 20, 20, 64, "bfloat16", dict(causal=False)),
     ("whisper_cross_bwd_Sq448_Sk1500", 8, 448, 1500, 20, 20, 64, "bfloat16",
@@ -526,7 +556,8 @@ NO_SPILL_KERNELS = ("decode_kernel", "decode_merge_kernel", "ssd_chunk_state", "
                     "ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_chunk",
                     "ssd_bwd_group_sum", "ssd_bwd_head_sum", "route_bwd",
                     "causal_conv_fwd_kernel", "causal_conv_bwd_kernel", "causal_conv_bwd_reduce",
-                    "rms_norm_fwd_kernel", "rms_norm_bwd_kernel", "rms_norm_bwd_reduce")
+                    "rms_norm_fwd_kernel", "rms_norm_bwd_kernel", "rms_norm_bwd_reduce",
+                    "adamw_update_kernel")
 # bf16 only: largest error in a row over that row's RMS in the f32 plain
 # output.  A bf16 step is 2^-8 of a value, so a right kernel stays near
 # 2^-8 * (row max / row RMS), about 0.015; one key too many or too few in a
@@ -1632,6 +1663,171 @@ def norm_cases():
     return recs
 
 
+def adamw_inputs(shape, pdt, gdt, sdt, gen):
+    """p, g, m and v of one leaf on the card, as a third step finds them: p
+    at the models' init scale, moments of a few steps (v > 0)."""
+    import torch
+
+    def randn(scale, dt):
+        t = torch.randn(shape, generator=gen, device="cuda")
+        return t.mul_(scale).to(getattr(torch, dt))
+
+    v = torch.rand(shape, generator=gen, device="cuda").mul_(1e-8).to(getattr(torch, sdt))
+    return randn(0.02, pdt), randn(1e-4, gdt), randn(1e-5, sdt), v
+
+
+def adamw_f64(p, g, m, v, scale, lr, b1, b2, eps, c1, c2, weight_decay):
+    """The kernel's expression in f64 from the same inputs and the same f32
+    constants: (p, m, v, the step lr * delta)."""
+    import numpy as np
+    import torch
+
+    def f(x):
+        return float(np.float32(x))
+
+    d64 = torch.float64
+    gs = g.to(d64) * scale.to(d64)
+    m64 = f(b1) * m.to(d64) + f(1 - b1) * gs
+    v64 = f(b2) * v.to(d64) + f(1 - b2) * gs * gs
+    delta = (m64 / f(c1)) / (torch.sqrt(v64 / f(c2)) + f(eps))
+    if p.dim() >= 2:
+        delta = delta + f(weight_decay) * p.to(d64)
+    step = f(lr) * delta
+    return p.to(d64) - step, m64, v64, step
+
+
+def adamw_err(got, want64, largest) -> float:
+    """The largest |got - want| over one step of got's dtype at want plus
+    ``ADAMW_TOL`` of ``largest``: 1 or less passes."""
+    import torch
+
+    step = 2.0 ** -7 if got.dtype == torch.bfloat16 else 2.0 ** -23
+    allowed = step * want64.abs() + ADAMW_TOL * largest
+    return float(((got.double() - want64).abs() / allowed.clamp_min(1e-300)).max())
+
+
+def bits_print(t) -> int:
+    """A fingerprint of ``t``'s bits: their position-weighted sum (two runs
+    that differ in any one value differ here)."""
+    import torch
+
+    bits = t.reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+    w = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+    return int((bits.long() * w).sum())
+
+
+def adamw_case(name, shape, pdt, gdt, sdt, scale, gen):
+    """``adamw_update`` against its expression in f64 on the card, slice by
+    slice of the leading dim (``adamw_err``: p within one step of its dtype
+    plus ``ADAMW_TOL`` of the largest step, m and v of their largest entry),
+    and a second run from the same inputs bit-equal to the first (by each
+    slice's ``bits_print``).  Times: the kernel (CUDA events over 10 calls and
+    the profiler's device time), the plain version on the card, and
+    PyTorch's fused AdamW (``torch._fused_adamw_``: a timing only, since it
+    decays p before the moments and every leaf); the bound at the bytes
+    (``flops.adamw_bytes`` at 3.35 TB/s)."""
+    import torch
+
+    from repro_torch.kernels import adamw_update
+    from repro_torch.kernels.adamw_update import adamw_update_ref
+
+    hyper = ADAMW_HYPER
+    p, g, m, v = adamw_inputs(shape, pdt, gdt, sdt, gen)
+    s = torch.tensor(scale, device="cuda")
+    before = [t.clone() for t in (p, m, v)]
+    rows = [slice(i, i + 1) for i in range(shape[0])] if len(shape) > 2 else [slice(None)]
+    adamw_update(p, g, m, v, s, **hyper)
+    torch.cuda.synchronize()
+    errs, gap, first = dict(p=0.0, m=0.0, v=0.0), 0.0, []
+    for r in rows:
+        want = adamw_f64(before[0][r], g[r], before[1][r], before[2][r], s, **hyper)
+        big = float(want[3].abs().max())
+        for k, got, w, largest in (("p", p[r], want[0], big),
+                                   ("m", m[r], want[1], float(want[1].abs().max())),
+                                   ("v", v[r], want[2], float(want[2].abs().max()))):
+            errs[k] = max(errs[k], adamw_err(got, w, largest))
+        gap = max(gap, float((p[r].double() - want[0]).abs().max()))
+        first.append([bits_print(t[r]) for t in (p, m, v)])
+        del want
+    for t, b in zip((p, m, v), before):
+        t.copy_(b)
+    adamw_update(p, g, m, v, s, **hyper)
+    equal = all([bits_print(t[r]) for t in (p, m, v)] == f for r, f in zip(rows, first))
+    del before
+    torch.cuda.empty_cache()
+
+    n = p.numel()
+    nbytes = adamw_bytes(n, p.element_size(), g.element_size(), m.element_size())
+    bound_ms, bound_by = bound(adamw_flops(n, len(shape) >= 2), nbytes, "float32")
+    kernel_ms = time_ms(lambda: adamw_update(p, g, m, v, s, **hyper), 10, 2)
+    dev = device_ms(lambda: adamw_update(p, g, m, v, s, **hyper), 10)
+    plain_ms = time_ms(lambda: adamw_update_ref(p, g, m, v, s, **hyper), 3, 1)
+    library_ms = library_dev = None
+    if p.dtype == g.dtype == m.dtype:
+        steps = [torch.tensor(3.0, device="cuda")]
+
+        def library():
+            torch._fused_adamw_([p], [g], [m], [v], [], steps, lr=hyper["lr"],
+                                beta1=hyper["b1"], beta2=hyper["b2"],
+                                weight_decay=hyper["weight_decay"], eps=hyper["eps"],
+                                amsgrad=False, maximize=False)
+
+        library_ms = time_ms(library, 10, 2)
+        library_dev = device_ms(library, 10)
+    rec = dict(kernel="adamw_update", case=name, shape=list(shape),
+               dtype=f"{pdt} p, {gdt} g, {sdt} moments", scale=scale, errs=errs,
+               max_abs_err=gap, tol=ADAMW_TOL, bit_equal_across_runs=equal,
+               kernel_ms=kernel_ms, device_ms=dev, plain_ms=plain_ms, library_ms=library_ms,
+               library_device_ms=library_dev, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, bytes_per_s=nbytes / (kernel_ms * 1e-3),
+               bound_share=bound_ms / kernel_ms,
+               device_bound_share=bound_ms / dev if isinstance(dev, float) else None,
+               ok=max(errs.values()) <= 1.0 and equal)
+    log(rec)
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return rec
+
+
+def adamw_ptxas() -> dict:
+    """ptxas's lines for the update's instantiations: all
+    ``ADAMW_INSTANTIATIONS`` compiled, none spilling."""
+    from repro_torch.kernels import _build
+
+    _build.build("adamw")
+    lines = _build.build_log("adamw").splitlines()
+    entries = [ln for ln in lines if "Compiling entry function" in ln
+               and "adamw_update_kernel" in ln]
+    regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines if "registers" in ln]
+    spills = ptxas_spills(lines)
+    rec = dict(phase="kernels/adamw_ptxas", instantiations=len(entries),
+               max_registers=max(regs, default=0), spills=spills,
+               ok=len(entries) == ADAMW_INSTANTIATIONS and not spills)
+    log(rec)
+    return rec
+
+
+def adamw_cases():
+    """The AdamW update's cases (``ADAMW_CASES``) on their own generator
+    (``ADAMW_SEED``), after the norm's, and its ptxas check."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    ptx = adamw_ptxas()
+    if not ptx["ok"]:
+        raise SystemExit(f"adamw_update: ptxas: {ptx}")
+    g = torch.Generator(device="cuda").manual_seed(ADAMW_SEED)
+    recs = [adamw_case(name, *case, gen=g) for name, *case in ADAMW_CASES]
+    bad = [(r["case"], r["errs"], r["bit_equal_across_runs"]) for r in recs if not r["ok"]]
+    if bad:
+        raise SystemExit(f"adamw_update parity failed: {bad}")
+    log(f"adamw_update parity: {len(recs)} records passed; launches while comparing (not "
+        f"counted as main path): {launch_counts()}")
+    reset_launch_counts()
+    return recs
+
+
 def augment_inputs(B, H, W, C, oh, ow, corners, gen, alternate_flips=False):
     """images, crops, flips, mean, std on the card.  ``corners="random"``:
     each corner within the image, as the JAX suite draws them;
@@ -1898,10 +2094,10 @@ def kernel_memory_cases(gen):
     (``MAIN_CASE``'s shapes)."""
     import torch
 
-    from repro_torch.kernels import (causal_conv, causal_conv_bwd, decode_attention,
-                                     flash_attention, flash_attention_bwd, fused_augment,
-                                     moe_router, moe_router_bwd, rms_norm, rms_norm_bwd,
-                                     ssd_scan, ssd_scan_bwd)
+    from repro_torch.kernels import (adamw_update, causal_conv, causal_conv_bwd,
+                                     decode_attention, flash_attention, flash_attention_bwd,
+                                     fused_augment, moe_router, moe_router_bwd, rms_norm,
+                                     rms_norm_bwd, ssd_scan, ssd_scan_bwd)
     from repro_torch.kernels.flash_attention import flash_attention_with_lse
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1936,6 +2132,8 @@ def kernel_memory_cases(gen):
     yn, zn, wn = norm_inputs(lead, Dn, row, ndt, zdt, nwdt, gen)
     rstd = torch.rand(lead, generator=gen, device="cuda").reshape(-1)
     dn = randn(*lead, Dn, dtype=zn.dtype)
+    # the update of one layer's in_proj (in place: no output, no scratch)
+    leaf = adamw_inputs((2560, 10576), "float32", "float32", "float32", gen)
     return [
         ("flash_attention", (q, k, v), lambda *t: flash_attention(*t, window=4096)),
         ("flash_attention_bwd", (q, k, v, o, lse, dq),
@@ -1952,6 +2150,8 @@ def kernel_memory_cases(gen):
         ("causal_conv_bwd", (xbc, w, b, *douts), causal_conv_bwd),
         ("rms_norm", (yn, wn, zn), lambda y_, w_, z_: rms_norm(y_, w_, NORM_EPS, gate=z_)),
         ("rms_norm_bwd", (yn, wn, rstd, dn, zn), rms_norm_bwd),
+        ("adamw_update", (*leaf, torch.tensor(0.5, device="cuda")),
+         lambda *t: adamw_update(*t, **ADAMW_HYPER)),
     ]
 
 
@@ -3708,6 +3908,11 @@ KERNEL_META = {
         source="src/repro_torch/kernels/csrc/rms_norm.cu",
         replaces="src/repro/models/layers.py:41",
         note="the port's own kernel: JAX trains through autograd of the jnp norms (XLA)"),
+    "adamw_update": dict(
+        source="src/repro_torch/kernels/csrc/adamw.cu",
+        replaces="src/repro/train/optimizer.py:71",
+        note="the port's own kernel: no TPU kernel computes it; XLA fuses the JAX update "
+             "(upd) into one loop a leaf, eager PyTorch ran it as eleven tensor ops"),
 }
 # the parity case at the main path's shape that each kernel's line reports.
 # ssd_scan's is f32: mamba2-2.7b's mixer runs its conv with the f32 params
@@ -3718,7 +3923,8 @@ MAIN_CASE = {"flash_attention": f"main_S{PREFILL_S}", "decode_attention": "main_
              "fused_augment": "imagenet_B256", "flash_attention_bwd": f"main_S{PREFILL_S}",
              "ssd_scan_bwd": "mamba2_train_S8192", "moe_router_bwd": "moonshot_train_T4096",
              "causal_conv": "mamba2_train_B4_L2048", "causal_conv_bwd": "mamba2_train_B4_L2048",
-             "rms_norm": "mamba2_gated_B4_L2048", "rms_norm_bwd": "mamba2_gated_B4_L2048"}
+             "rms_norm": "mamba2_gated_B4_L2048", "rms_norm_bwd": "mamba2_gated_B4_L2048",
+             "adamw_update": "mamba2_in_proj"}
 
 
 def main() -> int:
@@ -3737,6 +3943,7 @@ def main() -> int:
     recs = phase_kernels(PREFILL_S)
     recs += conv_cases()
     recs += norm_cases()
+    recs += adamw_cases()
     phase_kernel_memory()
     totals = {}
 

@@ -29,6 +29,9 @@ Kernels:
                         the gate read in place from the in_proj output)
   rms_norm_bwd        - its backward (dx, the gate's gradient; dw in a fixed
                         order)
+  adamw_update        - one AdamW step of one leaf in place, the clip scale
+                        read on the card; the port's own (XLA fuses the
+                        update in JAX)
 
 Under autograd on a CUDA tensor, ``flash_attention``, ``ssd_scan``,
 ``moe_router``, ``causal_conv`` and ``rms_norm`` run their forward and
@@ -38,6 +41,7 @@ backward: on a CUDA tensor that needs a gradient it raises
 """
 from typing import Dict
 
+from .adamw_update import adamw_update
 from .causal_conv import causal_conv, causal_conv_bwd
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention, flash_attention_bwd
@@ -51,7 +55,7 @@ KERNELS = {"flash_attention": flash_attention, "flash_attention_bwd": flash_atte
            "ssd_scan_bwd": ssd_scan_bwd, "moe_router": moe_router,
            "moe_router_bwd": moe_router_bwd, "fused_augment": fused_augment,
            "causal_conv": causal_conv, "causal_conv_bwd": causal_conv_bwd,
-           "rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd}
+           "rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd, "adamw_update": adamw_update}
 
 
 def launch_counts() -> Dict[str, int]:

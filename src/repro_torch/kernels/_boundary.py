@@ -239,3 +239,21 @@ def batched(fn: Callable, args: Sequence[Any], batch_args: int, **kw: Any) -> An
     lay = _Layout(args[0].device_mesh)
     ins = [lay.place(a, 0 if i < batch_args else None) for i, a in enumerate(args)]
     return _call(lambda *a: fn(*a, **kw), lay, list(args), ins, ins, [ins[0]])
+
+
+def adamw_update(fn: Callable, p: Any, g: Any, m: Any, v: Any, scale: Any,
+                       **kw: Any) -> None:
+    """``fn(p, g, m, v, scale, **kw)`` in place on each rank's local shards
+    (the AdamW update): g is first laid out as p (a pending sum reduced);
+    m and v must have p's placements; the scale is a plain 0-d tensor, the
+    same on every rank."""
+    mesh, pl = p.device_mesh, tuple(p.placements)
+    if not isinstance(g, DTensor):
+        raise ValueError("adamw_update: a DTensor leaf takes a DTensor gradient")
+    for name, t in (("m", m), ("v", v)):
+        if not isinstance(t, DTensor) or tuple(t.placements) != pl:
+            raise ValueError(f"adamw_update: {name} must be laid out as the leaf, {pl}; got "
+                             f"{getattr(t, 'placements', 'a plain tensor')}")
+    if tuple(g.placements) != pl:
+        g = g.redistribute(mesh, pl)
+    fn(p.to_local(), g.to_local(), m.to_local(), v.to_local(), scale, **kw)

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._scratch import Scratch
+from .adamw_update import kernel as adamw_kernel
 from .causal_conv import kernel as conv_kernel
 from .decode_attention import kernel as decode_kernel
 from .flash_attention import kernel as flash_kernel
@@ -261,3 +262,21 @@ def _(images, crops, flips, mean, std, out_h, out_w):
 
 def fused_augment_scratch(images, crops, flips, mean, std, out_h, out_w):
     return augment_kernel.fwd_scratch(*images.shape, out_h, out_w)
+
+
+# --- AdamW update -----------------------------------------------------------------
+@torch.library.custom_op("repro_torch::adamw_update", mutates_args=("p", "m", "v"))
+def adamw_update(p: Tensor, g: Tensor, m: Tensor, v: Tensor, scale: Tensor, lr: float,
+                 b1: float, b2: float, eps: float, c1: float, c2: float,
+                 weight_decay: float) -> None:
+    raise _refuse("adamw_update")
+
+
+@adamw_update.register_fake
+def _(p, g, m, v, scale, lr, b1, b2, eps, c1, c2, weight_decay):
+    # in place: p, m and v are its outputs, and it allocates nothing
+    return None
+
+
+def adamw_update_scratch(p, g, m, v, scale, lr, b1, b2, eps, c1, c2, weight_decay):
+    return adamw_kernel.update_scratch(p.numel())

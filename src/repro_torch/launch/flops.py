@@ -166,6 +166,21 @@ def norm_bytes(T: int, D: int, x_item: int, out_item: int, z_item: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# AdamW update (one leaf, in place)
+# ---------------------------------------------------------------------------
+def adamw_flops(n: int, decay: bool = True) -> float:
+    """One AdamW step of n elements: the scale (1), the first moment (3), the
+    second (4), the two bias corrections, the root, eps and the quotient (5),
+    the step (2), 15 a value; the decay adds its product and sum (2)."""
+    return (17.0 if decay else 15.0) * n
+
+
+def adamw_bytes(n: int, p_item: int, g_item: int, state_item: int) -> float:
+    """p, m and v read and written once, g read once."""
+    return float(n) * (2 * p_item + g_item + 4 * state_item)
+
+
+# ---------------------------------------------------------------------------
 # MoE router
 # ---------------------------------------------------------------------------
 def router_flops(T: int, E: int, k: int) -> float:
@@ -263,6 +278,12 @@ def _(x, w, gate, eps, *args, out_shape=None, **kwargs):
 @register_flop_formula(_ops.rms_norm_bwd)
 def _(x, w, rstd, dout, gate, *args, out_shape=None, **kwargs):
     return int(norm_bwd_flops(math.prod(x[:-1]), x[-1], gated=gate is not None))
+
+
+@register_flop_formula(_ops.adamw_update)
+def _(p, g, m, v, scale, lr, b1, b2, eps, c1, c2, weight_decay, *args, out_shape=None,
+      **kwargs):
+    return int(adamw_flops(math.prod(p), decay=weight_decay != 0))
 
 
 @register_flop_formula(_ops.moe_router)

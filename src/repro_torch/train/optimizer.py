@@ -9,10 +9,11 @@ are 2-D and decayed, as in JAX, and ``final_norm`` is not.
 
 Unlike JAX, ``apply_updates`` updates the parameters and moments IN PLACE
 (and returns the same objects): at full width a stacked leaf such as
-starcoder2-3b's ``w1`` is 30 x 3072 x 12288 f32 = 4.5 GB, and the update
-makes at most one f32 temporary of a leaf's size (more only for leaves or
-moments stored in a narrower type), so parameters, gradients and both
-moments (4 x 12.7 GB) still fit one 80 GB card with the activations.
+starcoder2-3b's ``w1`` is 30 x 3072 x 12288 f32 = 4.5 GB.  Each leaf's
+update is one pass of the ``adamw_update`` kernel (the twin of the loop XLA
+fuses ``upd`` into), which reads p, g, m and v once, writes p, m and v once
+and makes no temporary, so parameters, gradients and both moments (4 x 12.7
+GB) fit one 80 GB card with the activations.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..bridge import flatten_with_paths, map_with_paths
+from ..kernels import adamw_update
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -143,34 +145,21 @@ def apply_updates(
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, IN PLACE on ``params`` and ``state`` (returned as
     ``(params, state, metrics)``; metrics ``grad_norm`` (before clipping)
-    and ``lr``)."""
+    and ``lr``).  Each leaf is one ``adamw_update`` call; the clip scale
+    stays a 0-d tensor on the gradients' device, so nothing waits for the
+    card; the step, the learning rate and the bias corrections are the
+    host's."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
-    scale = float(torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0))
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = lr_schedule(cfg, step)
     step32 = step.to(torch.float32)
     c1 = float(1.0 - _f32(cfg.b1) ** step32)
     c2 = float(1.0 - _f32(cfg.b2) ** step32)
-    lr_f = float(lr)
-
+    kw = dict(lr=float(lr), b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, c1=c1, c2=c2,
+              weight_decay=cfg.weight_decay)
     for p, g, m, v in zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
                           _leaves(state["v"])):
-        g32 = g if g.dtype == torch.float32 else g.float()
-        m32 = m if m.dtype == torch.float32 else m.float()
-        v32 = v if v.dtype == torch.float32 else v.float()
-        # m = b1 m + (1 - b1) g s ;  v = b2 v + (1 - b2) (g s)^2
-        m32.mul_(cfg.b1).add_(g32, alpha=(1 - cfg.b1) * scale)
-        v32.mul_(cfg.b2).addcmul_(g32, g32, value=(1 - cfg.b2) * scale * scale)
-        # delta = (m / c1) / (sqrt(v / c2) + eps), in the one temporary
-        delta = torch.div(v32, c2).sqrt_().add_(cfg.eps)
-        torch.div(m32, delta, out=delta).div_(c1)
-        p32 = p if p.dtype == torch.float32 else p.float()
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
-            delta.add_(p32, alpha=cfg.weight_decay)
-        p32.sub_(delta, alpha=lr_f)
-        del delta
-        for dst, src in ((p, p32), (m, m32), (v, v32)):
-            if dst is not src:
-                dst.copy_(src)
+        adamw_update(p, g, m, v, scale, **kw)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

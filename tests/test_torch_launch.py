@@ -144,6 +144,7 @@ def _op_cases(alt: bool = False):
     """(name, wrapper call on a device, formula FLOPs, plain version call):
     each kernel op at a small shape the kernels take; ``alt``: a second
     shape (one sequence of 9 steps, one B/C group, 10 routed tokens)."""
+    from repro_torch.kernels.adamw_update import adamw_update, adamw_update_ref
     from repro_torch.kernels.causal_conv import (causal_conv, causal_conv_bwd,
                                                  causal_conv_bwd_ref, causal_conv_ref)
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
@@ -227,6 +228,17 @@ def _op_cases(alt: bool = False):
         out = rms_norm_ref(y, w, 1e-6, z)
         return [t.to(dev) for t in (y, w, rstd_ref(y, 1e-6, z), torch.ones_like(out), z)]
 
+    def adamw_in(dev):  # a stacked (decayed) leaf of 10 x 13 values, no multiple of 8
+        g = torch.Generator().manual_seed(seed + 7)
+        p, grad, m = (torch.randn((10, 13), generator=g) for _ in range(3))
+        v = torch.rand((10, 13), generator=g)
+        return [t.to(dev) for t in (p, grad, m, v, torch.tensor(0.5))]
+
+    adamw_kw = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, c1=0.19, c2=0.0975, weight_decay=0.1)
+
+    def updated(fn):  # the update's in-place outputs, as a kernel op's outputs
+        return lambda p, g, m, v, s: (fn(p, g, m, v, s, **adamw_kw), (p, m, v))[1]
+
     fl = flops.flash_flops
     kw = dict(causal=True, window=10, q_offset=16)
     return [
@@ -257,6 +269,8 @@ def _op_cases(alt: bool = False):
          flops.norm_flops(Bs * L, H * P, gated=True), lambda y, w, z: rms_norm_ref(y, w, 1e-6, z)),
         ("rms_norm_bwd", norm_bwd_in, rms_norm_bwd,
          flops.norm_bwd_flops(Bs * L, H * P, gated=True), rms_norm_bwd_ref),
+        ("adamw_update", adamw_in, updated(adamw_update), flops.adamw_flops(10 * 13),
+         updated(adamw_update_ref)),
     ]
 
 
@@ -267,7 +281,8 @@ def _as_tuple(x):
 # every wrapper of kernels.KERNELS on each device, and the backward wrappers
 # on the CPU at the second shape
 ROUTE_CASES = [(n, dev) for n in KERNELS for dev in ("cpu", "meta")] + [
-    (n, "cpu-alt") for n in ("ssd_scan_bwd", "moe_router_bwd", "causal_conv_bwd", "rms_norm_bwd")]
+    (n, "cpu-alt") for n in ("ssd_scan_bwd", "moe_router_bwd", "causal_conv_bwd", "rms_norm_bwd",
+                             "adamw_update")]
 
 
 @pytest.mark.parametrize("name,route", ROUTE_CASES)

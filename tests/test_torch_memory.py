@@ -21,6 +21,8 @@ from repro.train import make_train_step as jax_train_step  # noqa: E402
 from repro.train import optimizer as jax_opt  # noqa: E402
 from repro_torch.configs import ARCH_IDS  # noqa: E402
 from repro_torch.kernels import _scratch, _shape  # noqa: E402
+from repro_torch.kernels.adamw_update import adamw_update  # noqa: E402
+from repro_torch.kernels.adamw_update import kernel as adamw_kernel  # noqa: E402
 from repro_torch.kernels.causal_conv import causal_conv, causal_conv_bwd  # noqa: E402
 from repro_torch.kernels.causal_conv import kernel as conv_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
@@ -178,6 +180,11 @@ def _kernel_cases():
          norm_kernel.fwd_scratch(NB * L, H * P)),
         ("rms_norm_bwd", (y, wn, _empty((NB * L,)), _empty((NB, L, H * P), torch.bfloat16), z),
          rms_norm_bwd, norm_kernel.bwd_scratch(NB * L, H * P)),
+        # in place on the leaf and its moments: no output, no temporary
+        ("adamw_update", (x, x.clone(), x.clone(), x.clone(), _empty(())),
+         lambda *t: adamw_update(*t, lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, c1=0.1, c2=0.05,
+                                 weight_decay=0.1) or (),
+         adamw_kernel.update_scratch(x.numel())),
     ]
 
 
